@@ -8,9 +8,10 @@ which raises on failure:
 
 1. device: a CUDA card is required; prints its name and power limit and
    turns TF32 off (float32 end to end).
-2. build: compiles the three kernels from the port's ``csrc/`` with nvcc.
+2. build: compiles the three kernels from the port's ``csrc/``, one nvcc
+   per source, all started together.
 3. kernels: each kernel against its plain PyTorch version at the serving
-   path's shapes (batch 32 x 3 s) and at one ragged shape, max errors
+   path's shapes (batch 32 x 3 s) and at ragged shapes, max errors
    within the stated tolerances.
 4. trained weights: the ``tests/fixtures/tiny_denoiser_mask`` checkpoint,
    read by the port's msgpack reader, enhances two synthetic clips on
@@ -22,9 +23,13 @@ which raises on failure:
    clip, and went through all three kernels.
 6. serving: the HTTP server around that enhancer answers 6 concurrent
    requests, each equal to a direct ``enhance``.
-7. times: each kernel against its plain version (median of CUDA-event
-   timings over fresh inputs) and the slice's audio-seconds per second at
-   batch 32 x 3 s.
+7. times: each kernel against its plain version and its one-call PyTorch
+   yardstick (``torch.stft``, ``scaled_dot_product_attention``,
+   ``torch.istft``; the port never calls these), per-call CUDA-event times
+   over fresh inputs and the device time alone (``torch.profiler``),
+   beside its bound: the larger of its operations over the fp32 peak and
+   its bytes over the memory rate. Then the slice's audio-seconds per
+   second at batch 32 x 3 s.
 
 Prints, on its last three lines: the card's ``nvidia-smi`` name and power
 limit, a JSON line of per-kernel results, and the result JSON.
@@ -43,15 +48,20 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
 SR = 16000
 BATCH, SECONDS = 32, 3.0
 # tolerances (max abs error), with their reasons
-TOL_STFT = 2e-3  # fp32 DFT sums of 512 terms of |x|<~5 in another order
+TOL_STFT = 2e-3  # the plain version's fp32 DFT sums of 512 terms of |x|<~5 vs an fp32 FFT
 TOL_ATTN = 2e-5  # fp32 softmax(QK^T)V, online vs two-pass softmax
-TOL_ISTFT = 2e-5  # fp32 iDFT + overlap-add in another order
+TOL_ISTFT = 2e-5  # fp32 inverse DFT vs inverse FFT, overlap-add in another order
 TOL_WAVE = 2e-4  # waveform through ~20 fp32 layers on two devices (~6 PCM16 LSB)
+# H100 SXM peaks at the 700 W limit (NVIDIA data sheet): fp32 outside the
+# tensor cores, and HBM3
+FP32_PEAK = 67e12  # FLOP/s
+HBM_RATE = 3.35e12  # bytes/s
 
 
 def phase(name: str) -> None:
@@ -68,20 +78,67 @@ def speechlike(n: int, rng: np.random.Generator) -> np.ndarray:
     return x.astype(np.float32)
 
 
-def median_ms(fn, inputs) -> float:
-    """Median CUDA-event time of ``fn(*args)`` over ``inputs``, one fresh
-    argument tuple per timed call, after one warm-up call each."""
+def median_ms(fn, inputs, reps: int = 5) -> float:
+    """Per-call time of ``fn``: CUDA events around ``fn(*args)`` for every
+    argument tuple of ``inputs`` back to back (fresh data each call: the
+    tuples together exceed the 50 MB L2), divided by their number; the
+    median of ``reps`` such runs, after one warm-up run."""
     for args in inputs:
         fn(*args)
     times = []
-    for args in inputs:
+    for _ in range(reps):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        fn(*args)
+        for args in inputs:
+            fn(*args)
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / len(inputs))
     return statistics.median(times)
+
+
+def device_times(run) -> dict[str, float]:
+    """Device time (ms) of every CUDA kernel and copy ``run()`` enqueues,
+    summed by name, as ``torch.profiler`` records it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    times = {e.key: e.self_device_time_total / 1e3 for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA}
+    if sum(times.values()) <= 0:
+        raise RuntimeError("the profiler recorded no device time")
+    return times
+
+
+def device_ms(fn, inputs) -> float:
+    """Per-call device time of ``fn`` over one call per argument tuple of
+    ``inputs``, after one warm-up call each. Unlike ``median_ms`` it leaves
+    out the host's launch cost."""
+    for args in inputs:
+        fn(*args)
+
+    def run():
+        for args in inputs:
+            fn(*args)
+
+    return sum(device_times(run).values()) / len(inputs)
+
+
+def bound(flops: float, nbytes: float) -> tuple[float, str]:
+    """Least time (ms) the card could take: the larger of ``flops`` over
+    the fp32 peak and ``nbytes`` over the memory rate, and which binds."""
+    t_ops, t_bytes = flops / FP32_PEAK, nbytes / HBM_RATE
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes"
+
+
+def rfft_flops(n: int) -> float:
+    """Operations of one real FFT of ``n`` points (half a complex one's
+    5 n log2 n)."""
+    return 2.5 * n * np.log2(n)
 
 
 def max_err(a, b) -> float:
@@ -124,8 +181,9 @@ def main() -> int:
 
     phase("build")
     t0 = time.perf_counter()
-    lib = kernels.build()
-    print(f"built {lib.name} from csrc/*.cu in {time.perf_counter() - t0:.1f} s", flush=True)
+    libs = kernels.build()
+    print(f"built {sorted(p.name for p in libs.values())} from csrc/*.cu (one nvcc each, "
+          f"in parallel) in {time.perf_counter() - t0:.1f} s", flush=True)
 
     phase("kernels vs plain")
     cfg = STFTConfig()
@@ -133,7 +191,9 @@ def main() -> int:
     wav_len = int(SECONDS * SR) + 1024  # 49024 = (384-1)*128: the 3 s bucket
     n_frames, heads, n_tok, dh = 384, 8, 16 * 24, 64
     errs = {}
-    for shape in ((BATCH, wav_len), (1, 5123)):
+    # the main path's shape, a ragged length, and one shorter than a frame
+    # whose reflect padding reaches both ends
+    for shape in ((BATCH, wav_len), (1, 5123), (2, 300)):
         x = torch.randn(shape, generator=g).to(dev)
         errs.setdefault("stft_mag", []).append(
             max_err(cuda_stft.stft_mag(x, cfg), cuda_stft.stft_mag_plain(x, cfg)))
@@ -248,24 +308,60 @@ def main() -> int:
     mp = [(torch.rand(BATCH, 257, n_frames, generator=g).to(dev),
            (torch.rand(BATCH, 257, n_frames, generator=g) * 6.28 - 3.14).to(dev))
           for _ in range(n_fresh)]
-    timed = {
-        "stft_mag": (cuda_stft.stft_mag, cuda_stft.stft_mag_plain, xs),
+    win = torch.from_numpy(cfg.padded_window()).to(dev)
+    key_mask = main_mask[:, None, None, :]
+    timed = {  # name: (kernel, plain version, one-call library yardstick, inputs)
+        "stft_mag": (
+            cuda_stft.stft_mag, cuda_stft.stft_mag_plain,
+            lambda x, c: torch.stft(x, c.n_fft, c.hop_length, window=win, center=True,
+                                    pad_mode="reflect", return_complex=True).abs(),
+            xs),
         "attention_fwd": (
             lambda q, k, v: cuda_attention.attention(q, k, v, scale=dh**-0.5, mask=main_mask),
             lambda q, k, v: cuda_attention.attention_plain(q, k, v, scale=dh**-0.5, mask=main_mask),
+            lambda q, k, v: F.scaled_dot_product_attention(q, k, v, attn_mask=key_mask,
+                                                           scale=dh**-0.5),
             qkv),
         "istft_polar": (
             lambda m, p: cuda_stft.istft_polar(m, p, cfg, length=wav_len),
             lambda m, p: cuda_stft.istft_polar_plain(m, p, cfg, length=wav_len),
+            lambda m, p: torch.istft(torch.polar(m, p), cfg.n_fft, cfg.hop_length, window=win,
+                                     center=True, length=wav_len),
             mp),
     }
+    # operations and bytes each function must do and move on these inputs:
+    # every input read once, every output written once; attention counts the
+    # keys the mask keeps, since a masked key adds nothing to the output
+    n_bins, frames = cfg.num_bins, BATCH * n_frames
+    kept_keys = int(main_mask.sum())
+    work = {
+        "stft_mag": (frames * (rfft_flops(cfg.n_fft) + cfg.n_fft + 4 * n_bins),
+                     4 * (BATCH * wav_len + 3 * BATCH * n_bins * n_frames)),
+        "attention_fwd": (4 * heads * n_tok * dh * kept_keys,
+                          4 * 4 * BATCH * heads * n_tok * dh + BATCH * n_tok),
+        "istft_polar": (frames * (rfft_flops(cfg.n_fft) + 2 * n_bins + 2 * cfg.n_fft)
+                        + BATCH * wav_len,
+                        4 * (2 * BATCH * n_bins * n_frames + BATCH * wav_len)),
+    }
     ms = {}
-    for name, (kern, plain, inputs) in timed.items():
-        # plain, kernel, kernel, plain: take each side's better median
-        p1, k1, k2, p2 = (median_ms(f, inputs) for f in (plain, kern, kern, plain))
-        ms[name] = (min(k1, k2), min(p1, p2))
-        print(f"{name}: kernel {ms[name][0]:.4f} ms, plain {ms[name][1]:.4f} ms "
-              f"(median of {n_fresh} fresh inputs; {smi})", flush=True)
+    for name, (kern, plain, lib_call, inputs) in timed.items():
+        # plain, kernel, library, library, kernel, plain: each one's better median
+        p1, k1, l1, l2, k2, p2 = (median_ms(f, inputs)
+                                  for f in (plain, kern, lib_call, lib_call, kern, plain))
+        flops, nbytes = work[name]
+        b_ms, b_by = bound(flops, nbytes)
+        ms[name] = {"ms": min(k1, k2), "plain_ms": min(p1, p2), "library_ms": min(l1, l2),
+                    "bound_ms": b_ms, "bound_by": b_by, "device_ms": device_ms(kern, inputs)}
+        m = ms[name]
+        print(f"{name}: per call {m['ms']:.4f} ms (device {m['device_ms']:.4f}), plain "
+              f"{m['plain_ms']:.4f} ms (device {device_ms(plain, inputs):.4f}), library "
+              f"{m['library_ms']:.4f} ms (device {device_ms(lib_call, inputs):.4f}); bound "
+              f"{b_ms:.4f} ms by {b_by} ({flops / 1e9:.3f} GFLOP at {FP32_PEAK / 1e12:g} "
+              f"TFLOP/s fp32, {nbytes / 1e6:.2f} MB at {HBM_RATE / 1e12:g} TB/s); share of "
+              f"bound {b_ms / m['ms']:.1%} per call, {b_ms / m['device_ms']:.1%} on the device; "
+              f"device rates {flops / (m['device_ms'] * 1e-3) / 1e12:.2f} TFLOP/s, "
+              f"{nbytes / (m['device_ms'] * 1e-3) / 1e12:.2f} TB/s (per call: median of 5 runs "
+              f"over {n_fresh} fresh inputs; device: mean over them; {smi})", flush=True)
     walls = []
     for _ in range(5):
         batch = [speechlike(int(SECONDS * SR), rng) for _ in range(BATCH)]
@@ -277,13 +373,18 @@ def main() -> int:
     wall = statistics.median(walls)
     print(f"slice: enhance_batch of {BATCH} x {SECONDS:g} s PCM16 in {wall * 1e3:.1f} ms "
           f"(median of 5) = {BATCH * SECONDS / wall:.1f} audio-s/s; {smi}", flush=True)
+    times = device_times(lambda: enhancer.enhance_batch(batch))
+    in_kernels = {name: round(sum(t for key, t in times.items() if f"{name}_kernel" in key), 4)
+                  for name in kernels.KERNELS}
+    print(f"slice device time (profiler, one batch): busy {sum(times.values()):.2f} ms; "
+          f"hand-written kernels {in_kernels} ms; {smi}", flush=True)
 
     print(smi)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": str(Path(
             "speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch") / k.source),
          "replaces": k.replaces, "launches": launches[name], "max_abs_err": max(errs[name]),
-         "ms": ms[name][0], "plain_ms": ms[name][1]}
+         **ms[name]}
         for name, k in kernels.KERNELS.items()
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,137 +1,163 @@
-// K1 stft_mag: fused framing + windowed real DFT + magnitude, fp32.
+// K1 stft_mag: reflect padding + framing + Hann window + real FFT +
+// magnitude, fp32, in one pass.
 //
 // Replaces the TPU kernel _stft_kernel in
 // speech_enhancement_via_hybrid_vision_transformer_project_tpu/ops/pallas_stft.py
-// (launched by pallas_stft). Same algorithm: frames are never written to
-// device memory, the analysis window is folded into the DFT matrix W
-// ([n_fft, 2F], real part in columns [0, F), imaginary in [F, 2F)), and the
-// magnitude is fused. Center/reflect padding stays outside, in the wrapper,
-// as it does in the JAX package.
+// (launched by pallas_stft). That kernel computes each frame's spectrum as
+// a DFT matmul against a window-folded [n_fft, 2F] matrix, which suits the
+// TPU's matrix unit: ~260K FMAs a frame at n_fft 512. The function is the
+// same here; the algorithm is not.
 //
-// What bounds it on an H100: fp32 FMAs on the CUDA cores (tensor cores are
-// not used: parity needs full fp32, and TF32 keeps ~3 digits). One frame
-// costs 2 * n_fft * F FMAs, ~263K at n_fft 512, against 2 KB of signal it
-// reads, so it is compute bound, and the second limit is shared-memory
-// load bandwidth in the inner loop.
+// What bounds it on an H100: bytes. At batch 32 x 49024 samples it reads
+// 6.3 MB and writes re, im and mag, 3 x 12.6 MB bins-first ([B, F, N]);
+// 44 MB at 3.35 TB/s is 13 us. An FFT needs ~0.16 GFLOP, 2.4 us at the
+// 67 TFLOP/s fp32 peak; the DFT matmul needed 6.5 GFLOP, 97 us. So the
+// design does an FFT and spends its care on the loads and stores. PERF.md
+// has its measured share of the bound.
 //
-// Design: one block per (batch row, tile of TILE_FRAMES frames). The tile's
-// signal span, (TILE_FRAMES-1)*hop + n_fft samples, is staged once in shared
-// memory; frame t's sample n is span[t*hop + n], so overlapped frames exist
-// only as addresses. Each thread owns one frequency bin and keeps the tile's
-// TILE_FRAMES re/im sums in registers; it reads each W entry once (coalesced
-// across the bins of a warp) and uses it for all frames, and reads the signal
-// four samples at a time as a float4 that every lane of the warp shares
-// (a shared-memory broadcast). A thread's results are TILE_FRAMES
-// consecutive floats of one bin row of the bins-first [B, F, N] layout the
-// enhancer consumes, so they go through shared memory first and the block
-// then writes its [F, TILE_FRAMES] patch of re, im and mag in runs of
-// TILE_FRAMES floats. Eight frames per block keep 16 sums in registers and
-// give 1,536 blocks at batch 32 x 384 frames (a 32-frame tile measured
-// slower on the H100: fewer blocks and per-thread strided stores). Frames
-// past the signal end read zeros and are not written.
+// Design: one block per (batch row, tile of `tile` frames), 256 threads.
+// - Loads: the tile's signal span, (tile-1)*hop + n_fft samples, goes to
+//   shared memory in 16-byte loads when it lies inside the signal. The
+//   center padding is fused: near the ends the kernel reads the unpadded
+//   signal at reflected indices, so the padded copy is never written.
+//   Overlapping frames are only addresses.
+// - Transform: each frame's 512 windowed samples are read as 256 complex
+//   points z[m] = x[2m] + i x[2m+1] straight from the span by the first
+//   FFT stage (window applied as they are read), and the 256-point complex
+//   FFT runs as two radix-16 Stockham stages in shared memory
+//   (fft_stages.cuh). An untangle step gives bins 0..256, two per thread:
+//   with Fe = (Z[k] + conj Z[M-k]) / 2 and Fo = (Z[k] - conj Z[M-k]) / 2i,
+//   X[k] = Fe + W_N^k Fo and X[M-k] = conj(Fe - W_N^k Fo). Twiddles,
+//   untangle factors and window come from one small table built in float64
+//   on the host and rounded to fp32 (no __sinf, no fast-math).
+// - Stores: thread i takes bins k and M-k (k = i / tile) of frame i % tile,
+//   so a warp writes runs of `tile` consecutive frames of each bin for re,
+//   im and sqrtf(re^2 + im^2) (IEEE): the shared-memory buffer is read
+//   transposed, conflict-free thanks to its odd row stride.
+// Any power-of-two n_fft in [128, 2048] with hop % 4 == 0 and hop <= n_fft;
+// the wrapper (ops/cuda_stft.py) checks and picks `tile` (16 at n_fft 512:
+// tile * n_fft/2 = 4096 points per buffer, at most 32 frames).
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include "fft_stages.cuh"
 
 namespace {
 
-constexpr int TILE_FRAMES = 8;
+constexpr int THREADS = 256;
 
-__global__ void stft_mag_kernel(const float* __restrict__ x,  // [B, Lp]
-                                const float* __restrict__ w,  // [n_fft, 2F]
-                                float* __restrict__ re,       // [B, F, N]
-                                float* __restrict__ im,
-                                float* __restrict__ mag,
-                                int padded_len, int n_frames, int n_fft,
-                                int hop, int n_bins) {
-  extern __shared__ float4 span4[];
-  float* span = reinterpret_cast<float*>(span4);
-  const int span_len = (TILE_FRAMES - 1) * hop + n_fft;  // a multiple of 4
-  float* tile_out = span + span_len;  // [3][n_bins][TILE_FRAMES]
+__global__ void __launch_bounds__(THREADS)
+    stft_mag_kernel(const float* __restrict__ x,     // [B, length]
+                    const float* __restrict__ plan,  // twiddles, untangle, window
+                    float* __restrict__ re,          // [B, F, N]
+                    float* __restrict__ im, float* __restrict__ mag, int length,
+                    int pad, int n_frames, int n_fft, int hop, int tile) {
+  extern __shared__ float4 smem4[];
+  const int m_pts = n_fft >> 1;
+  const int log2m = __ffs(m_pts) - 1;
+  const int rs = fft_row_stride(m_pts);
+  const int span_len = (tile - 1) * hop + n_fft;  // a multiple of 4
+  float2* buf = reinterpret_cast<float2*>(smem4);  // [tile][rs], the FFT
+  float* span = reinterpret_cast<float*>(buf + ((tile * rs + 1) & ~1));  // 16-byte aligned
+  float2* tw = reinterpret_cast<float2*>(span + span_len);  // [M]  exp(-2 pi i k / M)
+  float2* ut = tw + m_pts;         // [M + 1]  exp(-2 pi i k / n_fft)
+  float* win = reinterpret_cast<float*>(ut + m_pts + 1);  // [n_fft]
+
+  for (int i = threadIdx.x; i < 3 * n_fft + 2; i += blockDim.x) {
+    reinterpret_cast<float*>(tw)[i] = __ldg(plan + i);
+  }
+
   const int b = blockIdx.y;
-  const int t0 = blockIdx.x * TILE_FRAMES;
-  const long start = static_cast<long>(t0) * hop;
-  const float* xb = x + static_cast<long>(b) * padded_len;
-  for (int i = threadIdx.x; i < span_len; i += blockDim.x) {
-    const long s = start + i;
-    span[i] = s < padded_len ? xb[s] : 0.f;
-  }
-  __syncthreads();
-
-  const long two_f = 2L * n_bins;
-  const int hop4 = hop >> 2;
-  for (int k = threadIdx.x; k < n_bins; k += blockDim.x) {
-    float ar[TILE_FRAMES], ai[TILE_FRAMES];
-#pragma unroll
-    for (int t = 0; t < TILE_FRAMES; ++t) {
-      ar[t] = 0.f;
-      ai[t] = 0.f;
-    }
-    for (int n = 0; n < n_fft; n += 4) {
-      float wr[4], wi[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        wr[q] = __ldg(w + (n + q) * two_f + k);
-        wi[q] = __ldg(w + (n + q) * two_f + n_bins + k);
+  const int t0 = blockIdx.x * tile;
+  const long j0 = static_cast<long>(t0) * hop - pad;  // signal index of span[0]
+  const float* xb = x + static_cast<long>(b) * length;
+  if (j0 >= 0 && j0 + span_len <= length &&
+      (reinterpret_cast<uintptr_t>(xb + j0) & 15) == 0) {
+    const float4* src = reinterpret_cast<const float4*>(xb + j0);
+    float4* dst = reinterpret_cast<float4*>(span);
+    for (int i = threadIdx.x; i < span_len / 4; i += blockDim.x) dst[i] = __ldg(src + i);
+  } else {
+    for (int i = threadIdx.x; i < span_len; i += blockDim.x) {
+      long j = j0 + i;
+      if (j >= static_cast<long>(length) + pad) {
+        j = -1;  // past the padded signal: frames that are not stored
+      } else if (j < 0) {
+        j = -j;
+      } else if (j >= length) {
+        j = 2L * (length - 1) - j;
       }
-      const int n4 = n >> 2;
-#pragma unroll
-      for (int t = 0; t < TILE_FRAMES; ++t) {
-        const float4 s = span4[t * hop4 + n4];
-        ar[t] = fmaf(s.x, wr[0], ar[t]);
-        ai[t] = fmaf(s.x, wi[0], ai[t]);
-        ar[t] = fmaf(s.y, wr[1], ar[t]);
-        ai[t] = fmaf(s.y, wi[1], ai[t]);
-        ar[t] = fmaf(s.z, wr[2], ar[t]);
-        ai[t] = fmaf(s.z, wi[2], ai[t]);
-        ar[t] = fmaf(s.w, wr[3], ar[t]);
-        ai[t] = fmaf(s.w, wi[3], ai[t]);
-      }
-    }
-#pragma unroll
-    for (int t = 0; t < TILE_FRAMES; ++t) {
-      tile_out[k * TILE_FRAMES + t] = ar[t];
-      tile_out[(n_bins + k) * TILE_FRAMES + t] = ai[t];
-      tile_out[(2 * n_bins + k) * TILE_FRAMES + t] = sqrtf(ar[t] * ar[t] + ai[t] * ai[t]);
+      span[i] = j >= 0 ? __ldg(xb + j) : 0.f;
     }
   }
   __syncthreads();
 
-  const int nt = min(TILE_FRAMES, n_frames - t0);
-  float* const outs[3] = {re, im, mag};
-  for (int o = 0; o < 3; ++o) {
-    for (int i = threadIdx.x; i < n_bins * TILE_FRAMES; i += blockDim.x) {
-      const int k = i / TILE_FRAMES;
-      const int t = i % TILE_FRAMES;
-      if (t < nt) {
-        outs[o][(static_cast<long>(b) * n_bins + k) * n_frames + t0 + t] =
-            tile_out[(o * n_bins + k) * TILE_FRAMES + t];
-      }
+  // the first stage reads the windowed frames packed as complex points:
+  // z[t][m] = (x[2m] w[2m], x[2m+1] w[2m+1])
+  stockham_fft<false, false>(
+      [span, win, hop](int t, int m) {
+        const float2 s = *reinterpret_cast<const float2*>(span + t * hop + 2 * m);
+        const float2 w = *reinterpret_cast<const float2*>(win + 2 * m);
+        return make_float2(s.x * w.x, s.y * w.y);
+      },
+      buf, tw, tile, log2m, rs);
+  const float2* z = buf;
+
+  // untangle into bins 0..M, two at a time: with Fe, Fo the even and odd
+  // parts of bin k, X[k] = Fe + W^k Fo and X[M-k] = conj(Fe - W^k Fo).
+  // Magnitude, and bins-first stores in runs of frames.
+  const int log2t = __ffs(tile) - 1;
+  const int n_bins = m_pts + 1;
+  const int nt = min(tile, n_frames - t0);
+  const long row = static_cast<long>(b) * n_bins * n_frames + t0;
+  for (int i = threadIdx.x; i < ((m_pts / 2 + 1) << log2t); i += blockDim.x) {
+    const int k = i >> log2t;
+    const int t = i & (tile - 1);
+    if (t >= nt) continue;
+    const float2 zk = z[t * rs + pad16(k)];
+    const float2 zm = z[t * rs + pad16((m_pts - k) & (m_pts - 1))];
+    const float er = 0.5f * (zk.x + zm.x), ei = 0.5f * (zk.y - zm.y);  // even part
+    const float orr = 0.5f * (zk.y + zm.y), oi = -0.5f * (zk.x - zm.x);  // odd part
+    const float2 w = ut[k];
+    const float wr = w.x * orr - w.y * oi, wi = w.x * oi + w.y * orr;  // W^k Fo
+    const float xr = er + wr, xi = ei + wi;
+    long at = row + static_cast<long>(k) * n_frames + t;
+    re[at] = xr;
+    im[at] = xi;
+    mag[at] = sqrtf(xr * xr + xi * xi);
+    if (2 * k != m_pts) {
+      const float yr = er - wr, yi = wi - ei;
+      at = row + static_cast<long>(m_pts - k) * n_frames + t;
+      re[at] = yr;
+      im[at] = yi;
+      mag[at] = sqrtf(yr * yr + yi * yi);
     }
   }
 }
 
 }  // namespace
 
-// x: reflect-padded signal [batch, padded_len]; w: [n_fft, 2*n_bins];
-// re/im/mag: [batch, n_bins, n_frames]. Needs hop % 4 == 0 and
-// n_fft % 4 == 0 (float4 signal reads); the wrapper checks.
-extern "C" int sevit_stft_mag(const float* x, const float* w, float* re,
-                              float* im, float* mag, int batch, int padded_len,
-                              int n_frames, int n_fft, int hop, int n_bins,
-                              void* stream) {
-  const int threads = min(1024, (n_bins + 31) / 32 * 32);
-  const size_t smem =
-      sizeof(float) * (static_cast<size_t>((TILE_FRAMES - 1) * hop + n_fft) +
-                       3 * static_cast<size_t>(n_bins) * TILE_FRAMES);
+// x: signal [batch, length] (not padded); plan: 3 * n_fft + 2 floats
+// (ops/cuda_stft.py:fft_plan); re/im/mag: [batch, n_fft/2 + 1, n_frames].
+// pad: reflect padding per side (0 or n_fft/2; needs pad < length). Needs a
+// power-of-two n_fft in [128, 2048], hop % 4 == 0, hop <= n_fft and a
+// power-of-two tile; the wrapper checks.
+extern "C" int sevit_stft_mag(const float* x, const float* plan, float* re,
+                              float* im, float* mag, int batch, int length,
+                              int pad, int n_frames, int n_fft, int hop,
+                              int tile, void* stream) {
+  const size_t buf = (static_cast<size_t>(tile) * fft_row_stride(n_fft / 2) + 1) & ~size_t{1};
+  const size_t span = static_cast<size_t>(tile - 1) * hop + n_fft;
+  const size_t smem = sizeof(float2) * buf + sizeof(float) * (span + 3 * n_fft + 2);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         stft_mag_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  const dim3 grid((n_frames + TILE_FRAMES - 1) / TILE_FRAMES, batch);
-  stft_mag_kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      x, w, re, im, mag, padded_len, n_frames, n_fft, hop, n_bins);
+  const dim3 grid((n_frames + tile - 1) / tile, batch);
+  stft_mag_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      x, plan, re, im, mag, length, pad, n_frames, n_fft, hop, tile);
   return static_cast<int>(cudaGetLastError());
 }

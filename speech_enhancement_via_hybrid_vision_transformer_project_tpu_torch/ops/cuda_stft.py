@@ -7,6 +7,13 @@ plain PyTorch versions.
 tensor runs the plain version, a CUDA tensor launches the kernel
 (``csrc/stft.cu``, ``csrc/istft.cu``) or raises. There is no fallback from
 one to the other.
+
+Both kernels are shared-memory FFTs (``csrc/fft_stages.cuh``) that read one
+fp32 table built here in float64 (``fft_plan``). They take a power-of-two
+``n_fft`` from 128 to 2048 and a ``hop_length`` that is a multiple of 4 (K3:
+one that divides ``n_fft``); ``kernel_tile`` checks that and picks the frames
+each block transforms. K1 reads the unpadded signal: its center (reflect)
+padding is fused into the kernel's loads.
 """
 
 from __future__ import annotations
@@ -19,28 +26,69 @@ import torch
 from . import kernels
 from .stft import (
     STFTConfig,
-    center_pad,
-    inv_window_dft,
     istft_output_span,
     reconstruct,
     stft,
-    window_dft,
     window_sumsquare_denominator,
 )
 
-_ISTFT_MAX_PHASES = 31  # csrc/istft.cu: TF - 1 frames of halo at most
+FFT_SIZES = (128, 256, 512, 1024, 2048)  # the kernels' power-of-two n_fft
+_TILE_POINTS = 4096  # complex points per shared-memory buffer of a block
+_MAX_TILE = 32  # frames per block
+_SMEM_LIMIT = 227 * 1024  # shared memory one H100 block may use
+
+
+def fft_plan(cfg: STFTConfig) -> np.ndarray:
+    """The table K1 and K3 read, ``3 * n_fft + 2`` float32 values built in
+    float64: ``M = n_fft/2`` twiddles ``exp(-2 pi i k / M)`` as (re, im)
+    pairs, ``M + 1`` untangle factors ``exp(-2 pi i k / n_fft)``, then the
+    (zero-padded) window."""
+    n = cfg.n_fft
+    m = n // 2
+    tw = np.exp(-2j * np.pi * np.arange(m) / m)
+    ut = np.exp(-2j * np.pi * np.arange(m + 1) / n)
+    pairs = [np.stack([c.real, c.imag], axis=-1).ravel() for c in (tw, ut)]
+    return np.concatenate([*pairs, cfg.padded_window(np.float64)]).astype(np.float32)
+
+
+def _smem_bytes(cfg: STFTConfig, tile: int, inverse: bool) -> int:
+    """Shared memory of one K1 or K3 block (mirrors the C entries): one
+    complex buffer of ``tile`` frames, each M = n_fft/2 points plus one pad
+    slot per 16 and one more (``fft_row_stride``), K1's signal span, and
+    the table."""
+    n_fft, m = cfg.n_fft, cfg.n_fft // 2
+    buf = (tile * (m + m // 16 + 1) + 1) & ~1
+    span = 0 if inverse else (tile - 1) * cfg.hop_length + n_fft
+    return 8 * buf + 4 * (span + 3 * n_fft + 2)
+
+
+def kernel_tile(cfg: STFTConfig, *, inverse: bool) -> int:
+    """Frames per block of K1 (``inverse=False``) or K3, after checking
+    that the kernel takes ``cfg``; raises ``ValueError`` otherwise. Needs
+    no card: the wrappers call it before they launch."""
+    n_fft, hop = cfg.n_fft, cfg.hop_length
+    name = "istft_polar" if inverse else "stft_mag"
+    if n_fft not in FFT_SIZES:
+        raise ValueError(f"{name} kernel: n_fft {n_fft} is not a power of two in {FFT_SIZES}")
+    if hop <= 0 or hop % 4 or hop > n_fft:
+        raise ValueError(f"{name} kernel: hop_length {hop} must be a multiple of 4, <= n_fft")
+    if not inverse and cfg.center and cfg.pad_mode != "reflect":
+        raise ValueError(f"{name} kernel: pad_mode {cfg.pad_mode!r} is not reflect")
+    tile = min(_MAX_TILE, _TILE_POINTS // (n_fft // 2))
+    if inverse:
+        if n_fft % hop:
+            raise ValueError(f"{name} kernel: hop_length {hop} must divide n_fft {n_fft}")
+        tile = max(tile, 2 * (n_fft // hop))  # at least half the frames are not halo
+    if _smem_bytes(cfg, tile, inverse) > _SMEM_LIMIT:
+        raise ValueError(f"{name} kernel: n_fft / hop_length = {n_fft // hop} needs "
+                         f"{_smem_bytes(cfg, tile, inverse)} bytes of shared memory")
+    return tile
 
 
 @functools.lru_cache(maxsize=64)
 def _device_const(kind: str, cfg: STFTConfig, device: torch.device, n_frames: int = 0):
-    if kind == "w":
-        arrs = (window_dft(cfg),)
-    elif kind == "wab":
-        arrs = inv_window_dft(cfg)
-    else:
-        arrs = (window_sumsquare_denominator(cfg, n_frames),)
-    out = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in arrs)
-    return out if len(out) > 1 else out[0]
+    a = fft_plan(cfg) if kind == "plan" else window_sumsquare_denominator(cfg, n_frames)
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
 # ---------------------------------------------------------------------------
@@ -63,16 +111,15 @@ def stft_mag(x: torch.Tensor, cfg: STFTConfig = STFTConfig()):
     if not kernels.uses_kernel(x):
         return stft_mag_plain(x, cfg)
     kernels.check_input("stft_mag x", x, 2)
+    tile = kernel_tile(cfg, inverse=False)
     n_fft, hop = cfg.n_fft, cfg.hop_length
-    if n_fft % 4 or hop % 4:
-        raise ValueError("stft_mag kernel needs n_fft and hop_length divisible by 4")
-    xp = center_pad(x, cfg).contiguous()
-    b, lp = xp.shape
-    if lp < n_fft:
-        raise ValueError(f"signal too short: {x.shape[-1]}")
-    n_frames = 1 + (lp - n_fft) // hop
+    b, length = x.shape
+    pad = n_fft // 2 if cfg.center else 0
+    if length <= pad:
+        raise ValueError(f"stft_mag: {length} samples cannot be reflect padded by {pad}")
+    n_frames = cfg.num_frames(length)
     f = cfg.num_bins
-    w = _device_const("w", cfg, x.device)
+    plan = _device_const("plan", cfg, x.device)
     re, im, mag = (
         torch.empty(b, f, n_frames, device=x.device, dtype=torch.float32)
         for _ in range(3)
@@ -80,8 +127,9 @@ def stft_mag(x: torch.Tensor, cfg: STFTConfig = STFTConfig()):
     if b:
         with torch.cuda.device(x.device):
             kernels.launch(
-                "stft_mag", xp.data_ptr(), w.data_ptr(), re.data_ptr(),
-                im.data_ptr(), mag.data_ptr(), b, lp, n_frames, n_fft, hop, f,
+                "stft_mag", x.data_ptr(), plan.data_ptr(), re.data_ptr(),
+                im.data_ptr(), mag.data_ptr(), b, length, pad, n_frames, n_fft,
+                hop, tile,
             )
     return re, im, mag
 
@@ -123,24 +171,19 @@ def istft_polar(
         return istft_polar_plain(mag, phase, cfg, length=length)
     kernels.check_input("istft_polar mag", mag, 3)
     kernels.check_input("istft_polar phase", phase, 3)
-    n_fft, hop = cfg.n_fft, cfg.hop_length
-    if n_fft % hop or n_fft // hop > _ISTFT_MAX_PHASES or n_fft > 1024:
-        raise ValueError(
-            "istft_polar kernel needs hop | n_fft, n_fft/hop <= "
-            f"{_ISTFT_MAX_PHASES} and n_fft <= 1024"
-        )
+    tile = kernel_tile(cfg, inverse=True)
     b, f, n_frames = mag.shape
     if f != cfg.num_bins:
         raise ValueError(f"istft_polar: {f} bins, config has {cfg.num_bins}")
     offset, n_out = istft_output_span(cfg, n_frames, length)
-    wa, wb = _device_const("wab", cfg, mag.device)
+    plan = _device_const("plan", cfg, mag.device)
     denom = _device_const("denom", cfg, mag.device, n_frames)
     y = torch.empty(b, n_out, device=mag.device, dtype=torch.float32)
     if b and n_out:
         with torch.cuda.device(mag.device):
             kernels.launch(
-                "istft_polar", mag.data_ptr(), phase.data_ptr(), wa.data_ptr(),
-                wb.data_ptr(), denom.data_ptr(), y.data_ptr(), b, f, n_frames,
-                n_fft, hop, offset, n_out,
+                "istft_polar", mag.data_ptr(), phase.data_ptr(), plan.data_ptr(),
+                denom.data_ptr(), y.data_ptr(), b, n_frames, cfg.n_fft,
+                cfg.hop_length, offset, n_out, tile,
             )
     return y

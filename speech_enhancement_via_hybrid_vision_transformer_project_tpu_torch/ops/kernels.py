@@ -1,9 +1,11 @@
 """Build, load and count the hand-written CUDA kernels.
 
-The kernels in ``csrc/*.cu`` have a plain C interface. At first use they
-are compiled with ``nvcc`` for Hopper (``sm_90a``) into one shared library
-under ``build/torch_kernels/`` beside the package, named by a hash of the
-sources so an edited source is rebuilt, and loaded with ``ctypes``. No
+The kernels in ``csrc/*.cu`` have a plain C interface. At first use each
+source is compiled with ``nvcc`` for Hopper (``sm_90a``) into its own
+shared library under ``build/torch_kernels/`` beside the package (the
+compilers run in parallel), named by a hash of the source and of the
+headers in ``csrc/`` so an edited source is rebuilt, and loaded with
+``ctypes``. No
 ``--use_fast_math``: the STFT's ``sqrtf`` and the iSTFT's ``sincosf`` must
 be the IEEE versions for parity with the plain PyTorch path.
 
@@ -62,9 +64,9 @@ KERNELS = {
             "stft_mag", "sevit_stft_mag", "csrc/stft.cu",
             "speech_enhancement_via_hybrid_vision_transformer_project_tpu/"
             "ops/pallas_stft.py:31",
-            # x, w, re, im, mag, batch, padded_len, n_frames, n_fft, hop,
-            # n_bins, stream
-            (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+            # x, plan, re, im, mag, batch, length, pad, n_frames, n_fft, hop,
+            # tile, stream
+            (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
         ),
         Kernel(
             "attention_fwd", "sevit_attention_fwd", "csrc/attention.cu",
@@ -77,15 +79,15 @@ KERNELS = {
             "istft_polar", "sevit_istft_polar", "csrc/istft.cu",
             "speech_enhancement_via_hybrid_vision_transformer_project_tpu/"
             "ops/pallas_stft.py:185",
-            # mag, phase, wa, wb, denom, y, batch, n_bins, n_frames, n_fft,
-            # hop, offset, out_samples, stream
-            (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+            # mag, phase, plan, denom, y, batch, n_frames, n_fft, hop,
+            # offset, out_samples, tile, stream
+            (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
         ),
     )
 }
 
 _lock = threading.Lock()
-_lib: ctypes.CDLL | None = None
+_lib: dict[str, ctypes.CDLL] | None = None
 
 
 def reset_launch_counts() -> None:
@@ -116,17 +118,16 @@ def check_input(name: str, t: torch.Tensor, ndim: int) -> None:
         raise RuntimeError(f"{name}: the CUDA kernel has no backward")
 
 
-def _sources() -> list[Path]:
-    return sorted(CSRC.glob("*.cu"))
-
-
-def library_path() -> Path:
-    h = hashlib.sha256()
-    for src in _sources():
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
+def library_path(source: str) -> Path:
+    """Where the shared library of one ``csrc/*.cu`` source is built,
+    named by a hash of that source, the headers in ``csrc/`` and the
+    flags."""
+    src = _PKG / source
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libsevit_kernels_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"lib{src.stem}_{h.hexdigest()[:16]}.so"
 
 
 def _nvcc() -> str:
@@ -143,37 +144,47 @@ def _nvcc() -> str:
     )
 
 
-def build() -> Path:
-    """Compile ``csrc/*.cu`` into the shared library unless it is already
-    built from these exact sources. Returns its path."""
-    out = library_path()
-    if out.exists():
-        return out
+def build() -> dict[str, Path]:
+    """Compile each kernel's source into its own shared library unless it
+    is already built from that exact source: one ``nvcc`` per source, all
+    started together. Returns the library path of each kernel."""
+    paths = {name: library_path(k.source) for name, k in KERNELS.items()}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)
-    return out
+    procs = {}
+    for name, out in paths.items():
+        if out.exists():
+            continue
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(_PKG / KERNELS[name].source)]
+        procs[name] = (tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (tmp, proc) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(f"{KERNELS[name].source} ({proc.returncode}):\n{log}")
+        else:
+            os.replace(tmp, paths[name])
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    return paths
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built first if needed."""
+def library() -> dict[str, ctypes.CDLL]:
+    """Each kernel's loaded library, built first if needed."""
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            for k in KERNELS.values():
-                fn = getattr(lib, k.entry)
-                fn.argtypes = list(k.argtypes)
+            libs = {}
+            for name, path in build().items():
+                lib = ctypes.CDLL(str(path))
+                fn = getattr(lib, KERNELS[name].entry)
+                fn.argtypes = list(KERNELS[name].argtypes)
                 fn.restype = ctypes.c_int
-            _lib = lib
+                libs[name] = lib
+            _lib = libs
         return _lib
 
 
@@ -182,7 +193,7 @@ def launch(name: str, *args) -> None:
     as the last argument), raise on a launch error, count the launch."""
     k = KERNELS[name]
     stream = torch.cuda.current_stream().cuda_stream
-    err = getattr(library(), k.entry)(*args, stream)
+    err = getattr(library()[name], k.entry)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
     k.launches += 1

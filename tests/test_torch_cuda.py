@@ -5,9 +5,10 @@ machine has no JAX, so run this file without the suite's conftest:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
-Tolerances (max abs error): STFT 2e-4 (fp32 sums of 512 products in
-another order than cuBLAS), attention and iSTFT 2e-5 (fp32, another
-summation order), waveforms 2e-4 (whole pipeline on two devices).
+Tolerances (max abs error): STFT 2e-4 at n_fft 512 (the plain version's
+fp32 sums of 512 products against an FFT's rounding), attention and iSTFT
+2e-5 (fp32, another summation order), waveforms 2e-4 (whole pipeline on
+two devices).
 """
 
 import numpy as np
@@ -49,7 +50,7 @@ def gen():
     return torch.Generator().manual_seed(0)
 
 
-@pytest.mark.parametrize("shape", [(3, 16000), (1, 5123), (2, 600)])
+@pytest.mark.parametrize("shape", [(3, 16000), (1, 5123), (2, 600), (2, 300)])
 def test_stft_mag_kernel_matches_plain(shape, dev, gen):
     x = torch.randn(shape, generator=gen).to(dev)
     before = kernels.KERNELS["stft_mag"].launches
@@ -58,6 +59,35 @@ def test_stft_mag_kernel_matches_plain(shape, dev, gen):
     for o, r in zip(out, cuda_stft.stft_mag_plain(x)):
         assert o.shape == r.shape
         assert float((o - r).abs().max()) < 2e-4
+
+
+@pytest.mark.parametrize("n_fft", [256, 1024])
+@pytest.mark.parametrize("length", ["long", "under_a_tile", "under_a_frame"])
+def test_stft_mag_kernel_other_sizes(n_fft, length, dev, gen):
+    """hop = n_fft/4. "under_a_tile": fewer frames than a block holds;
+    "under_a_frame": fewer samples than n_fft, so the fused reflect padding
+    reaches both ends of the signal. Tolerance 2e-4 per 512 points of the
+    frame: the plain version's fp32 sums grow with n_fft."""
+    cfg = STFTConfig(n_fft=n_fft, hop_length=n_fft // 4, win_length=n_fft)
+    n = {"long": 20000, "under_a_tile": 1000, "under_a_frame": n_fft // 2 + 44}[length]
+    x = torch.randn(2, n, generator=gen).to(dev)
+    for o, r in zip(cuda_stft.stft_mag(x, cfg), cuda_stft.stft_mag_plain(x, cfg)):
+        assert o.shape == r.shape
+        assert float((o - r).abs().max()) < 2e-4 * n_fft / 512
+
+
+@pytest.mark.parametrize("n_fft", [256, 1024])
+def test_istft_polar_kernel_other_sizes(n_fft, dev, gen):
+    """hop = n_fft/4, on the spectrogram of a signal, trimmed to its
+    length (the window sums there are >= 1e-2, so no weighting)."""
+    cfg = STFTConfig(n_fft=n_fft, hop_length=n_fft // 4, win_length=n_fft)
+    x = torch.randn(2, 9000, generator=gen).to(dev)
+    re, im, mag = cuda_stft.stft_mag_plain(x, cfg)
+    mag, ph = mag.contiguous(), torch.atan2(im, re).contiguous()
+    y = cuda_stft.istft_polar(mag, ph, cfg, length=9000)
+    r = cuda_stft.istft_polar_plain(mag, ph, cfg, length=9000)
+    assert y.shape == r.shape == (2, 9000)
+    assert float((y - r).abs().max()) < 2e-5
 
 
 @pytest.mark.parametrize("n", [1, 37, 200, 384])
@@ -113,6 +143,12 @@ def test_kernels_refuse_what_they_do_not_take(dev, gen):
         cuda_attention.attention(q48, q48, q48, scale=0.1)
     with pytest.raises(ValueError, match="devices"):
         cuda_stft.istft_polar(torch.rand(1, 257, 9).to(dev), torch.rand(1, 257, 9))
+    odd = STFTConfig(n_fft=500, hop_length=124, win_length=500)
+    with pytest.raises(ValueError, match="power of two"):
+        cuda_stft.stft_mag(x, odd)
+    m = torch.rand(1, 251, 9).to(dev)
+    with pytest.raises(ValueError, match="power of two"):
+        cuda_stft.istft_polar(m, m, odd)
 
 
 def test_enhancer_cuda_matches_cpu(dev, gen):
