@@ -9,10 +9,14 @@ which raises on failure:
 1. device: a CUDA card is required; prints its name and power limit and
    turns TF32 off (float32 end to end).
 2. build: compiles the three kernels from the port's ``csrc/``, one nvcc
-   per source, all started together.
+   per source, all started together; prints K2's registers, shared memory
+   and blocks per SM, and checks that its code holds TF32 tensor-core
+   instructions (``HMMA ... TF32`` in ``cuobjdump -sass``).
 3. kernels: each kernel against its plain PyTorch version at the serving
-   path's shapes (batch 32 x 3 s) and at ragged shapes, max errors
-   within the stated tolerances.
+   path's shapes (batch 32 x 3 s; attention under the serving batch's own
+   mask and under a mix of clip lengths) and at ragged shapes (attention: a
+   fully masked row, a row keeping one key), max errors within the stated
+   tolerances.
 4. trained weights: the ``tests/fixtures/tiny_denoiser_mask`` checkpoint,
    read by the port's msgpack reader, enhances two synthetic clips on
    cuda and on cpu; the waveforms agree.
@@ -27,9 +31,14 @@ which raises on failure:
    yardstick (``torch.stft``, ``scaled_dot_product_attention``,
    ``torch.istft``; the port never calls these), per-call CUDA-event times
    over fresh inputs and the device time alone (``torch.profiler``),
-   beside its bound: the larger of its operations over the fp32 peak and
-   its bytes over the memory rate. Then the slice's audio-seconds per
-   second at batch 32 x 3 s.
+   beside its bound: the larger of its operations over the peak rate of
+   their route (the FFTs: fp32; attention: 3xTF32 on the tensor cores) and
+   its bytes over the memory rate. K2's inputs carry the mask of the
+   slice's own batch (32 clips of 3 s, which keep every key); K2 is also
+   timed under a mix of clip lengths (1 to 3.06 s, a third of the keys
+   masked) and with no mask. Then the slice's audio-seconds per second at
+   batch 32 x 3 s, and each kernel's device time per launch in one
+   profiled batch.
 
 Prints, on its last three lines: the card's ``nvidia-smi`` name and power
 limit, a JSON line of per-kernel results, and the result JSON.
@@ -38,6 +47,7 @@ limit, a JSON line of per-kernel results, and the result JSON.
 from __future__ import annotations
 
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -62,6 +72,11 @@ TOL_WAVE = 2e-4  # waveform through ~20 fp32 layers on two devices (~6 PCM16 LSB
 # tensor cores, and HBM3
 FP32_PEAK = 67e12  # FLOP/s
 HBM_RATE = 3.35e12  # bytes/s
+# fp32-accurate matrix products on the tensor cores: 3xTF32, three dense
+# TF32 products (495 TFLOP/s) per fp32 product. The fastest route to fp32
+# accuracy for a matrix product on this card, and the one both K2 and its
+# SDPA yardstick (PyTorch's memory-efficient kernel) take.
+TF32X3_PEAK = 495e12 / 3  # FLOP/s
 
 
 def phase(name: str) -> None:
@@ -97,21 +112,24 @@ def median_ms(fn, inputs, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-def device_times(run) -> dict[str, float]:
+def device_times(run, attempts: int = 3) -> dict[str, float]:
     """Device time (ms) of every CUDA kernel and copy ``run()`` enqueues,
-    summed by name, as ``torch.profiler`` records it."""
+    summed by name, as ``torch.profiler`` records it. Now and then the
+    profiler hands back an empty trace; then ``run()`` is profiled again,
+    up to ``attempts`` times in all."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        run()
+    for _ in range(attempts):
         torch.cuda.synchronize()
-    times = {e.key: e.self_device_time_total / 1e3 for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA}
-    if sum(times.values()) <= 0:
-        raise RuntimeError("the profiler recorded no device time")
-    return times
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        times = {e.key: e.self_device_time_total / 1e3 for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA}
+        if sum(times.values()) > 0:
+            return times
+    raise RuntimeError(f"the profiler recorded no device time in {attempts} runs")
 
 
 def device_ms(fn, inputs) -> float:
@@ -128,10 +146,10 @@ def device_ms(fn, inputs) -> float:
     return sum(device_times(run).values()) / len(inputs)
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
+def bound(flops: float, nbytes: float, peak: float) -> tuple[float, str]:
     """Least time (ms) the card could take: the larger of ``flops`` over
-    the fp32 peak and ``nbytes`` over the memory rate, and which binds."""
-    t_ops, t_bytes = flops / FP32_PEAK, nbytes / HBM_RATE
+    ``peak`` and ``nbytes`` over the memory rate, and which binds."""
+    t_ops, t_bytes = flops / peak, nbytes / HBM_RATE
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes"
 
 
@@ -184,6 +202,18 @@ def main() -> int:
     libs = kernels.build()
     print(f"built {sorted(p.name for p in libs.values())} from csrc/*.cu (one nvcc each, "
           f"in parallel) in {time.perf_counter() - t0:.1f} s", flush=True)
+    for d in (64, 128):
+        print(f"attention_fwd at head dim {d}, 384 keys, masked: "
+              f"{cuda_attention.kernel_info(d, 384)}", flush=True)
+    cuobjdump = shutil.which("cuobjdump") or str(Path(kernels._nvcc()).parent / "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(libs["attention_fwd"])],
+                          capture_output=True, text=True, check=True).stdout
+    hmma = [line.split(";")[0].split("*/")[-1].strip() for line in sass.splitlines()
+            if "HMMA" in line and "TF32" in line]
+    if not hmma:
+        raise AssertionError("attention_fwd's SASS holds no TF32 tensor-core instruction")
+    print(f"attention_fwd SASS: {len(hmma)} TF32 tensor-core instructions "
+          f"({sorted(set(i.split()[0] for i in hmma))}, e.g. {hmma[0]!r})", flush=True)
 
     phase("kernels vs plain")
     cfg = STFTConfig()
@@ -197,11 +227,19 @@ def main() -> int:
         x = torch.randn(shape, generator=g).to(dev)
         errs.setdefault("stft_mag", []).append(
             max_err(cuda_stft.stft_mag(x, cfg), cuda_stft.stft_mag_plain(x, cfg)))
+    # the serving batch's mask (32 clips of 3 s keep every key), and one of
+    # clip lengths spread evenly from 1 to 3.06 s (a third of the keys masked)
+    serve_mask = patch_validity_mask(torch.full((BATCH,), int(SECONDS * SR)), 257, n_frames,
+                                     cfg.hop_length).to(dev)
     lengths = torch.from_numpy(np.linspace(SR, wav_len, BATCH).astype(np.int64))
-    main_mask = patch_validity_mask(lengths, 257, n_frames, cfg.hop_length).to(dev)
+    mix_mask = patch_validity_mask(lengths, 257, n_frames, cfg.hop_length).to(dev)
     ragged_mask = torch.rand(4, 200, generator=g) > 0.3
     ragged_mask[0] = False  # a row with every key masked
-    for (b, n, mask) in ((BATCH, n_tok, main_mask), (4, 200, ragged_mask.to(dev))):
+    single_mask = torch.rand(3, 37, generator=g) > 0.3
+    single_mask[1] = False
+    single_mask[1, 20] = True  # a row keeping a single key
+    for (b, n, mask) in ((BATCH, n_tok, serve_mask), (BATCH, n_tok, mix_mask),
+                         (4, 200, ragged_mask.to(dev)), (3, 37, single_mask.to(dev))):
         q, k, v = (torch.randn(b, heads, n, dh, generator=g).to(dev) for _ in range(3))
         errs.setdefault("attention_fwd", []).append(max_err(
             [cuda_attention.attention(q, k, v, scale=dh**-0.5, mask=mask)],
@@ -309,7 +347,7 @@ def main() -> int:
            (torch.rand(BATCH, 257, n_frames, generator=g) * 6.28 - 3.14).to(dev))
           for _ in range(n_fresh)]
     win = torch.from_numpy(cfg.padded_window()).to(dev)
-    key_mask = main_mask[:, None, None, :]
+    key_mask = serve_mask[:, None, None, :]
     timed = {  # name: (kernel, plain version, one-call library yardstick, inputs)
         "stft_mag": (
             cuda_stft.stft_mag, cuda_stft.stft_mag_plain,
@@ -317,8 +355,8 @@ def main() -> int:
                                     pad_mode="reflect", return_complex=True).abs(),
             xs),
         "attention_fwd": (
-            lambda q, k, v: cuda_attention.attention(q, k, v, scale=dh**-0.5, mask=main_mask),
-            lambda q, k, v: cuda_attention.attention_plain(q, k, v, scale=dh**-0.5, mask=main_mask),
+            lambda q, k, v: cuda_attention.attention(q, k, v, scale=dh**-0.5, mask=serve_mask),
+            lambda q, k, v: cuda_attention.attention_plain(q, k, v, scale=dh**-0.5, mask=serve_mask),
             lambda q, k, v: F.scaled_dot_product_attention(q, k, v, attn_mask=key_mask,
                                                            scale=dh**-0.5),
             qkv),
@@ -333,7 +371,7 @@ def main() -> int:
     # every input read once, every output written once; attention counts the
     # keys the mask keeps, since a masked key adds nothing to the output
     n_bins, frames = cfg.num_bins, BATCH * n_frames
-    kept_keys = int(main_mask.sum())
+    kept_keys = int(serve_mask.sum())
     work = {
         "stft_mag": (frames * (rfft_flops(cfg.n_fft) + cfg.n_fft + 4 * n_bins),
                      4 * (BATCH * wav_len + 3 * BATCH * n_bins * n_frames)),
@@ -343,25 +381,36 @@ def main() -> int:
                         + BATCH * wav_len,
                         4 * (2 * BATCH * n_bins * n_frames + BATCH * wav_len)),
     }
+    peaks = {"stft_mag": FP32_PEAK, "attention_fwd": TF32X3_PEAK, "istft_polar": FP32_PEAK}
     ms = {}
     for name, (kern, plain, lib_call, inputs) in timed.items():
         # plain, kernel, library, library, kernel, plain: each one's better median
         p1, k1, l1, l2, k2, p2 = (median_ms(f, inputs)
                                   for f in (plain, kern, lib_call, lib_call, kern, plain))
         flops, nbytes = work[name]
-        b_ms, b_by = bound(flops, nbytes)
+        b_ms, b_by = bound(flops, nbytes, peaks[name])
         ms[name] = {"ms": min(k1, k2), "plain_ms": min(p1, p2), "library_ms": min(l1, l2),
                     "bound_ms": b_ms, "bound_by": b_by, "device_ms": device_ms(kern, inputs)}
         m = ms[name]
         print(f"{name}: per call {m['ms']:.4f} ms (device {m['device_ms']:.4f}), plain "
               f"{m['plain_ms']:.4f} ms (device {device_ms(plain, inputs):.4f}), library "
               f"{m['library_ms']:.4f} ms (device {device_ms(lib_call, inputs):.4f}); bound "
-              f"{b_ms:.4f} ms by {b_by} ({flops / 1e9:.3f} GFLOP at {FP32_PEAK / 1e12:g} "
-              f"TFLOP/s fp32, {nbytes / 1e6:.2f} MB at {HBM_RATE / 1e12:g} TB/s); share of "
+              f"{b_ms:.4f} ms by {b_by} ({flops / 1e9:.3f} GFLOP at {peaks[name] / 1e12:g} "
+              f"TFLOP/s, {nbytes / 1e6:.2f} MB at {HBM_RATE / 1e12:g} TB/s); share of "
               f"bound {b_ms / m['ms']:.1%} per call, {b_ms / m['device_ms']:.1%} on the device; "
               f"device rates {flops / (m['device_ms'] * 1e-3) / 1e12:.2f} TFLOP/s, "
               f"{nbytes / (m['device_ms'] * 1e-3) / 1e12:.2f} TB/s (per call: median of 5 runs "
               f"over {n_fresh} fresh inputs; device: mean over them; {smi})", flush=True)
+    # K2 under the length mix's mask (it walks only the kept keys) and with
+    # no mask (every key): in turns, each one's better median and device time
+    mixed, unmasked = (
+        lambda q, k, v, m=m: cuda_attention.attention(q, k, v, scale=dh**-0.5, mask=m)
+        for m in (mix_mask, None))
+    m1, u1, u2, m2 = (median_ms(f, qkv) for f in (mixed, unmasked, unmasked, mixed))
+    print(f"attention_fwd under the length mix's mask ({int(mix_mask.sum())} of "
+          f"{BATCH * n_tok} keys kept): per call {min(m1, m2):.4f} ms (device "
+          f"{device_ms(mixed, qkv):.4f}); no mask: per call {min(u1, u2):.4f} ms (device "
+          f"{device_ms(unmasked, qkv):.4f}); {smi}", flush=True)
     walls = []
     for _ in range(5):
         batch = [speechlike(int(SECONDS * SR), rng) for _ in range(BATCH)]
@@ -374,10 +423,14 @@ def main() -> int:
     print(f"slice: enhance_batch of {BATCH} x {SECONDS:g} s PCM16 in {wall * 1e3:.1f} ms "
           f"(median of 5) = {BATCH * SECONDS / wall:.1f} audio-s/s; {smi}", flush=True)
     times = device_times(lambda: enhancer.enhance_batch(batch))
-    in_kernels = {name: round(sum(t for key, t in times.items() if f"{name}_kernel" in key), 4)
+    in_kernels = {name: sum(t for key, t in times.items() if f"{name}_kernel" in key)
                   for name in kernels.KERNELS}
+    for name, t in in_kernels.items():
+        ms[name]["path_device_ms"] = t / launches[name]
     print(f"slice device time (profiler, one batch): busy {sum(times.values()):.2f} ms; "
-          f"hand-written kernels {in_kernels} ms; {smi}", flush=True)
+          f"hand-written kernels {({n: round(t, 4) for n, t in in_kernels.items()})} ms, per "
+          f"launch {({n: round(m['path_device_ms'], 4) for n, m in ms.items()})} ms; {smi}",
+          flush=True)
 
     print(smi)
     print(json.dumps({"kernels": [

@@ -1,164 +1,476 @@
-// K2 attention_fwd: fused softmax(Q K^T * scale, key mask) V, forward, fp32.
+// K2 attention_fwd: fused softmax(Q K^T * scale, key mask) V, forward, fp32,
+// on Hopper's tensor cores in 3xTF32.
 //
 // Replaces the TPU kernel _attention_kernel in
 // speech_enhancement_via_hybrid_vision_transformer_project_tpu/ops/pallas_attention.py
 // (launched by _pallas_attention_3d, reached through fused_attention). The
 // TPU kernel keeps a whole [128, N] logit block in VMEM; a GPU block has far
 // less fast memory, so this kernel walks the keys in tiles with an online
-// softmax (running max and sum, all fp32) and never materializes the logits.
+// softmax (flash-attention 2) and never materializes the logits.
 //
-// What bounds it on an H100: fp32 FMAs on the CUDA cores, 2 * N * D per
-// query row (tensor cores unused: fp32 parity with the plain path), and
-// shared-memory load bandwidth for the K/V rows every thread reads.
+// What bounds it on an H100: the two matrix products, 4 * N * D operations
+// per query row and key. fp32 accuracy on the tensor cores costs three TF32
+// products per fp32 product (3xTF32): x = hi + lo with hi the TF32 rounding
+// of x and lo the TF32 rounding of x - hi, and a*b ~ a_lo*b_hi + a_hi*b_lo +
+// a_hi*b_hi, the small terms accumulated first (a_lo*b_lo, ~2^-22 of a*b, is
+// dropped). So the least time is the operations over a third of the dense
+// TF32 rate (165 TFLOP/s); the CUDA cores' fp32 rate is 67 TFLOP/s. That
+// dense rate is wgmma's; this kernel's mma.sync stays well below it, and
+// each warp issues several other instructions per mma (the hi/lo splits of
+// the K and V values it loads, the online softmax) beside it.
 //
-// Design: one block per (batch*head g, tile of ROWS query rows), one thread
-// per query row holding q and its output accumulator (D floats each) in
-// registers. K and V are staged BK keys at a time in shared memory and read
-// as float4 broadcasts (every lane of a warp reads the same key), 4 FMAs per
-// shared load. Keys are scored CH at a time; the running max is updated once
-// per CH keys, so the output is rescaled once per CH keys, not per key.
-// Keys past N are never loaded or scored (no padding of N). The key mask is
-// [B, N] bytes read as row g / heads (no per-head copy). A masked key's logit
-// is replaced by -1e30, as in sdpa_reference, so a row whose keys are all
-// masked averages V over its N keys.
+// Design:
+// - One block of four warps per (batch*head, 64 query rows). Each warp owns
+//   16 rows and keeps their Q A-fragments in registers, scaled by
+//   scale * log2(e) (the softmax runs in base 2) and, for D <= 64, split
+//   into hi and lo once.
+// - K and V tiles of BK keys are double buffered in shared memory by
+//   cp.async (16-byte copies; rows past the last key are zero filled). Row
+//   strides of D + 8 (K) and D + 4 (V) floats keep the fragment loads free
+//   of bank conflicts. Every warp splits the B values it loads into hi and
+//   lo itself. Splitting each value once per block instead, into a second
+//   buffer of hi and lo laid out for 16-byte fragment loads, issues fewer
+//   instructions but ran slower on an H100 (a split pass between two
+//   barriers a tile, and one staging buffer to load the next tile into).
+// - S = Q K^T and O += P V are chains of mma.sync m16n8k8 TF32, three per
+//   product. Each 8-deep k-step takes its 8 columns in the order
+//   0,2,4,6,1,3,5,7 (thread t holds columns 2t and 2t+1 where the fragment
+//   layout names t and t+4): a thread's two K values are adjacent (one
+//   8-byte load), and the accumulator fragment of S (columns 2t, 2t+1) is
+//   the A fragment of P with no shuffle. A sum over k does not depend on the
+//   order of its terms.
+// - Online softmax in fp32 registers: per row a running max (quad shuffles)
+//   and per thread a partial sum; O is rescaled once per tile; the four
+//   partial sums of a row meet in the epilogue, which divides by them.
+// - Masked keys. With a mask, each block first lists the kept keys of its
+//   batch row in shared memory (a warp ballot per 32 keys, a popcount
+//   prefix) and gathers only those rows of K and V. In fp32 a masked key's
+//   weight is exactly 0 when its row keeps any key, so leaving it out
+//   changes nothing but the work. A row that keeps no key walks all N keys,
+//   every logit replaced by -1e30 as in sdpa_reference: it averages V over
+//   its N keys. Positions past the last key of a tile are -inf. The list
+//   takes 4 bytes a key of shared memory; an N whose tiles and list exceed
+//   the card's shared memory a block fails to launch.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include <atomic>
 
 namespace {
 
-constexpr int ROWS = 128;  // query rows (threads) per block
-constexpr int CH = 16;     // keys per online-softmax step
+constexpr int WARPS = 4;
+constexpr int THREADS = 32 * WARPS;
+constexpr int BM = 16 * WARPS;    // query rows per block, 16 per warp
+constexpr float MASKED = -1e30f;  // a masked key's logit, as sdpa_reference
+constexpr int MAX_DEVICES = 64;   // devices whose kernel attributes are cached
+
+// Keys per K/V tile: 64, and 32 at D = 128, so that two tiles of K and V
+// take ~70 KB of shared memory.
+template <int D>
+__host__ __device__ constexpr int tile_keys() { return D <= 64 ? 64 : 32; }
 
 template <int D>
-__global__ void __launch_bounds__(ROWS)
+constexpr size_t tile_bytes() {
+  return sizeof(float) * 2 * tile_keys<D>() * ((D + 8) + (D + 4));
+}
+
+// The kept-key list of n keys: ballot words, their prefix, key indices.
+size_t list_bytes(int n) {
+  const size_t nw = (n + 31) / 32;
+  return sizeof(uint32_t) * 2 * nw + sizeof(int) * n;
+}
+
+// cvt.rna.tf32.f32 (nearest, ties away from zero) in two integer ops, which
+// also clear the 13 low bits that the tensor core ignores.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += A B in 3xTF32, A given as its hi and lo fragments, B as two floats:
+// the two small products first.
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], float b0, float b1) {
+  uint32_t bh0, bl0, bh1, bl1;
+  split(b0, bh0, bl0);
+  split(b1, bh1, bl1);
+  mma(d, al, bh0, bh1);
+  mma(d, ah, bl0, bl1);
+  mma(d, ah, bh0, bh1);
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool fill) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s), "l"(src),
+               "r"(fill ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+template <int D>
+// Two blocks (eight warps) an SM. A cap of 168 registers for three blocks
+// makes the D = 64 instance spill, and it ran slower on an H100.
+__global__ void __launch_bounds__(THREADS, 2)
 attention_fwd_kernel(const float* __restrict__ q,   // [G, N, D]
                      const float* __restrict__ k,   // [G, N, D]
                      const float* __restrict__ v,   // [G, N, D]
                      const unsigned char* __restrict__ key_mask,  // [B, N] or null
                      float* __restrict__ out,       // [G, N, D]
-                     int heads, int n, float scale) {
-  constexpr int D4 = D / 4;
-  constexpr int BK = 4096 / D;  // keys per shared-memory tile (16 KB each)
-  __shared__ float4 ks[BK * D4];
-  __shared__ float4 vs[BK * D4];
-  __shared__ unsigned char valid[BK];
+                     int heads, int n, float qscale) {
+  constexpr int BK = tile_keys<D>();
+  constexpr int LDK = D + 8, LDV = D + 4;
+  constexpr int KS = D / 8;   // k-steps of S = Q K^T
+  constexpr int NT = BK / 8;  // 8-key column tiles of S, k-steps of P V
+  constexpr int DT = D / 8;   // 8-wide column tiles of O
+  constexpr int CH = D / 4;   // 16-byte chunks of a K or V row
+  constexpr bool Q_SPLIT = D <= 64;  // Q's hi/lo kept, not recomputed per tile
 
-  const int g = blockIdx.y;
-  const int row = blockIdx.x * ROWS + threadIdx.x;
-  const bool active = row < n;
-  const long base = static_cast<long>(g) * n * D;
+  extern __shared__ float4 smem[];
+  float* ks = reinterpret_cast<float*>(smem);  // [2][BK][LDK]
+  float* vs = ks + 2 * BK * LDK;               // [2][BK][LDV]
+  __shared__ int n_kept;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const long base = static_cast<long>(blockIdx.y) * n * D;
   const unsigned char* mrow =
-      key_mask ? key_mask + static_cast<long>(g / heads) * n : nullptr;
+      key_mask ? key_mask + static_cast<long>(blockIdx.y / heads) * n : nullptr;
 
-  float4 qr[D4], o[D4];
-  const float4* q4 = reinterpret_cast<const float4*>(q + base + static_cast<long>(row) * D);
-#pragma unroll
-  for (int e = 0; e < D4; ++e) {
-    qr[e] = active ? q4[e] : make_float4(0.f, 0.f, 0.f, 0.f);
-    o[e] = make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-  float m = -INFINITY, l = 0.f;
-
-  for (int j0 = 0; j0 < n; j0 += BK) {
-    const int nk = min(BK, n - j0);
-    __syncthreads();  // the previous tile has been consumed
-    const float4* k4 = reinterpret_cast<const float4*>(k + base + static_cast<long>(j0) * D);
-    const float4* v4 = reinterpret_cast<const float4*>(v + base + static_cast<long>(j0) * D);
-    for (int i = threadIdx.x; i < nk * D4; i += ROWS) {
-      ks[i] = k4[i];
-      vs[i] = v4[i];
+  // The keys the block walks: its batch row's kept keys (gathered through
+  // `kept`), or all n of them, unmasked or (`all_masked`) each at -1e30.
+  int count = n;
+  bool all_masked = false;
+  const int* kept = nullptr;
+  if (mrow) {
+    const int nw = (n + 31) / 32;
+    uint32_t* words = reinterpret_cast<uint32_t*>(vs + 2 * BK * LDV);
+    uint32_t* prefix = words + nw;
+    int* list = reinterpret_cast<int*>(prefix + nw);
+    for (int c = warp; c < nw; c += WARPS) {
+      const int j = c * 32 + lane;
+      const uint32_t b = __ballot_sync(0xffffffffu, j < n && mrow[j]);
+      if (lane == 0) words[c] = b;
     }
-    for (int i = threadIdx.x; i < nk; i += ROWS) valid[i] = mrow ? mrow[j0 + i] : 1;
     __syncthreads();
-    if (!active) continue;
-
-    for (int c0 = 0; c0 < nk; c0 += CH) {
-      float s[CH];
-      float cmax = -INFINITY;
+    if (warp == 0) {  // exclusive prefix of the words' popcounts, 32 at a time
+      int carry = 0;
+      for (int c0 = 0; c0 < nw; c0 += 32) {
+        const int c = c0 + lane;
+        const int cnt = c < nw ? __popc(words[c]) : 0;
+        int incl = cnt;
 #pragma unroll
-      for (int c = 0; c < CH; ++c) {
-        const int j = c0 + c;
-        s[c] = -INFINITY;
-        if (j < nk) {
-          float dot = 0.f;
-#pragma unroll
-          for (int e = 0; e < D4; ++e) {
-            const float4 kv = ks[j * D4 + e];
-            dot = fmaf(qr[e].x, kv.x, dot);
-            dot = fmaf(qr[e].y, kv.y, dot);
-            dot = fmaf(qr[e].z, kv.z, dot);
-            dot = fmaf(qr[e].w, kv.w, dot);
-          }
-          s[c] = valid[j] ? dot * scale : -1e30f;
+        for (int o = 1; o < 32; o <<= 1) {
+          const int y = __shfl_up_sync(0xffffffffu, incl, o);
+          if (lane >= o) incl += y;
         }
-        cmax = fmaxf(cmax, s[c]);
+        if (c < nw) prefix[c] = carry + incl - cnt;
+        carry += __shfl_sync(0xffffffffu, incl, 31);
       }
-      // every step holds at least one key < nk, so m_new is finite
-      const float m_new = fmaxf(m, cmax);
-      const float corr = expf(m - m_new);  // 0 on the first step
-      l *= corr;
-#pragma unroll
-      for (int e = 0; e < D4; ++e) {
-        o[e].x *= corr;
-        o[e].y *= corr;
-        o[e].z *= corr;
-        o[e].w *= corr;
-      }
-#pragma unroll
-      for (int c = 0; c < CH; ++c) {
-        const int j = c0 + c;
-        if (j < nk) {
-          const float pj = expf(s[c] - m_new);
-          l += pj;
-#pragma unroll
-          for (int e = 0; e < D4; ++e) {
-            const float4 vv = vs[j * D4 + e];
-            o[e].x = fmaf(pj, vv.x, o[e].x);
-            o[e].y = fmaf(pj, vv.y, o[e].y);
-            o[e].z = fmaf(pj, vv.z, o[e].z);
-            o[e].w = fmaf(pj, vv.w, o[e].w);
-          }
-        }
-      }
-      m = m_new;
+      if (lane == 0) n_kept = carry;
+    }
+    __syncthreads();
+    for (int c = warp; c < nw; c += WARPS) {
+      const uint32_t w = words[c];
+      if ((w >> lane) & 1u) list[prefix[c] + __popc(w & ((1u << lane) - 1u))] = c * 32 + lane;
+    }
+    __syncthreads();
+    if (n_kept > 0) {
+      count = n_kept;
+      kept = list;
+    } else {
+      all_masked = true;
     }
   }
 
-  if (active) {
-    const float inv = 1.f / l;
-    float4* o4 = reinterpret_cast<float4*>(out + base + static_cast<long>(row) * D);
+  auto load_tile = [&](int tile, int buf) {
+    const int j0 = tile * BK;
+    float* kd = ks + buf * BK * LDK;
+    float* vd = vs + buf * BK * LDV;
+    static_assert(BK * CH % THREADS == 0, "whole rounds of 16-byte copies");
 #pragma unroll
-    for (int e = 0; e < D4; ++e) {
-      o4[e] = make_float4(o[e].x * inv, o[e].y * inv, o[e].z * inv, o[e].w * inv);
+    for (int it = 0; it < BK * CH / THREADS; ++it) {
+      const int i = tid + it * THREADS;
+      const int r = i / CH, c = i % CH;
+      const int p = j0 + r;
+      const bool in = p < count;
+      const long key = in ? (kept ? kept[p] : p) : 0;
+      cp_async16(kd + r * LDK + c * 4, k + base + key * D + c * 4, in);
+      cp_async16(vd + r * LDV + c * 4, v + base + key * D + c * 4, in);
     }
+    cp_async_commit();
+  };
+
+  // Q's A fragments: rows g and g + 8 of the warp's 16, columns 2t and
+  // 2t + 1 of each k-step (a0, a2 and a1, a3).
+  const int ra = blockIdx.x * BM + warp * 16 + g, rb = ra + 8;
+  float qf[KS][4];
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    const float2 x = ra < n ? *reinterpret_cast<const float2*>(q + base + static_cast<long>(ra) * D + kk * 8 + 2 * t)
+                            : make_float2(0.f, 0.f);
+    const float2 y = rb < n ? *reinterpret_cast<const float2*>(q + base + static_cast<long>(rb) * D + kk * 8 + 2 * t)
+                            : make_float2(0.f, 0.f);
+    qf[kk][0] = x.x * qscale;
+    qf[kk][1] = y.x * qscale;
+    qf[kk][2] = x.y * qscale;
+    qf[kk][3] = y.y * qscale;
+  }
+  uint32_t qh[Q_SPLIT ? KS : 1][4], ql[Q_SPLIT ? KS : 1][4];
+  if constexpr (Q_SPLIT) {
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) split(qf[kk][e], qh[kk][e], ql[kk][e]);
+  }
+
+  float o[DT][4];
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[dt][e] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY;  // running max of rows g, g + 8
+  float l0 = 0.f, l1 = 0.f;              // this thread's share of their sums
+
+  const int ntiles = (count + BK - 1) / BK;
+  load_tile(0, 0);
+  for (int tile = 0; tile < ntiles; ++tile) {
+    const int buf = tile & 1;
+    if (tile + 1 < ntiles) {
+      load_tile(tile + 1, buf ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* kt = ks + buf * BK * LDK;
+    const float* vt = vs + buf * BK * LDV;
+
+    // S = Q K^T (log2 units)
+    float s[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t ah[4], al[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if constexpr (Q_SPLIT) {
+          ah[e] = qh[kk][e];
+          al[e] = ql[kk][e];
+        } else {
+          split(qf[kk][e], ah[e], al[e]);
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const float2 b = *reinterpret_cast<const float2*>(kt + (nt * 8 + g) * LDK + kk * 8 + 2 * t);
+        mma3(s[nt], ah, al, b.x, b.y);
+      }
+    }
+
+    // masks (a full tile of kept or unmasked keys has none), row max, rescale
+    const int lim = count - tile * BK;  // positions present in this tile
+    if (all_masked || lim < BK) {
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int col = nt * 8 + 2 * t + c;
+          if (col >= lim) {
+            s[nt][c] = s[nt][2 + c] = -INFINITY;
+          } else if (all_masked) {
+            s[nt][c] = s[nt][2 + c] = MASKED;
+          }
+        }
+      }
+    }
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        mx0 = fmaxf(mx0, s[nt][c]);
+        mx1 = fmaxf(mx1, s[nt][2 + c]);
+      }
+    }
+    // every tile holds a present key, so the new maxima are finite
+    const float mn0 = fmaxf(m0, quad_max(mx0)), mn1 = fmaxf(m1, quad_max(mx1));
+    const float c0 = exp2f(m0 - mn0), c1 = exp2f(m1 - mn1);  // 0 on the first tile
+    m0 = mn0;
+    m1 = mn1;
+    l0 *= c0;
+    l1 *= c1;
+#pragma unroll
+    for (int dt = 0; dt < DT; ++dt) {
+      o[dt][0] *= c0;
+      o[dt][1] *= c0;
+      o[dt][2] *= c1;
+      o[dt][3] *= c1;
+    }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        s[nt][c] = exp2f(s[nt][c] - m0);
+        l0 += s[nt][c];
+        s[nt][2 + c] = exp2f(s[nt][2 + c] - m1);
+        l1 += s[nt][2 + c];
+      }
+    }
+
+    // O += P V: k-step kk2 is S's column tile kk2, keys 2t and 2t + 1 as
+    // columns t and t + 4 of the A fragment
+#pragma unroll
+    for (int kk2 = 0; kk2 < NT; ++kk2) {
+      uint32_t ah[4], al[4];
+      split(s[kk2][0], ah[0], al[0]);
+      split(s[kk2][2], ah[1], al[1]);
+      split(s[kk2][1], ah[2], al[2]);
+      split(s[kk2][3], ah[3], al[3]);
+      const float* vr = vt + (kk2 * 8 + 2 * t) * LDV + g;
+#pragma unroll
+      for (int dt = 0; dt < DT; ++dt) mma3(o[dt], ah, al, vr[dt * 8], vr[LDV + dt * 8]);
+    }
+    __syncthreads();  // the next iteration refills this buffer
+  }
+
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+  const float i0 = 1.f / l0, i1 = 1.f / l1;
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt) {
+    if (ra < n)
+      *reinterpret_cast<float2*>(out + base + static_cast<long>(ra) * D + dt * 8 + 2 * t) =
+          make_float2(o[dt][0] * i0, o[dt][1] * i0);
+    if (rb < n)
+      *reinterpret_cast<float2*>(out + base + static_cast<long>(rb) * D + dt * 8 + 2 * t) =
+          make_float2(o[dt][2] * i1, o[dt][3] * i1);
   }
 }
 
+// The block's dynamic shared memory: two K/V tiles, and the kept-key list
+// with a mask.
 template <int D>
-void launch(const float* q, const float* k, const float* v,
-            const unsigned char* key_mask, float* out, int groups, int heads,
-            int n, float scale, cudaStream_t stream) {
-  const dim3 grid((n + ROWS - 1) / ROWS, groups);
-  attention_fwd_kernel<D><<<grid, ROWS, 0, stream>>>(q, k, v, key_mask, out,
-                                                     heads, n, scale);
+size_t smem_bytes(bool masked, int n) {
+  return tile_bytes<D>() + (masked ? list_bytes(n) : 0);
+}
+
+// Lets the kernel take all the shared memory a block may have on the
+// current device. Function attributes are per device; each device's are
+// set once (always the same values, so threads racing here do no harm).
+template <int D>
+cudaError_t configure() {
+  static std::atomic<bool> done[MAX_DEVICES];
+  int dev;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < MAX_DEVICES && done[dev].load(std::memory_order_acquire)) return cudaSuccess;
+  const auto kernel = attention_fwd_kernel<D>;
+  int most;
+  e = cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  cudaFuncAttributes attr;
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, kernel);
+  if (e == cudaSuccess)  // the dynamic part: what the static part leaves
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             most - static_cast<int>(attr.sharedSizeBytes));
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (e == cudaSuccess && dev < MAX_DEVICES) done[dev].store(true, std::memory_order_release);
+  return e;
+}
+
+template <int D>
+cudaError_t launch(const float* q, const float* k, const float* v,
+                   const unsigned char* key_mask, float* out, int groups, int heads,
+                   int n, float qscale, cudaStream_t stream) {
+  cudaError_t err = configure<D>();
+  if (err != cudaSuccess) return err;
+  const dim3 grid((n + BM - 1) / BM, groups);
+  attention_fwd_kernel<D><<<grid, THREADS, smem_bytes<D>(key_mask != nullptr, n), stream>>>(
+      q, k, v, key_mask, out, heads, n, qscale);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t info(int n, int masked, int* regs, int* local_bytes, int* smem,
+                 int* blocks_per_sm) {
+  cudaError_t err = configure<D>();
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, attention_fwd_kernel<D>);
+  if (err != cudaSuccess) return err;
+  const size_t bytes = smem_bytes<D>(masked != 0, n);
+  *regs = attr.numRegs;
+  *local_bytes = static_cast<int>(attr.localSizeBytes);
+  *smem = static_cast<int>(bytes + attr.sharedSizeBytes);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, attention_fwd_kernel<D>,
+                                                       THREADS, bytes);
 }
 
 }  // namespace
 
 // q/k/v/out: [groups = batch*heads, n, d] contiguous, 16-byte aligned;
-// key_mask: [batch, n] bytes (nonzero = attend) or null. d in {16, 32, 64, 128}.
+// key_mask: [batch, n] bytes (nonzero = attend) or null; qscale: the
+// softmax scale times log2(e). d in {16, 32, 64, 128}.
 extern "C" int sevit_attention_fwd(const float* q, const float* k,
                                    const float* v, const unsigned char* key_mask,
                                    float* out, int groups, int heads, int n,
-                                   int d, float scale, void* stream) {
+                                   int d, float qscale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 16: launch<16>(q, k, v, key_mask, out, groups, heads, n, scale, s); break;
-    case 32: launch<32>(q, k, v, key_mask, out, groups, heads, n, scale, s); break;
-    case 64: launch<64>(q, k, v, key_mask, out, groups, heads, n, scale, s); break;
-    case 128: launch<128>(q, k, v, key_mask, out, groups, heads, n, scale, s); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    case 16: return launch<16>(q, k, v, key_mask, out, groups, heads, n, qscale, s);
+    case 32: return launch<32>(q, k, v, key_mask, out, groups, heads, n, qscale, s);
+    case 64: return launch<64>(q, k, v, key_mask, out, groups, heads, n, qscale, s);
+    case 128: return launch<128>(q, k, v, key_mask, out, groups, heads, n, qscale, s);
+    default: return cudaErrorInvalidValue;
   }
-  return static_cast<int>(cudaGetLastError());
+}
+
+// Registers and local (spill) bytes per thread, shared memory per block and
+// resident blocks per SM of the instance for head dim d at n keys, with or
+// without a mask.
+extern "C" int sevit_attention_info(int d, int n, int masked, int* regs, int* local_bytes,
+                                    int* smem, int* blocks_per_sm) {
+  switch (d) {
+    case 16: return info<16>(n, masked, regs, local_bytes, smem, blocks_per_sm);
+    case 32: return info<32>(n, masked, regs, local_bytes, smem, blocks_per_sm);
+    case 64: return info<64>(n, masked, regs, local_bytes, smem, blocks_per_sm);
+    case 128: return info<128>(n, masked, regs, local_bytes, smem, blocks_per_sm);
+    default: return cudaErrorInvalidValue;
+  }
 }

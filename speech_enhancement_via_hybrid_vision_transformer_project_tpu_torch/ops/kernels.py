@@ -72,7 +72,8 @@ KERNELS = {
             "attention_fwd", "sevit_attention_fwd", "csrc/attention.cu",
             "speech_enhancement_via_hybrid_vision_transformer_project_tpu/"
             "ops/pallas_attention.py:46",
-            # q, k, v, key_mask, out, groups, heads, n, d, scale, stream
+            # q, k, v, key_mask, out, groups, heads, n, d, scale * log2(e),
+            # stream
             (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
         ),
         Kernel(

@@ -90,17 +90,51 @@ def test_istft_polar_kernel_other_sizes(n_fft, dev, gen):
     assert float((y - r).abs().max()) < 2e-5
 
 
-@pytest.mark.parametrize("n", [1, 37, 200, 384])
+@pytest.mark.parametrize("n", [1, 37, 63, 64, 65, 129, 200, 384, 448])
 @pytest.mark.parametrize("d", [16, 32, 64, 128])
 def test_attention_kernel_matches_plain(n, d, dev, gen):
+    """N at the kernel's tile edges (64 keys a tile, 32 at d = 128; 64
+    query rows a block). Masks: none; random with row 1 fully masked (it
+    averages V over N keys); row 0 keeping a single key and row 1
+    interleaved as ``patch_validity_mask`` makes it (rows of 24 patch
+    columns whose trailing 7 are masked)."""
     q, k, v = (torch.randn(2, 3, n, d, generator=gen).to(dev) for _ in range(3))
     mask = torch.rand(2, n, generator=gen) > 0.3
-    mask[1] = False  # every key masked: the row averages V over N keys
-    mask = mask.to(dev)
-    for m in (None, mask):
-        o = cuda_attention.attention(q, k, v, scale=d**-0.5, mask=m)
+    mask[1] = False
+    edge = torch.zeros(2, n, dtype=torch.bool)
+    edge[0, n // 2] = True
+    edge[1] = torch.arange(n) % 24 < 17
+    for m in (None, mask.to(dev), edge.to(dev)):
         r = cuda_attention.attention_plain(q, k, v, scale=d**-0.5, mask=m)
+        before = kernels.KERNELS["attention_fwd"].launches
+        o = cuda_attention.attention(q, k, v, scale=d**-0.5, mask=m)
+        assert kernels.KERNELS["attention_fwd"].launches == before + 1
         assert float((o - r).abs().max()) < 2e-5
+
+
+def test_attention_kernel_resources(dev):
+    """At the serving path's head dim (64) K2 does not spill, and two blocks
+    (eight warps) fit on an SM at every head dim, with or without the
+    kept-key list."""
+    info = cuda_attention.kernel_info(64, 384)
+    assert info["local_bytes"] == 0 and info["blocks_per_sm"] >= 2, info
+    for d in (16, 32, 64, 128):
+        for masked in (False, True):
+            assert cuda_attention.kernel_info(d, 384, masked)["blocks_per_sm"] >= 2
+
+
+def test_attention_kernel_long_mask(dev, gen):
+    """A mask over 8,200 keys: the kept-key list (4 bytes a key) and the
+    tiles share the block's shared memory; row 0 keeps the first and last
+    keys, row 1 keeps none."""
+    n, d = 8200, 16
+    q, k, v = (torch.randn(2, 1, n, d, generator=gen).to(dev) for _ in range(3))
+    mask = torch.zeros(2, n, dtype=torch.bool)
+    mask[0, [0, n - 1]] = True
+    mask = mask.to(dev)
+    o = cuda_attention.attention(q, k, v, scale=d**-0.5, mask=mask)
+    r = cuda_attention.attention_plain(q, k, v, scale=d**-0.5, mask=mask)
+    assert float((o - r).abs().max()) < 2e-5
 
 
 @pytest.mark.parametrize("n_frames,length", [(3, 300), (41, None), (41, 9000), (376, 48000)])
