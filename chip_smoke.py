@@ -1,4 +1,5 @@
-"""Drive the PyTorch port's serving path once on a CUDA card and check it.
+"""Drive the PyTorch port's serving and training paths on a CUDA card and
+check them.
 
     python3 chip_smoke.py
 
@@ -8,9 +9,10 @@ which raises on failure:
 
 1. device: a CUDA card is required; prints its name and power limit and
    turns TF32 off (float32 end to end).
-2. build: compiles the three kernels from the port's ``csrc/``, one nvcc
-   per source, all started together; prints K2's registers, shared memory
-   and blocks per SM, and checks that its code holds TF32 tensor-core
+2. build: compiles the four kernels (K1, K2 forward and backward, K3)
+   from the port's ``csrc/``, one nvcc per source, all started together;
+   prints K2's registers, shared memory and blocks per SM (its backward's
+   registers and spills), and checks that its code holds TF32 tensor-core
    instructions (``HMMA ... TF32`` in ``cuobjdump -sass``).
 3. kernels: each kernel against its plain PyTorch version at the serving
    path's shapes (batch 32 x 3 s; attention under the serving batch's own
@@ -31,14 +33,44 @@ which raises on failure:
    yardstick (``torch.stft``, ``scaled_dot_product_attention``,
    ``torch.istft``; the port never calls these), per-call CUDA-event times
    over fresh inputs and the device time alone (``torch.profiler``),
-   beside its bound: the larger of its operations over the peak rate of
-   their route (the FFTs: fp32; attention: 3xTF32 on the tensor cores) and
+   beside its bound: the larger of its operations over the card's peak
+   rate for their type (the FFTs: fp32; attention's fp32-accurate matrix
+   products, forward and backward: 3xTF32 on the tensor cores) and
    its bytes over the memory rate. K2's inputs carry the mask of the
    slice's own batch (32 clips of 3 s, which keep every key); K2 is also
    timed under a mix of clip lengths (1 to 3.06 s, a third of the keys
    masked) and with no mask. Then the slice's audio-seconds per second at
    batch 32 x 3 s, and each kernel's device time per launch in one
    profiled batch.
+8. training (its wall time printed):
+   a. K2's backward (``csrc/attention_bwd.cu``, through the autograd
+      Function around K2) against autograd through the plain version, at
+      q/k/v [16, 8, 384, 64] under the train batch's own patch mask, under
+      a 1-3.06 s length mix and with no mask, and at N = 200 with a fully
+      masked row and N = 37 with a one-key row; dq, dk and dv each within
+      ``TOL_BWD`` of its largest magnitude, masked keys' dk exactly 0.
+   b. full width: the 28M configuration with the README's recipe, dropout
+      and drop-path 0.1, attention dropout 0 (so attention runs through K2),
+      fp32, AdamW at lr 1e-4, clip 1.0, seeded weights, SpecAugment on, a
+      PCM16 batch of 16 clips of 1.5-3.06 s (the 384-frame bucket) from the
+      port's collate: 5 train steps, through the port's step functions, and
+      one eval step. The loss is finite and falls; K1 runs twice a step, K2
+      forward and backward 6 times a step. One step at depth 1 (dropouts 0)
+      on cuda matches the same step on cpu from the same weights: loss,
+      BatchNorm statistics, each parameter's gradient relative to its own
+      largest, and the parameters after AdamW against AdamW on the cpu
+      from cuda's gradients (``step_cuda_vs_cpu``, ``check_step``).
+   c. the shipped dropouts (attention dropout 0.1): 2 steps through the
+      explicit-weights path, which launches no K2.
+   d. the training CLI: one epoch on 8 synthetic WAV pairs at small width,
+      fp32, attention dropout 0, on cuda; its best and final checkpoints
+      read back.
+   e. times: K2's backward against its plain version (autograd through
+      ``attention_plain``), SDPA's backward (the port never calls it) and
+      its bound (3xTF32, as the forward's); the full-width train step in ms
+      and audio-seconds per second, and beside it the same step without
+      the non-finite skip (whose check waits for the device); one profiled
+      step split by operator.
 
 Prints, on its last three lines: the card's ``nvidia-smi`` name and power
 limit, a JSON line of per-kernel results, and the result JSON.
@@ -47,10 +79,12 @@ limit, a JSON line of per-kernel results, and the result JSON.
 from __future__ import annotations
 
 import json
+import re
 import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -77,6 +111,42 @@ HBM_RATE = 3.35e12  # bytes/s
 # accuracy for a matrix product on this card, and the one both K2 and its
 # SDPA yardstick (PyTorch's memory-efficient kernel) take.
 TF32X3_PEAK = 495e12 / 3  # FLOP/s
+# K2's backward: dq, dk and dv each within 1e-4 of its largest magnitude
+# (fp32 sums of up to 448 products in another order, the weights recomputed
+# from the forward's log-sum-exp rather than a two-pass softmax)
+TOL_BWD = 1e-4
+# one train step on cuda against the same step on cpu, fp32 on both (cuDNN's
+# convolutions sum in another, not fixed, order): loss components and new
+# BatchNorm statistics (absolute); each parameter's gradient, its max abs
+# error relative to its own largest |grad| on cpu. The gradients are
+# ill-conditioned in fp32 where they sum over the spectrogram's positions
+# (BatchNorm's affine parameters, the convs under it, the patch embedding,
+# the positional tables): BatchNorm's backward sums dout over positions to
+# ~0 per channel, so these gradients cancel and amplify rounding, K1's
+# against the plain STFT included; the transformer block's parameters come
+# after the encoder and cancel less. Measured on an H100 over 16 such steps
+# (weight seeds and batches): at most 1.7e-2 outside the block
+# (decoder.0.bn.bias) and 6.2e-3 inside (norm2.weight); with K2's backward
+# planted without its scale (dq and dk 8x) the block is off by 0.13-0.19
+# (qkv, norm1) in each of 3 steps. The block's limit lies midway (geometric)
+# between those two readings. The parameters after AdamW on cuda against
+# AdamW on the cpu applied to cuda's own gradients (the same elementwise
+# fp32 arithmetic): in units in the last place of the larger of the
+# parameter before and after the step, as an update that cancels a
+# parameter to ~0 rounds at the scale of its operands; CUDA divides by a
+# host scalar (Adam's bias corrections) as a product with its reciprocal,
+# which puts the update a few ulp off: 4 ulp in each of 11 such steps.
+TOL_STEP_LOSS = 1e-5
+TOL_STEP_STATS = 1e-5
+TOL_STEP_GRAD = 5e-2
+TOL_STEP_GRAD_BLOCK = 3e-2
+TOL_STEP_PARAM_ULPS = 8
+SERVING = ("stft_mag", "attention_fwd", "istft_polar")  # the kernels each path runs
+TRAINING = ("stft_mag", "attention_fwd", "attention_bwd")
+TRAIN_BATCH, TRAIN_LR, TRAIN_STEPS = 16, 1e-4, 5
+# the README's recipe with attention dropout 0, so that attention runs through K2
+RECIPE = {"model": {"output_mode": "mask", "head": "fullres_mask",
+                    "transformer": {"pos_embed": "factored_2d", "attention_dropout": 0.0}}}
 
 
 def phase(name: str) -> None:
@@ -163,6 +233,430 @@ def max_err(a, b) -> float:
     return max(float((x - y).abs().max()) for x, y in zip(a, b))
 
 
+def kernel_ms(times: dict[str, float], name: str) -> float:
+    """Device time of the kernel record ``name``'s CUDA functions
+    (``<name>*_kernel``) in a ``device_times`` result."""
+    return sum(t for key, t in times.items() if re.search(rf"\b{name}\w*_kernel\b", key))
+
+
+def op_split(run, attempts: int = 3) -> dict[str, float]:
+    """Device ms of one ``run()`` by operator: cuDNN convolutions forward and
+    backward, fp32 GEMMs, the hand-written kernels, and the rest of the busy
+    time (``torch.profiler``: operators' device time with their kernels)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(attempts):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        kern = {e.key: e.self_device_time_total / 1e3 for e in events
+                if e.device_type == DeviceType.CUDA}
+        ops = {e.key: e.device_time_total / 1e3 for e in events
+               if e.device_type == DeviceType.CPU}
+        busy = sum(kern.values())
+        if busy <= 0:
+            continue
+        split = {
+            "convs": sum(ops.get(k, 0.0) for k in ("aten::cudnn_convolution",
+                                                   "aten::convolution_backward")),
+            "gemms": sum(ops.get(k, 0.0) for k in ("aten::mm", "aten::addmm", "aten::bmm",
+                                                   "aten::baddbmm")),
+            **{name: kernel_ms(kern, name) for name in TRAINING},
+        }
+        split["rest"] = busy - sum(split.values())
+        split["busy"] = busy
+        return split
+    raise RuntimeError(f"the profiler recorded no device time in {attempts} runs")
+
+
+def loader_batch(n: int, lo: float, hi: float, rng: np.random.Generator) -> dict:
+    """A loader batch (the port's collate, PCM16) of n speech-like pairs,
+    lengths spread evenly from lo to hi samples."""
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.data.dataset import (
+        collate_waveforms,
+    )
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.ops.stft import STFTConfig
+
+    items = []
+    for length in np.linspace(lo, hi, n).astype(int):
+        clean = speechlike(int(length), rng)
+        noisy = (clean + 0.1 * rng.standard_normal(length)).astype(np.float32)
+        items.append({"noisy_audio": noisy, "clean_audio": clean, "length": np.int32(length)})
+    return collate_waveforms(items, STFTConfig(), transfer_dtype="int16")
+
+
+def step_cuda_vs_cpu(rng: np.random.Generator, seed: int = 1) -> dict:
+    """One train step of the 28M recipe at depth 1 (dropouts 0, SpecAugment
+    off, weights from seed ``seed``) on cuda and on cpu, on one batch of 4
+    PCM16 clips in the 128-frame bucket. Returns the max abs error of the
+    loss components (``loss``) and of the new BatchNorm statistics
+    (``stats``); per parameter, its gradient's max abs error relative to its
+    own largest |grad| on cpu (``leaf``) and to the model's largest
+    (``model``); and the largest difference between the parameters after
+    AdamW on cuda and AdamW on the cpu applied to cuda's gradients, in units
+    in the last place of the larger of each parameter before and after the
+    step (``param_ulps``)."""
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.data.augmentation import (
+        SpecAugmentConfig,
+    )
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.models import (
+        create_hybrid_vit, init_weights,
+    )
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.ops.stft import STFTConfig
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.training.losses import (
+        LossConfig,
+    )
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.training.optimizer import (
+        Optimizer, parameters,
+    )
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.training.trainer import (
+        batch_to_device, make_step_fns,
+    )
+
+    class Capturing(Optimizer):
+        """AdamW that keeps a copy of the gradients it is handed."""
+
+        def step(self, grads):
+            self.grads = [x.detach().cpu().clone() for x in grads]
+            return super().step(grads)
+
+    cfg = STFTConfig()
+    config = {"model": {**RECIPE["model"], "encoder": {"dropout": 0.0},
+                        "transformer": {**RECIPE["model"]["transformer"], "num_layers": 1,
+                                        "drop_path_rate": 0.0}}}
+    model = init_weights(create_hybrid_vit(config), torch.Generator().manual_seed(seed))
+    names = [name for name, p in model.named_parameters() if p.requires_grad]
+    initial = [model.state_dict()[name].clone() for name in names]
+    batch = loader_batch(4, 0.6 * SR, 127 * cfg.hop_length, rng)  # the 128-frame bucket
+    adamw = dict(name="adamw", lr=TRAIN_LR, weight_decay=0.01, max_norm=1.0)
+    res = {}
+    for device in ("cuda", "cpu"):
+        m = create_hybrid_vit(config)
+        m.load_state_dict(model.state_dict())
+        m.to(device)
+        opt = Capturing(parameters(m), **adamw)
+        step, _ = make_step_fns(m, opt, LossConfig(log_l1_weight=0.05), cfg, SpecAugmentConfig(),
+                                augment=False, use_attention_mask=True, output_mode="mask")
+        metrics = step(batch_to_device(batch, device))
+        res[device] = ({k: float(v) for k, v in metrics.items()}, opt.grads,
+                       {k: v.cpu() for k, v in m.state_dict().items() if "running" in k},
+                       [p.detach().cpu() for p in parameters(m)])
+    (lc, gc, sc, pc), (lp, gp, sp, _) = res["cuda"], res["cpu"]
+    g_scale = max(float(x.abs().max()) for x in gp)
+    leaf, whole = {}, {}
+    for name, a, b in zip(names, gc, gp):
+        err, own = float((a - b).abs().max()), float(b.abs().max())
+        leaf[name] = err / own if own > 0 else (0.0 if err == 0 else float("inf"))
+        whole[name] = err / g_scale
+    ref = Optimizer([t.clone() for t in initial], **adamw)
+    ref.step(gc)
+    ulps = (0.0, "")
+    for name, a, b, p0 in zip(names, pc, ref.params, initial):
+        unit = torch.maximum(p0.abs(), b.abs())
+        spacing = torch.nextafter(unit, torch.tensor(float("inf"))) - unit
+        ulps = max(ulps, (float(((a - b).abs() / spacing).max()), name))
+    return {"loss": max(abs(lc[k] - lp[k]) for k in lp if k != "grad_norm"),
+            "stats": max_err([sc[k] for k in sp], list(sp.values())),
+            "leaf": leaf, "model": whole, "param_ulps": ulps}
+
+
+def check_step(errs: dict) -> None:
+    """Print ``step_cuda_vs_cpu``'s errors; raise unless each is within its
+    tolerance."""
+    def worst(in_block: bool) -> tuple[float, str]:
+        return max((e, n) for n, e in errs["leaf"].items()
+                   if n.startswith("transformer.blocks.") == in_block)
+
+    (block_err, block_name), (other_err, other_name) = worst(True), worst(False)
+    top = sorted(((e, n) for n, e in errs["leaf"].items()), reverse=True)[:4]
+    model_err, model_name = max((e, n) for n, e in errs["model"].items())
+    ulps, ulps_name = errs["param_ulps"]
+    print(f"one step, depth 1, cuda vs cpu: loss components {errs['loss']:.2e} (tolerance "
+          f"{TOL_STEP_LOSS}), BatchNorm statistics {errs['stats']:.2e} (tolerance "
+          f"{TOL_STEP_STATS}); gradients, max abs error relative to each parameter's largest "
+          f"|grad|: the transformer block's {block_err:.2e} ({block_name}; tolerance "
+          f"{TOL_STEP_GRAD_BLOCK}), every other parameter's {other_err:.2e} ({other_name}; "
+          f"tolerance {TOL_STEP_GRAD}), largest {[(n, f'{e:.2e}') for e, n in top]}; relative to "
+          f"the model's largest |grad| {model_err:.2e} ({model_name}); parameters after AdamW "
+          f"against AdamW on the cpu from cuda's gradients {ulps:g} ulp ({ulps_name}; tolerance "
+          f"{TOL_STEP_PARAM_ULPS})", flush=True)
+    if (errs["loss"] > TOL_STEP_LOSS or errs["stats"] > TOL_STEP_STATS
+            or block_err > TOL_STEP_GRAD_BLOCK or other_err > TOL_STEP_GRAD
+            or ulps > TOL_STEP_PARAM_ULPS):
+        raise AssertionError("a train step on cuda differs from the same step on cpu")
+
+
+def training(dev: torch.device, smi: str, rng: np.random.Generator, g: torch.Generator) -> dict:
+    """Phase 8. Returns K2 backward's max abs errors and times, and every
+    kernel's launches in the ``TRAIN_STEPS`` full-width train steps."""
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.cli.train import (
+        main as train_cli,
+    )
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.data.augmentation import (
+        SpecAugmentConfig,
+    )
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.data.wavio import save_wav
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.models import (
+        create_hybrid_vit, init_weights,
+    )
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.models.components import (
+        patch_validity_mask,
+    )
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.ops import (
+        cuda_attention, kernels,
+    )
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.ops.stft import STFTConfig
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.training.losses import (
+        LossConfig,
+    )
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.training.optimizer import (
+        Optimizer, parameters,
+    )
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.training.trainer import (
+        batch_to_device, make_step_fns,
+    )
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.utils.checkpoint import (
+        load_model_weights, read_meta,
+    )
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.utils.config import (
+        dump_yaml, load_all_configs, set_config_value,
+    )
+
+    phase("training")
+    t_phase = time.perf_counter()
+    cfg = STFTConfig()
+    heads, dh, n_frames, n_tok = 8, 64, 384, 16 * 24  # the 384-frame bucket's patch grid
+    wav_len = (n_frames - 1) * cfg.hop_length
+    scale = dh**-0.5
+
+    def counts() -> dict[str, int]:
+        torch.cuda.synchronize()
+        return {name: k.launches for name, k in kernels.KERNELS.items()}
+
+    tb = loader_batch(TRAIN_BATCH, 1.5 * SR, wav_len, rng)
+    assert tb["noisy_audio"].shape == (TRAIN_BATCH, wav_len) and tb["noisy_audio"].dtype == np.int16
+
+    def patch_mask(lengths: np.ndarray) -> torch.Tensor:
+        return patch_validity_mask(torch.from_numpy(lengths), cfg.num_bins, n_frames,
+                                   cfg.hop_length).to(dev)
+
+    # a. K2's backward against autograd through the plain version
+    train_mask = patch_mask(tb["length"].astype(np.int64))
+    mix_mask = patch_mask(np.linspace(SR, wav_len, TRAIN_BATCH).astype(np.int64))
+    ragged = torch.rand(4, 200, generator=g) > 0.3
+    ragged[0] = False  # a row with every key masked
+    single = torch.rand(3, 37, generator=g) > 0.3
+    single[1] = False
+    single[1, 20] = True  # a row keeping a single key
+    rel_errs, abs_errs = [], []
+    for b, n, mask in ((TRAIN_BATCH, n_tok, train_mask), (TRAIN_BATCH, n_tok, mix_mask),
+                       (TRAIN_BATCH, n_tok, None), (4, 200, ragged.to(dev)),
+                       (3, 37, single.to(dev))):
+        q, k, v, dout = (torch.randn(b, heads, n, dh, generator=g).to(dev) for _ in range(4))
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        got = torch.autograd.grad(cuda_attention.attention(*leaves, scale=scale, mask=mask),
+                                  leaves, dout)
+        ref = cuda_attention.attention_bwd_plain(q, k, v, dout, scale=scale, mask=mask)
+        rel_errs.append([float((a - r).abs().max() / r.abs().max()) for a, r in zip(got, ref)])
+        abs_errs.append(max_err(got, ref))
+        if mask is not None:  # [B, N] masks as [B, N, H, D]: dk of a masked key is 0, and
+            by_key = [t.permute(0, 2, 1, 3) for t in got]  # its dv unless its row keeps none
+            if by_key[1][~mask].any() or by_key[2][~mask & mask.any(dim=1, keepdim=True)].any():
+                raise AssertionError(f"K2 backward: a masked key's dk or dv is not 0 (N = {n})")
+    print(f"attention_bwd vs plain (train mask, length mix, no mask, N = 200 with a fully masked "
+          f"row, N = 37 with a one-key row): dq/dk/dv max err relative to the largest |grad| "
+          f"{[[f'{e:.2e}' for e in r] for r in rel_errs]} (tolerance {TOL_BWD}); max abs err "
+          f"{[f'{e:.2e}' for e in abs_errs]}", flush=True)
+    if max(max(r) for r in rel_errs) > TOL_BWD:
+        raise AssertionError("K2's backward disagrees with its plain version")
+
+    # b. full width: the README's recipe, attention dropout 0 so that K2 runs
+    shipped = {"model": {**RECIPE["model"], "transformer": {"pos_embed": "factored_2d"}}}
+    aug_gen = torch.Generator(device=dev)
+
+    def step_fns(model, opt, **kw):
+        return make_step_fns(model, opt, LossConfig(log_l1_weight=0.05), cfg, SpecAugmentConfig(),
+                             augment=True, use_attention_mask=True, output_mode="mask",
+                             generator=aug_gen, **kw)
+
+    def build(config):
+        model = init_weights(create_hybrid_vit(config), torch.Generator().manual_seed(0)).to(dev)
+        opt = Optimizer(parameters(model), "adamw", lr=TRAIN_LR, weight_decay=0.01, max_norm=1.0)
+        return (model, opt, *step_fns(model, opt))
+
+    model, opt, train_step, eval_step = build(RECIPE)
+    batch = batch_to_device(tb, dev)
+    kernels.reset_launch_counts()
+    losses = []
+    for _ in range(TRAIN_STEPS):
+        aug_gen.manual_seed(1)  # the same SpecAugment draws each step, so the batch's loss can fall
+        metrics = train_step(batch)
+        losses.append(float(metrics["total"]))
+        if float(metrics["nonfinite_skipped"]):
+            raise AssertionError("a full-width train step was skipped as non-finite")
+    train_launches = counts()
+    kernels.reset_launch_counts()
+    val = {k: float(v) for k, v in eval_step(batch).items()}
+    eval_launches = counts()
+    print(f"full width: {sum(p.numel() for p in model.parameters()) / 1e6:.2f}M parameters, "
+          f"batch {TRAIN_BATCH} x {tb['length'].min() / SR:.2f}-{tb['length'].max() / SR:.2f} s "
+          f"PCM16; losses of {TRAIN_STEPS} steps on one batch {[f'{x:.5f}' for x in losses]}; "
+          f"launches {train_launches}; eval step {val}, launches {eval_launches}", flush=True)
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise AssertionError(f"the full-width loss is not finite and falling: {losses}")
+    want = {"stft_mag": 2, "attention_fwd": 6, "attention_bwd": 6, "istft_polar": 0}
+    if train_launches != {k: TRAIN_STEPS * c for k, c in want.items()}:
+        raise AssertionError(f"train steps' launches {train_launches}, not {want} a step")
+    if eval_launches != dict(want, attention_bwd=0) or not np.isfinite(val["total"]):
+        raise AssertionError(f"eval step: launches {eval_launches}, loss {val['total']}")
+
+    # one step at depth 1, dropouts 0, on cuda and on cpu from the same weights
+    check_step(step_cuda_vs_cpu(rng))
+
+    # c. the shipped dropouts: attention dropout 0.1 trains through explicit weights
+    _, _, shipped_step, _ = build(shipped)
+    kernels.reset_launch_counts()
+    shipped_losses = [float(shipped_step(batch)["total"]) for _ in range(2)]
+    shipped_launches = counts()
+    print(f"shipped dropouts (attention dropout 0.1): losses {shipped_losses}, launches "
+          f"{shipped_launches}", flush=True)
+    if not np.isfinite(shipped_losses).all() or shipped_launches != dict(
+            want, stft_mag=4, attention_fwd=0, attention_bwd=0):
+        raise AssertionError("the explicit-weights path launched K2, or its loss is not finite")
+
+    # d. the training CLI, one epoch on 8 synthetic pairs at small width
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        for i, length in enumerate(np.linspace(SR, 2 * SR, 8).astype(int)):
+            clean = speechlike(int(length), rng)
+            save_wav(tmp / "data" / "clean_trainset_28spk_wav" / f"p{i:03d}.wav", clean, SR)
+            save_wav(tmp / "data" / "noisy_trainset_28spk_wav" / f"p{i:03d}.wav",
+                     clean + 0.1 * rng.standard_normal(length).astype(np.float32), SR)
+        conf = load_all_configs(ROOT / "config")
+        for key, value in (("training.use_amp", False), ("training.num_epochs", 1),
+                           ("training.batch_size", 4), ("training.num_workers", 2),
+                           ("training.logging.use_tensorboard", False),
+                           ("training.logging.save_audio_samples", False),
+                           ("model.transformer.attention_dropout", 0.0),
+                           ("model.transformer.embed_dim", 64), ("model.transformer.num_heads", 4),
+                           ("model.transformer.num_layers", 2),
+                           ("model.encoder.channels", [16, 32, 64]),
+                           ("model.decoder.channels", [32, 16, 8, 1])):
+            set_config_value(conf, key, value)
+        (tmp / "config").mkdir()
+        (tmp / "config" / "train_config.yaml").write_text(dump_yaml(conf) + "\n")
+        kernels.reset_launch_counts()
+        rc = train_cli(["--config-dir", str(tmp / "config"), "--data-root", str(tmp / "data"),
+                        "--checkpoint-dir", str(tmp / "ckpt"), "--log-dir", str(tmp / "logs"),
+                        "--device", "cuda", "--mask-padding", "--output-mode", "mask",
+                        "--head", "fullres_mask", "--pos-embed", "factored_2d"])
+        cli_launches = counts()
+        read_back = {}
+        for name in ("best_model", "final_model"):
+            path = tmp / "ckpt" / name
+            m = load_model_weights(path, create_hybrid_vit(read_meta(path)["config"]))
+            read_back[name] = all(bool(torch.isfinite(t).all()) for t in m.state_dict().values()
+                                  if t.is_floating_point())
+        print(f"training CLI: exit {rc}, launches {cli_launches}, checkpoints read back "
+              f"{read_back}", flush=True)
+        if rc != 0 or not all(read_back.values()) or min(cli_launches[n] for n in TRAINING) < 1:
+            raise AssertionError("the training CLI failed")
+
+    # e. times: K2's backward on fresh inputs under the train batch's mask
+    n_fresh = 8
+    bwd_in = []
+    for _ in range(n_fresh):
+        q, k, v, dout = (torch.randn(TRAIN_BATCH, heads, n_tok, dh, generator=g).to(dev)
+                         for _ in range(4))
+        out, lse = cuda_attention._forward_kernel(q, k, v, scale, train_mask, with_lse=True)
+        bwd_in.append((q, k, v, out, lse, dout))
+
+    def graphs(fwd):
+        """Each input's forward through ``fwd``, kept for a backward alone."""
+        made = []
+        for q, k, v, _, _, dout in bwd_in:
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            made.append((leaves, fwd(*leaves), dout))
+        return made
+
+    plain_in = graphs(lambda q, k, v: cuda_attention.attention_plain(q, k, v, scale=scale,
+                                                                     mask=train_mask))
+    sdpa_in = graphs(lambda q, k, v: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=train_mask[:, None, None, :], scale=scale))
+
+    def kern(q, k, v, out, lse, dout):  # the launch that the autograd Function's backward makes
+        return cuda_attention._backward_kernel(q, k, v, out, lse, dout, scale, train_mask)
+
+    def grad(leaves, out, dout):
+        return torch.autograd.grad(out, leaves, dout, retain_graph=True)
+
+    p1, k1, l1, l2, k2, p2 = (median_ms(f, inputs) for f, inputs in (
+        (grad, plain_in), (kern, bwd_in), (grad, sdpa_in), (grad, sdpa_in), (kern, bwd_in),
+        (grad, plain_in)))
+    kept = int(train_mask.sum())
+    flops = 10.0 * heads * n_tok * dh * kept  # S, dP, dq, dk, dv over the kept keys
+    nbytes = (4 * (8 * TRAIN_BATCH * heads * n_tok * dh + TRAIN_BATCH * heads * n_tok)
+              + TRAIN_BATCH * n_tok)  # q, k, v, O, dO, lse, mask read; dq, dk, dv written
+    b_ms, b_by = bound(flops, nbytes, TF32X3_PEAK)  # fp32-accurate products, as K2's forward
+    bwd = {"ms": min(k1, k2), "plain_ms": min(p1, p2), "library_ms": min(l1, l2),
+           "bound_ms": b_ms, "bound_by": b_by, "device_ms": device_ms(kern, bwd_in),
+           "max_rel_err": max(max(r) for r in rel_errs)}
+    print(f"attention_bwd at q/k/v [{TRAIN_BATCH}, {heads}, {n_tok}, {dh}] under the train "
+          f"batch's mask ({kept} of {TRAIN_BATCH * n_tok} keys kept): per call {bwd['ms']:.4f} ms "
+          f"(device {bwd['device_ms']:.4f}); plain (autograd through attention_plain) "
+          f"{bwd['plain_ms']:.4f} ms (device {device_ms(grad, plain_in):.4f}); SDPA's backward "
+          f"{bwd['library_ms']:.4f} ms (device {device_ms(grad, sdpa_in):.4f}); bound {b_ms:.4f} "
+          f"ms by {b_by} ({flops / 1e9:.3f} GFLOP at {TF32X3_PEAK / 1e12:g} TFLOP/s 3xTF32, "
+          f"{nbytes / 1e6:.2f} MB at {HBM_RATE / 1e12:g} TB/s), {b_ms / bwd['device_ms']:.1%} of "
+          f"it on the device; {smi}", flush=True)
+    del plain_in, sdpa_in
+    fwd_in = [t[:3] for t in bwd_in]
+    with_lse, without = (
+        lambda q, k, v, lse=lse: cuda_attention._forward_kernel(q, k, v, scale, train_mask, lse)
+        for lse in (True, False))
+    a1, b1, b2, a2 = (median_ms(f, fwd_in) for f in (without, with_lse, with_lse, without))
+    print(f"attention_fwd at the train shape and mask: per call {min(a1, a2):.4f} ms without the "
+          f"log-sum-exp (serving, eval), {min(b1, b2):.4f} ms with it (training); {smi}", flush=True)
+
+    # the full-width train step, on two batches in turns
+    batches = [batch, batch_to_device(loader_batch(TRAIN_BATCH, 1.5 * SR, wav_len, rng), dev)]
+    audio_s = float(tb["length"].sum()) / SR
+
+    def step_s(step) -> float:
+        walls = []
+        for i in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(batches[i % 2])
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        return statistics.median(walls[1:])
+
+    # the same step without the non-finite skip, whose check waits for the
+    # device (a host sync between the backward and the optimizer's launches)
+    unchecked = step_fns(model, opt, skip_nonfinite=False)[0]
+    s1, u1, u2, s2 = (step_s(f) for f in (train_step, unchecked, unchecked, train_step))
+    wall, wall_unchecked = min(s1, s2), min(u1, u2)
+    print(f"train step, 28M recipe, batch {TRAIN_BATCH} ({audio_s:.2f} audio-s, 384-frame bucket): "
+          f"{wall * 1e3:.1f} ms (better median of 5 of two runs) = {audio_s / wall:.1f} audio-s/s; "
+          f"without the non-finite skip (no host sync, no BatchNorm copy) "
+          f"{wall_unchecked * 1e3:.1f} ms = {audio_s / wall_unchecked:.1f} audio-s/s, so the skip "
+          f"costs {(wall - wall_unchecked) * 1e3:.1f} ms ({(wall - wall_unchecked) / wall:.1%} of "
+          f"the step); {smi}", flush=True)
+    split = op_split(lambda: train_step(batches[0]))
+    bwd["path_device_ms"] = split["attention_bwd"] / want["attention_bwd"]
+    print(f"train step device time (profiler, one step): busy {split['busy']:.2f} ms; "
+          + ", ".join(f"{k} {t:.3f} ms ({t / split['busy']:.1%})" for k, t in split.items()
+                      if k != "busy")
+          + f"; per launch: attention_fwd {split['attention_fwd'] / want['attention_fwd']:.4f} ms, "
+          f"attention_bwd {bwd['path_device_ms']:.4f} ms; {smi}", flush=True)
+    print(f"training phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"errs": abs_errs, "ms": bwd, "launches": train_launches}
+
+
 def main() -> int:
     phase("device")
     if not torch.cuda.is_available():
@@ -205,6 +699,7 @@ def main() -> int:
     for d in (64, 128):
         print(f"attention_fwd at head dim {d}, 384 keys, masked: "
               f"{cuda_attention.kernel_info(d, 384)}", flush=True)
+    print(f"attention_bwd at head dim 64: {cuda_attention.bwd_kernel_info(64)}", flush=True)
     cuobjdump = shutil.which("cuobjdump") or str(Path(kernels._nvcc()).parent / "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(libs["attention_fwd"])],
                           capture_output=True, text=True, check=True).stdout
@@ -294,8 +789,8 @@ def main() -> int:
     if len(out) != BATCH or any(o.shape != w.shape or not np.isfinite(o).all()
                                 for o, w in zip(out, wavs)):
         raise AssertionError("full-width output malformed")
-    if min(launches.values()) < 1:
-        raise AssertionError(f"a kernel of the path did not run: {launches}")
+    if min(launches[n] for n in SERVING) < 1 or launches["attention_bwd"]:
+        raise AssertionError(f"a kernel of the path did not run, or a backward did: {launches}")
     short_err = float(np.abs(enhancer.enhance(short) - ref_short).max())
     print(f"full width 1 s clip cuda vs cpu: max abs err {short_err:.3g} "
           f"(tolerance {TOL_WAVE})", flush=True)
@@ -330,7 +825,7 @@ def main() -> int:
                        for r, w in zip(results, reqs))
         print(f"served 6 requests in {stats['batches']} batches; max abs err vs direct "
               f"enhance {http_err:.3g}; launches {served}", flush=True)
-        if stats["requests"] != 6 or http_err > TOL_WAVE or min(served.values()) < 1:
+        if stats["requests"] != 6 or http_err > TOL_WAVE or min(served[n] for n in SERVING) < 1:
             raise AssertionError(f"serving check failed: {stats}, err {http_err}, {served}")
     finally:
         server.shutdown()
@@ -423,20 +918,25 @@ def main() -> int:
     print(f"slice: enhance_batch of {BATCH} x {SECONDS:g} s PCM16 in {wall * 1e3:.1f} ms "
           f"(median of 5) = {BATCH * SECONDS / wall:.1f} audio-s/s; {smi}", flush=True)
     times = device_times(lambda: enhancer.enhance_batch(batch))
-    in_kernels = {name: sum(t for key, t in times.items() if f"{name}_kernel" in key)
-                  for name in kernels.KERNELS}
+    in_kernels = {name: kernel_ms(times, name) for name in SERVING}
     for name, t in in_kernels.items():
         ms[name]["path_device_ms"] = t / launches[name]
     print(f"slice device time (profiler, one batch): busy {sum(times.values()):.2f} ms; "
           f"hand-written kernels {({n: round(t, 4) for n, t in in_kernels.items()})} ms, per "
-          f"launch {({n: round(m['path_device_ms'], 4) for n, m in ms.items()})} ms; {smi}",
+          f"launch {({n: round(ms[n]['path_device_ms'], 4) for n in SERVING})} ms; {smi}",
           flush=True)
+
+    train = training(dev, smi, rng, g)
+    errs["attention_bwd"] = train["errs"]
+    ms["attention_bwd"] = train["ms"]
+    launches["attention_bwd"] = train["launches"]["attention_bwd"]
 
     print(smi)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": str(Path(
             "speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch") / k.source),
-         "replaces": k.replaces, "launches": launches[name], "max_abs_err": max(errs[name]),
+         "replaces": k.replaces, "launches": launches[name],
+         "train_launches": train["launches"][name], "max_abs_err": max(errs[name]),
          **ms[name]}
         for name, k in kernels.KERNELS.items()
     ]}))

@@ -51,12 +51,16 @@
 //   its N keys. Positions past the last key of a tile are -inf. The list
 //   takes 4 bytes a key of shared memory; an N whose tiles and list exceed
 //   the card's shared memory a block fails to launch.
+// - For training, a second instance also writes each row's log-sum-exp,
+//   m + log2 l in log2 units, from which the backward (attention_bwd.cu)
+//   recomputes the weights.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include <atomic>
+#include "kept_keys.cuh"
+#include "max_smem.cuh"
 
 namespace {
 
@@ -64,7 +68,6 @@ constexpr int WARPS = 4;
 constexpr int THREADS = 32 * WARPS;
 constexpr int BM = 16 * WARPS;    // query rows per block, 16 per warp
 constexpr float MASKED = -1e30f;  // a masked key's logit, as sdpa_reference
-constexpr int MAX_DEVICES = 64;   // devices whose kernel attributes are cached
 
 // Keys per K/V tile: 64, and 32 at D = 128, so that two tiles of K and V
 // take ~70 KB of shared memory.
@@ -74,12 +77,6 @@ __host__ __device__ constexpr int tile_keys() { return D <= 64 ? 64 : 32; }
 template <int D>
 constexpr size_t tile_bytes() {
   return sizeof(float) * 2 * tile_keys<D>() * ((D + 8) + (D + 4));
-}
-
-// The kept-key list of n keys: ballot words, their prefix, key indices.
-size_t list_bytes(int n) {
-  const size_t nw = (n + 31) / 32;
-  return sizeof(uint32_t) * 2 * nw + sizeof(int) * n;
 }
 
 // cvt.rna.tf32.f32 (nearest, ties away from zero) in two integer ops, which
@@ -139,15 +136,18 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-template <int D>
+// LSE: also write each row's log-sum-exp for the backward. A separate
+// instance, so that the serving path (lse null) pays nothing for it.
 // Two blocks (eight warps) an SM. A cap of 168 registers for three blocks
 // makes the D = 64 instance spill, and it ran slower on an H100.
+template <int D, bool LSE>
 __global__ void __launch_bounds__(THREADS, 2)
 attention_fwd_kernel(const float* __restrict__ q,   // [G, N, D]
                      const float* __restrict__ k,   // [G, N, D]
                      const float* __restrict__ v,   // [G, N, D]
                      const unsigned char* __restrict__ key_mask,  // [B, N] or null
                      float* __restrict__ out,       // [G, N, D]
+                     float* __restrict__ lse,       // [G, N] when LSE
                      int heads, int n, float qscale) {
   constexpr int BK = tile_keys<D>();
   constexpr int LDK = D + 8, LDV = D + 4;
@@ -160,7 +160,6 @@ attention_fwd_kernel(const float* __restrict__ q,   // [G, N, D]
   extern __shared__ float4 smem[];
   float* ks = reinterpret_cast<float*>(smem);  // [2][BK][LDK]
   float* vs = ks + 2 * BK * LDK;               // [2][BK][LDV]
-  __shared__ int n_kept;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -174,42 +173,11 @@ attention_fwd_kernel(const float* __restrict__ q,   // [G, N, D]
   bool all_masked = false;
   const int* kept = nullptr;
   if (mrow) {
-    const int nw = (n + 31) / 32;
-    uint32_t* words = reinterpret_cast<uint32_t*>(vs + 2 * BK * LDV);
-    uint32_t* prefix = words + nw;
-    int* list = reinterpret_cast<int*>(prefix + nw);
-    for (int c = warp; c < nw; c += WARPS) {
-      const int j = c * 32 + lane;
-      const uint32_t b = __ballot_sync(0xffffffffu, j < n && mrow[j]);
-      if (lane == 0) words[c] = b;
-    }
-    __syncthreads();
-    if (warp == 0) {  // exclusive prefix of the words' popcounts, 32 at a time
-      int carry = 0;
-      for (int c0 = 0; c0 < nw; c0 += 32) {
-        const int c = c0 + lane;
-        const int cnt = c < nw ? __popc(words[c]) : 0;
-        int incl = cnt;
-#pragma unroll
-        for (int o = 1; o < 32; o <<= 1) {
-          const int y = __shfl_up_sync(0xffffffffu, incl, o);
-          if (lane >= o) incl += y;
-        }
-        if (c < nw) prefix[c] = carry + incl - cnt;
-        carry += __shfl_sync(0xffffffffu, incl, 31);
-      }
-      if (lane == 0) n_kept = carry;
-    }
-    __syncthreads();
-    for (int c = warp; c < nw; c += WARPS) {
-      const uint32_t w = words[c];
-      if ((w >> lane) & 1u) list[prefix[c] + __popc(w & ((1u << lane) - 1u))] = c * 32 + lane;
-    }
-    __syncthreads();
+    const int n_kept = list_kept_keys<WARPS>(mrow, n, vs + 2 * BK * LDV, &kept);
     if (n_kept > 0) {
       count = n_kept;
-      kept = list;
     } else {
+      kept = nullptr;
       all_masked = true;
     }
   }
@@ -380,49 +348,42 @@ attention_fwd_kernel(const float* __restrict__ q,   // [G, N, D]
       *reinterpret_cast<float2*>(out + base + static_cast<long>(rb) * D + dt * 8 + 2 * t) =
           make_float2(o[dt][2] * i1, o[dt][3] * i1);
   }
+  // the log-sum-exp of each row's logits in log2 units (m + log2 l), which
+  // the backward (attention_bwd.cu) recomputes the weights from
+  if (LSE && t == 0) {
+    if (ra < n) lse[blockIdx.y * static_cast<long>(n) + ra] = m0 + log2f(l0);
+    if (rb < n) lse[blockIdx.y * static_cast<long>(n) + rb] = m1 + log2f(l1);
+  }
 }
 
 // The block's dynamic shared memory: two K/V tiles, and the kept-key list
 // with a mask.
 template <int D>
 size_t smem_bytes(bool masked, int n) {
-  return tile_bytes<D>() + (masked ? list_bytes(n) : 0);
+  return tile_bytes<D>() + (masked ? kept_list_bytes(n) : 0);
 }
 
-// Lets the kernel take all the shared memory a block may have on the
-// current device. Function attributes are per device; each device's are
-// set once (always the same values, so threads racing here do no harm).
+// Lets both instances take all the shared memory a block may have on the
+// current device (max_smem.cuh).
 template <int D>
 cudaError_t configure() {
-  static std::atomic<bool> done[MAX_DEVICES];
-  int dev;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  if (dev < MAX_DEVICES && done[dev].load(std::memory_order_acquire)) return cudaSuccess;
-  const auto kernel = attention_fwd_kernel<D>;
-  int most;
-  e = cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  cudaFuncAttributes attr;
-  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, kernel);
-  if (e == cudaSuccess)  // the dynamic part: what the static part leaves
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             most - static_cast<int>(attr.sharedSizeBytes));
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                             cudaSharedmemCarveoutMaxShared);
-  if (e == cudaSuccess && dev < MAX_DEVICES) done[dev].store(true, std::memory_order_release);
-  return e;
+  return allow_max_smem<D>(attention_fwd_kernel<D, false>, attention_fwd_kernel<D, true>);
 }
 
 template <int D>
 cudaError_t launch(const float* q, const float* k, const float* v,
-                   const unsigned char* key_mask, float* out, int groups, int heads,
-                   int n, float qscale, cudaStream_t stream) {
+                   const unsigned char* key_mask, float* out, float* lse, int groups,
+                   int heads, int n, float qscale, cudaStream_t stream) {
   cudaError_t err = configure<D>();
   if (err != cudaSuccess) return err;
   const dim3 grid((n + BM - 1) / BM, groups);
-  attention_fwd_kernel<D><<<grid, THREADS, smem_bytes<D>(key_mask != nullptr, n), stream>>>(
-      q, k, v, key_mask, out, heads, n, qscale);
+  const size_t smem = smem_bytes<D>(key_mask != nullptr, n);
+  if (lse)
+    attention_fwd_kernel<D, true><<<grid, THREADS, smem, stream>>>(q, k, v, key_mask, out, lse,
+                                                                  heads, n, qscale);
+  else
+    attention_fwd_kernel<D, false><<<grid, THREADS, smem, stream>>>(q, k, v, key_mask, out,
+                                                                   nullptr, heads, n, qscale);
   return cudaGetLastError();
 }
 
@@ -432,31 +393,32 @@ cudaError_t info(int n, int masked, int* regs, int* local_bytes, int* smem,
   cudaError_t err = configure<D>();
   if (err != cudaSuccess) return err;
   cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, attention_fwd_kernel<D>);
+  err = cudaFuncGetAttributes(&attr, attention_fwd_kernel<D, false>);  // the serving instance
   if (err != cudaSuccess) return err;
   const size_t bytes = smem_bytes<D>(masked != 0, n);
   *regs = attr.numRegs;
   *local_bytes = static_cast<int>(attr.localSizeBytes);
   *smem = static_cast<int>(bytes + attr.sharedSizeBytes);
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, attention_fwd_kernel<D>,
-                                                       THREADS, bytes);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, attention_fwd_kernel<D, false>, THREADS, bytes);
 }
 
 }  // namespace
 
 // q/k/v/out: [groups = batch*heads, n, d] contiguous, 16-byte aligned;
-// key_mask: [batch, n] bytes (nonzero = attend) or null; qscale: the
-// softmax scale times log2(e). d in {16, 32, 64, 128}.
+// key_mask: [batch, n] bytes (nonzero = attend) or null; lse: [groups, n]
+// or null (the serving path), each row's log-sum-exp in log2 units for the
+// backward; qscale: the softmax scale times log2(e). d in {16, 32, 64, 128}.
 extern "C" int sevit_attention_fwd(const float* q, const float* k,
                                    const float* v, const unsigned char* key_mask,
-                                   float* out, int groups, int heads, int n,
+                                   float* out, float* lse, int groups, int heads, int n,
                                    int d, float qscale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 16: return launch<16>(q, k, v, key_mask, out, groups, heads, n, qscale, s);
-    case 32: return launch<32>(q, k, v, key_mask, out, groups, heads, n, qscale, s);
-    case 64: return launch<64>(q, k, v, key_mask, out, groups, heads, n, qscale, s);
-    case 128: return launch<128>(q, k, v, key_mask, out, groups, heads, n, qscale, s);
+    case 16: return launch<16>(q, k, v, key_mask, out, lse, groups, heads, n, qscale, s);
+    case 32: return launch<32>(q, k, v, key_mask, out, lse, groups, heads, n, qscale, s);
+    case 64: return launch<64>(q, k, v, key_mask, out, lse, groups, heads, n, qscale, s);
+    case 128: return launch<128>(q, k, v, key_mask, out, lse, groups, heads, n, qscale, s);
     default: return cudaErrorInvalidValue;
   }
 }

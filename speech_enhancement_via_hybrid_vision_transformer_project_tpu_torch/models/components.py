@@ -1,8 +1,13 @@
 """Building blocks of the HybridViT (JAX ``models/components.py``), NCHW.
 
-Inference only in this port: dropout and drop-path are identity at eval,
-and BatchNorm uses its running statistics. ``HybridViT.forward`` refuses
-train mode.
+``module.train()`` switches them as flax's ``train=True`` does: BatchNorm
+normalizes with the batch statistics (flax's: the biased variance, as
+E[x^2] - E[x]^2) and moves its running statistics by 0.1 (flax's momentum
+0.9), dropout draws its masks (channel dropout on conv features: one draw
+per (sample, channel), ``F.dropout2d``; elementwise in the MLP and after
+the positional embedding), and ``DropPath`` drops a whole residual branch
+per sample, scaling kept ones by 1/keep. In eval all of them are identity
+but BatchNorm, which uses its running statistics.
 """
 
 from __future__ import annotations
@@ -20,57 +25,90 @@ BN_EPS = 1e-5
 LN_EPS = 1e-5
 
 
+class BatchNorm(nn.BatchNorm2d):
+    """BatchNorm2d with flax's train-mode arithmetic: the batch mean and the
+    biased variance E[x^2] - E[x]^2 (clipped at 0) normalize, and the
+    running statistics move by 0.1 towards them (torch's own train mode
+    would keep the unbiased variance, n/(n-1) off flax's). Eval: the running
+    statistics, as ``nn.BatchNorm2d``."""
+
+    def __init__(self, num_features: int):
+        super().__init__(num_features, eps=BN_EPS, momentum=0.1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        mean = x.mean(dim=(0, 2, 3))
+        var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        with torch.no_grad():
+            self.running_mean.mul_(1 - self.momentum).add_(self.momentum * mean)
+            self.running_var.mul_(1 - self.momentum).add_(self.momentum * var)
+            self.num_batches_tracked.add_(1)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean[None, :, None, None]) * mul[None, :, None, None] + self.bias[None, :, None, None]
+
+
 class ConvBlock(nn.Module):
-    """Conv3x3 -> BatchNorm -> ReLU -> MaxPool (floor). The conv has no
-    bias under BatchNorm."""
+    """Conv3x3 -> BatchNorm -> ReLU -> channel dropout -> MaxPool (floor).
+    The conv has no bias under BatchNorm."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3,
-                 pool_size: Optional[int] = 2):
+                 pool_size: Optional[int] = 2, dropout: float = 0.0):
         super().__init__()
         self.conv = nn.Conv2d(in_ch, out_ch, kernel_size,
                               padding=kernel_size // 2, bias=False)
-        self.bn = nn.BatchNorm2d(out_ch, eps=BN_EPS, momentum=0.1)
+        self.bn = BatchNorm(out_ch)
         self.pool_size = pool_size if pool_size and pool_size > 1 else None
+        self.dropout = dropout
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = F.relu(self.bn(self.conv(x)))
+        if self.dropout > 0:
+            x = F.dropout2d(x, self.dropout, self.training)
         if self.pool_size:
             x = F.max_pool2d(x, self.pool_size, self.pool_size)
         return x
 
 
 class TransposeConvBlock(nn.Module):
-    """Decoder block: nearest upsample -> Conv3x3 -> BN -> ReLU. The final
-    layer has no BN and applies Tanh, and its conv keeps no bias (the
-    reference's no-bias final-conv quirk)."""
+    """Decoder block: nearest upsample -> Conv3x3 -> BN -> ReLU -> channel
+    dropout. The final layer has no BN or dropout and applies Tanh, and its
+    conv keeps no bias (the reference's no-bias final-conv quirk)."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3,
-                 upsample_factor: Optional[int] = 2, final_layer: bool = False):
+                 upsample_factor: Optional[int] = 2, final_layer: bool = False,
+                 dropout: float = 0.0):
         super().__init__()
         self.upsample_factor = upsample_factor if upsample_factor and upsample_factor > 1 else 1
         self.conv = nn.Conv2d(in_ch, out_ch, kernel_size,
                               padding=kernel_size // 2, bias=False)
         self.final_layer = final_layer
-        self.bn = None if final_layer else nn.BatchNorm2d(out_ch, eps=BN_EPS, momentum=0.1)
+        self.bn = None if final_layer else BatchNorm(out_ch)
+        self.dropout = 0.0 if final_layer else dropout
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.conv(upsample_nearest(x, self.upsample_factor))
         if self.final_layer:
             return torch.tanh(x)
-        return F.relu(self.bn(x))
+        x = F.relu(self.bn(x))
+        if self.dropout > 0:
+            x = F.dropout2d(x, self.dropout, self.training)
+        return x
 
 
 class FeedForward(nn.Module):
-    """Transformer MLP: Linear -> exact GELU -> Linear."""
+    """Transformer MLP: Linear -> exact GELU -> Dropout -> Linear -> Dropout."""
 
-    def __init__(self, dim: int, hidden_dim: Optional[int] = None):
+    def __init__(self, dim: int, hidden_dim: Optional[int] = None, dropout: float = 0.0):
         super().__init__()
         hidden = hidden_dim or 4 * dim
         self.fc1 = nn.Linear(dim, hidden)
         self.fc2 = nn.Linear(hidden, dim)
+        self.dropout = dropout
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(F.gelu(self.fc1(x), approximate="none"))
+        x = F.dropout(F.gelu(self.fc1(x), approximate="none"), self.dropout, self.training)
+        return F.dropout(self.fc2(x), self.dropout, self.training)
 
 
 class PatchEmbedding(nn.Module):
@@ -89,11 +127,13 @@ class PatchEmbedding(nn.Module):
 
 class PositionalEncoding(nn.Module):
     """Learned (or sinusoidal) 1-D positional table sliced to the sequence
-    length."""
+    length, then dropout."""
 
-    def __init__(self, embed_dim: int, max_len: int = 10000, learnable: bool = True):
+    def __init__(self, embed_dim: int, max_len: int = 10000, learnable: bool = True,
+                 dropout: float = 0.0):
         super().__init__()
         self.max_len = max_len
+        self.dropout = dropout
         if learnable:
             self.pos_embed = nn.Parameter(torch.zeros(1, max_len, embed_dim))
         else:
@@ -118,17 +158,19 @@ class PositionalEncoding(nn.Module):
             raise ValueError(
                 f"sequence length {n} exceeds positional table ({self.max_len})"
             )
-        return x + self.pos_embed[:, :n, :]
+        return F.dropout(x + self.pos_embed[:, :n, :], self.dropout, self.training)
 
 
 class PositionalEncoding2D(nn.Module):
     """Factored learned 2-D positional table: patch (i, j) of the
     (freq, time) patch grid gets ``freq_tab[i] + time_tab[j]``, so a valid
-    patch's embedding does not depend on the padded bucket width."""
+    patch's embedding does not depend on the padded bucket width. Dropout
+    after the sum."""
 
     def __init__(self, embed_dim: int, max_freq_patches: int = 64,
-                 max_time_patches: int = 4096):
+                 max_time_patches: int = 4096, dropout: float = 0.0):
         super().__init__()
+        self.dropout = dropout
         self.pos_embed_freq = nn.Parameter(torch.zeros(max_freq_patches, embed_dim))
         self.pos_embed_time = nn.Parameter(torch.zeros(max_time_patches, embed_dim))
 
@@ -140,7 +182,25 @@ class PositionalEncoding2D(nn.Module):
                 f"({self.pos_embed_freq.shape[0]}, {self.pos_embed_time.shape[0]})"
             )
         emb = self.pos_embed_freq[:h, None, :] + self.pos_embed_time[None, :w, :]
-        return x + emb.reshape(1, h * w, -1)
+        return F.dropout(x + emb.reshape(1, h * w, -1), self.dropout, self.training)
+
+
+class DropPath(nn.Module):
+    """Stochastic depth: in training, drop the whole residual branch of a
+    sample with probability ``drop_prob``, and divide kept ones by the
+    keep probability."""
+
+    def __init__(self, drop_prob: float = 0.0):
+        super().__init__()
+        self.drop_prob = drop_prob
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.drop_prob == 0.0 or not self.training:
+            return x
+        keep = 1.0 - self.drop_prob
+        shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+        mask = torch.rand(shape, device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 def patch_validity_mask(

@@ -7,8 +7,8 @@ the ``fullres_mask`` head (sub-pixel upsample, full-resolution input skip,
 two refinement convs, Tanh).
 
 The public forward takes and returns the JAX layout ``[B, F, T, C]`` so the
-two packages compare like with like; inside it runs NCHW. Inference only:
-``forward`` refuses train mode.
+two packages compare like with like; inside it runs NCHW. ``model.train()``
+is the JAX ``train=True``: BatchNorm batch statistics, dropout, drop-path.
 """
 
 from __future__ import annotations
@@ -35,10 +35,10 @@ class HybridViT(nn.Module):
     """Hybrid Vision Transformer for magnitude-spectrogram denoising.
 
     Keyword arguments are the JAX ``HybridViT``'s. ``dropout``,
-    ``attn_dropout`` and ``drop_path_rate`` act only in training, which is
-    not ported, and ``use_pallas_attention`` is a TPU dispatch knob:
-    attention here dispatches on the device (kernel K2 on CUDA). All four
-    are accepted and ignored.
+    ``attn_dropout`` and ``drop_path_rate`` act in training only.
+    ``use_pallas_attention`` is a TPU dispatch knob, accepted and ignored:
+    attention here dispatches on the device (kernel K2 on CUDA). ``remat``
+    and a ``compute_dtype`` other than float32 are not ported yet and raise.
     """
 
     def __init__(
@@ -70,8 +70,20 @@ class HybridViT(nn.Module):
         head_channels: int = 16,
         head_freq_up: int = 4,
         head_time_up: int = 4,
+        remat: bool = False,
+        compute_dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
+        if remat:
+            raise NotImplementedError(
+                "remat (activation rematerialization) is not ported yet (ROADMAP queue 1: "
+                "training remnants)"
+            )
+        if compute_dtype != torch.float32:
+            raise NotImplementedError(
+                f"compute_dtype {compute_dtype} is not ported yet: the port computes in "
+                "float32 (bf16 is ROADMAP queue 1 item 9)"
+            )
         if attention_type != "standard":
             raise NotImplementedError(
                 f"attention_type {attention_type!r} is not ported (standard only)"
@@ -99,22 +111,25 @@ class HybridViT(nn.Module):
         ch_in = input_channels
         enc_out = []
         for ch, k, p in zip(encoder_channels, encoder_kernel_sizes, encoder_pool_sizes):
-            self.encoder.append(ConvBlock(ch_in, ch, k, p if p > 1 else None))
+            self.encoder.append(ConvBlock(ch_in, ch, k, p if p > 1 else None, dropout=dropout))
             enc_out.append(ch)
             ch_in = ch
 
         # 2-4. patchify, positional embedding, optional CLS, transformer
         self.patch_embed = PatchEmbedding(ch_in, embed_dim, patch_size)
         if pos_embed_type == "factored_2d":
-            self.pos_encoding = PositionalEncoding2D(embed_dim, max_freq_patches, max_patches)
+            self.pos_encoding = PositionalEncoding2D(embed_dim, max_freq_patches, max_patches,
+                                                     dropout=dropout)
         else:
             self.pos_encoding = PositionalEncoding(
-                embed_dim, max_patches, learnable=pos_embed_type == "learned_1d"
+                embed_dim, max_patches, learnable=pos_embed_type == "learned_1d", dropout=dropout
             )
         self.cls_token = (
             nn.Parameter(torch.zeros(1, 1, embed_dim)) if use_cls_token else None
         )
-        self.transformer = VisionTransformer(embed_dim, num_layers, num_heads, mlp_ratio)
+        self.transformer = VisionTransformer(embed_dim, num_layers, num_heads, mlp_ratio,
+                                             dropout=dropout, attn_dropout=attn_dropout,
+                                             drop_path_rate=drop_path_rate)
         self.to_feature_map = nn.Linear(embed_dim, encoder_channels[-1])
 
         # 5. CNN decoder with U-Net skips (deep to shallow)
@@ -136,7 +151,7 @@ class HybridViT(nn.Module):
                 block_in += ch
             self.decoder.append(
                 TransposeConvBlock(block_in, ch, k, up if up > 1 else None,
-                                   final_layer=is_final)
+                                   final_layer=is_final, dropout=dropout)
             )
             cur = ch
 
@@ -166,8 +181,6 @@ class HybridViT(nn.Module):
 
         Returns ``[B, F, T, C_out]`` in [-1, 1].
         """
-        if self.training:
-            raise RuntimeError("HybridViT port is inference-only: call .eval()")
         nhwc = lambda t: t.permute(0, 2, 3, 1)  # noqa: E731
         in_f, in_t = x.shape[1], x.shape[2]
         x = x.float().permute(0, 3, 1, 2).contiguous()  # NCHW
@@ -291,7 +304,7 @@ def _derive_max_freq_patches(config: Dict) -> int:
 
 def create_hybrid_vit(config: Optional[Dict] = None, **overrides) -> HybridViT:
     """Build a HybridViT, in eval mode, from the merged config dict (the JAX
-    ``create_hybrid_vit``'s keys; ``tpu.*`` is ignored)."""
+    ``create_hybrid_vit``'s keys; of ``tpu.*`` only ``remat`` is read)."""
     config = config or {}
     mc = config.get("model", {})
     enc = mc.get("encoder", {})
@@ -311,8 +324,12 @@ def create_hybrid_vit(config: Optional[Dict] = None, **overrides) -> HybridViT:
         decoder_channels=tuple(dec.get("channels", (256, 128, 64, 1))),
         decoder_kernel_sizes=tuple(dec.get("kernel_sizes", (3, 3, 3, 3))),
         decoder_upsample_factors=tuple(dec.get("upsample_factors", (1, 2, 2, 1))),
+        dropout=enc.get("dropout", 0.1),
+        attn_dropout=tr.get("attention_dropout", 0.1),
+        drop_path_rate=tr.get("drop_path_rate", 0.1),
         use_skip_connections=dec.get("use_skip_connections", True),
         pos_embed_type=tr.get("pos_embed", "learned_1d"),
+        remat=tr.get("remat", config.get("tpu", {}).get("remat", False)),
         max_freq_patches=tr.get("max_freq_patches", _derive_max_freq_patches(config)),
         attention_type=tr.get("attention_type", "standard"),
         head_type=mc.get("head", "resize"),

@@ -1,5 +1,5 @@
 """Host-side waveform utilities (the part of the JAX ``ops/audio.py`` the
-serving path needs)."""
+serving and training paths need)."""
 
 from __future__ import annotations
 
@@ -17,3 +17,62 @@ def resample(x: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
     return signal.resample_poly(
         x.astype(np.float64), target_sr // g, orig_sr // g
     ).astype(np.float32)
+
+
+# The host-side chain of ``data/preprocessing.py`` (the JAX ``ops/audio.py``'s
+# numpy functions).
+
+
+def peak_normalize(x: np.ndarray, target_level: float = 0.95):
+    """Scale so max |x| == target_level; returns (normalized, peak)."""
+    peak = float(np.max(np.abs(x))) if x.size else 0.0
+    if peak > 0:
+        return (x * (target_level / peak)).astype(np.float32), peak
+    return x.astype(np.float32), peak
+
+
+def rms_energy(x: np.ndarray, frame_length: int = 2048, hop_length: int = 512):
+    """Framewise RMS energy."""
+    n = max(1 + (len(x) - frame_length) // hop_length, 0)
+    if n == 0:
+        return np.sqrt(np.mean(x**2, keepdims=True)).astype(np.float32)
+    idx = np.arange(n)[:, None] * hop_length + np.arange(frame_length)[None, :]
+    return np.sqrt(np.mean(x[idx] ** 2, axis=1)).astype(np.float32)
+
+
+def pre_emphasis(x: np.ndarray, coef: float = 0.97) -> np.ndarray:
+    """y[n] = x[n] - coef*x[n-1]."""
+    return np.concatenate([x[:1], x[1:] - coef * x[:-1]]).astype(np.float32)
+
+
+def _trim(x: np.ndarray, keep: np.ndarray, frame_length: int, hop_length: int) -> np.ndarray:
+    if keep.size == 0:
+        return x
+    return x[keep[0] * hop_length : min(keep[-1] * hop_length + frame_length, len(x))]
+
+
+def trim_silence_db(x: np.ndarray, top_db: float = 30.0, frame_length: int = 2048,
+                    hop_length: int = 512) -> np.ndarray:
+    """Trim leading/trailing frames more than top_db below the peak RMS."""
+    rms = rms_energy(x, frame_length, hop_length)
+    ref = np.max(rms)
+    if ref <= 0:
+        return x
+    db = 20.0 * np.log10(np.maximum(rms, 1e-10) / ref)
+    return _trim(x, np.nonzero(db > -top_db)[0], frame_length, hop_length)
+
+
+def energy_vad_trim(x: np.ndarray, threshold: float = 0.01, frame_length: int = 400,
+                    hop_length: int = 160) -> np.ndarray:
+    """Energy-threshold VAD trim."""
+    rms = rms_energy(x, frame_length, hop_length)
+    return _trim(x, np.nonzero(rms > threshold)[0], frame_length, hop_length)
+
+
+def dynamic_range_compress(x: np.ndarray, threshold_db: float = -20.0,
+                           ratio: float = 4.0) -> np.ndarray:
+    """Static compressor above a dB threshold."""
+    eps = 1e-10
+    db = 20.0 * np.log10(np.maximum(np.abs(x), eps))
+    comp_db = np.where(db > threshold_db, threshold_db + (db - threshold_db) / ratio, db)
+    return (np.sign(x) * 10.0 ** (comp_db / 20.0) * (np.abs(x) > eps)).astype(np.float32)

@@ -72,9 +72,17 @@ KERNELS = {
             "attention_fwd", "sevit_attention_fwd", "csrc/attention.cu",
             "speech_enhancement_via_hybrid_vision_transformer_project_tpu/"
             "ops/pallas_attention.py:46",
-            # q, k, v, key_mask, out, groups, heads, n, d, scale * log2(e),
-            # stream
-            (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+            # q, k, v, key_mask, out, lse, groups, heads, n, d,
+            # scale * log2(e), stream
+            (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+        ),
+        Kernel(
+            "attention_bwd", "sevit_attention_bwd", "csrc/attention_bwd.cu",
+            "speech_enhancement_via_hybrid_vision_transformer_project_tpu/"
+            "ops/pallas_attention.py:124",
+            # q, k, v, o, dout, lse, key_mask, delta, dq, dk, dv, groups,
+            # heads, n, d, scale * log2(e), scale, stream
+            (_P,) * 11 + (_I, _I, _I, _I, _F, _F, _P),
         ),
         Kernel(
             "istft_polar", "sevit_istft_polar", "csrc/istft.cu",
@@ -107,8 +115,8 @@ def uses_kernel(t: torch.Tensor) -> bool:
 
 def check_input(name: str, t: torch.Tensor, ndim: int) -> None:
     """Raise unless ``t`` is what the kernels take: float32 with ``ndim``
-    dims, contiguous and not requiring grad (no kernel has a backward
-    yet)."""
+    dims, contiguous and not requiring grad (only K2 has a backward, and its
+    autograd Function hands the kernels detached tensors)."""
     if t.dtype != torch.float32:
         raise TypeError(f"{name}: expected float32, got {t.dtype}")
     if t.dim() != ndim:

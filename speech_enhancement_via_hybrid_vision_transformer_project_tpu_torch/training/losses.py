@@ -1,0 +1,160 @@
+"""Loss functions of the train step (JAX ``training/losses.py``).
+
+``combined_loss`` returns ``(total, components)`` with the components as
+0-d tensors, so nothing syncs with the host inside a step. ``sample_valid``
+excludes the loader's padding rows; ``frame_mask`` (with
+``use_frame_mask``) excludes padded frames. ``multi_resolution_stft_loss``,
+which the trainer never calls, is not ported yet.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Optional
+
+import torch
+
+
+def log_compress(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    """NaN-safe log compression ``log(|x| + eps)``."""
+    return torch.log(torch.abs(x) + eps)
+
+
+def masked_mean(err: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """Mean of ``err [B, F, T, C]``, optionally over the frames of ``mask
+    [B, T]`` only."""
+    if mask is None:
+        return err.mean()
+    m = mask[:, None, :, None].expand(err.shape).to(err.dtype)
+    return (err * m).sum() / torch.clamp(m.sum(), min=1.0)
+
+
+def stoi_proxy_loss(pred: torch.Tensor, target: torch.Tensor,
+                    frame_mask: Optional[torch.Tensor] = None,
+                    sample_weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """1 - cosine similarity of the flattened spectrograms, per sample,
+    averaged (weighted by ``sample_weight``): the reference's
+    differentiable "STOI" proxy."""
+    b = pred.shape[0]
+    p = pred.reshape(b, -1).float()
+    t = target.reshape(b, -1).float()
+    if frame_mask is not None:
+        m = frame_mask[:, None, :, None].expand(pred.shape).reshape(b, -1)
+        p = torch.where(m, p, 0.0)
+        t = torch.where(m, t, 0.0)
+    # F.normalize's clamp of the norm at 1e-12
+    pn = p / torch.clamp(torch.linalg.vector_norm(p, dim=1, keepdim=True), min=1e-12)
+    tn = t / torch.clamp(torch.linalg.vector_norm(t, dim=1, keepdim=True), min=1e-12)
+    per_sample = 1.0 - (pn * tn).sum(dim=1)
+    if sample_weight is None:
+        return per_sample.mean()
+    w = sample_weight.float()
+    return (per_sample * w).sum() / torch.clamp(w.sum(), min=1.0)
+
+
+def perceptual_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """The reference's placeholder perceptual loss, an L1."""
+    return torch.abs(pred - target).mean()
+
+
+@dataclass(frozen=True)
+class LossConfig:
+    l1_weight: float = 1.0
+    mse_weight: float = 0.0
+    stoi_weight: float = 0.1
+    perceptual_weight: float = 0.0
+    log_l1_weight: float = 0.0  # blended log-magnitude L1, floored by log_eps
+    log_eps: float = 1e-2
+    use_log_compression: bool = False
+    use_frame_mask: bool = False
+    si_sdr_weight: float = 0.0  # applied by the trainer (needs phase and waveforms)
+
+    @classmethod
+    def from_config(cls, config: dict) -> "LossConfig":
+        lc = config.get("training", config).get("loss", {})
+        return cls(
+            l1_weight=lc.get("l1_weight", 1.0),
+            mse_weight=lc.get("mse_weight", 0.0),
+            stoi_weight=lc.get("stoi_weight", 0.1),
+            perceptual_weight=lc.get("perceptual_weight", 0.0),
+            log_l1_weight=lc.get("log_l1_weight", 0.0),
+            log_eps=lc.get("log_eps", 1e-2),
+            use_log_compression=lc.get("use_log_compression", False),
+            use_frame_mask=lc.get("use_frame_mask", False),
+            si_sdr_weight=lc.get("si_sdr_weight", 0.0),
+        )
+
+
+def batch_si_sdr_db(ref: torch.Tensor, est: torch.Tensor,
+                    valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Differentiable mean SI-SDR (dB) over the valid rows of ``[B, L]``
+    waveforms, with eps floors so a silent row gives a large negative finite
+    value rather than NaN."""
+    ref = ref.float()
+    est = est.float()
+    ref = ref - ref.mean(dim=-1, keepdim=True)
+    est = est - est.mean(dim=-1, keepdim=True)
+    ref_energy = torch.clamp((ref * ref).sum(dim=-1), min=1e-8)
+    alpha = (ref * est).sum(dim=-1) / ref_energy
+    proj = alpha[:, None] * ref
+    noise = est - proj
+    ratio = (proj * proj).sum(dim=-1) / torch.clamp((noise * noise).sum(dim=-1), min=1e-8)
+    si = 10.0 * torch.log10(torch.clamp(ratio, min=1e-8))
+    if valid is None:
+        return si.mean()
+    w = valid.float()
+    return (si * w).sum() / torch.clamp(w.sum(), min=1.0)
+
+
+def combined_loss(
+    pred: torch.Tensor,
+    target: torch.Tensor,
+    cfg: LossConfig = LossConfig(),
+    frame_mask: Optional[torch.Tensor] = None,
+    sample_valid: Optional[torch.Tensor] = None,
+) -> tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Weighted sum of the enabled losses over ``[B, F, T, C]`` and its
+    components."""
+    mask = frame_mask if cfg.use_frame_mask else None
+    if sample_valid is not None:
+        row = sample_valid[:, None]
+        mask = row.expand(pred.shape[0], pred.shape[2]) if mask is None else mask & row
+    pred = pred.float()
+    target = target.float()
+    if cfg.use_log_compression:
+        pred_in, target_in = log_compress(pred), log_compress(target)
+    else:
+        pred_in, target_in = pred, target
+    components: Dict[str, torch.Tensor] = {}
+    total = torch.zeros((), device=pred.device)
+    if cfg.l1_weight > 0:
+        components["l1"] = masked_mean(torch.abs(pred_in - target_in), mask)
+        total = total + cfg.l1_weight * components["l1"]
+    if cfg.mse_weight > 0:
+        components["mse"] = masked_mean((pred_in - target_in) ** 2, mask)
+        total = total + cfg.mse_weight * components["mse"]
+    if cfg.log_l1_weight > 0:
+        components["log_l1"] = masked_mean(
+            torch.abs(log_compress(pred, cfg.log_eps) - log_compress(target, cfg.log_eps)), mask)
+        total = total + cfg.log_l1_weight * components["log_l1"]
+    if cfg.stoi_weight > 0:
+        components["stoi"] = stoi_proxy_loss(pred, target, mask, sample_weight=sample_valid)
+        total = total + cfg.stoi_weight * components["stoi"]
+    if cfg.perceptual_weight > 0:
+        components["perceptual"] = perceptual_loss(pred, target)
+        total = total + cfg.perceptual_weight * components["perceptual"]
+    components["total"] = total
+    return total, components
+
+
+def create_loss_function(config: dict):
+    """``loss_fn(pred, target, frame_mask=None, sample_valid=None) ->
+    (total, components)`` from the config, with the config at
+    ``loss_fn.config``."""
+    cfg = LossConfig.from_config(config)
+
+    def loss_fn(pred, target, frame_mask=None, sample_valid=None):
+        return combined_loss(pred, target, cfg, frame_mask, sample_valid)
+
+    loss_fn.config = cfg
+    return loss_fn

@@ -1,0 +1,231 @@
+"""Optimizer and epoch-level learning-rate schedules (JAX
+``training/optimizer.py``), with optax's arithmetic.
+
+``Optimizer`` is the JAX trainer's chain ``clip_by_global_norm(max_norm)``
+-> ``adam`` | ``adamw`` | ``sgd``, optionally inside ``MultiSteps(k)``:
+
+- clip: with ``g_norm = sqrt(sum g^2)``, ``g / g_norm * max_norm`` when
+  ``g_norm >= max_norm`` (no epsilon; ``clip_grad_norm_`` differs);
+- Adam: ``m = (1 - b1) g + b1 m``, ``v = (1 - b2) g^2 + b2 v``, count + 1,
+  ``u = (m / (1 - b1^count)) / (sqrt(v / (1 - b2^count)) + eps)``;
+  AdamW adds ``wd * p`` to ``u``; ``p += -lr * u``;
+- SGD: ``t = g + momentum t``, ``u = g + momentum t`` (Nesterov) or ``t``;
+- MultiSteps: a running mean ``acc += (g - acc) / (mini_step + 1)``; the k-th
+  micro-step applies the chain to the mean of the k gradients, the others
+  change no parameter.
+
+The learning rate is a field (``lr``) that the trainer sets once per epoch.
+Schedules map epoch -> lr; ``cosine`` ignores ``warmup_epochs`` as the
+reference does (only ``warmup_cosine`` warms up).
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+
+def global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum of squares of every element, as ``optax.global_norm``."""
+    return torch.sqrt(sum(torch.sum(g * g) for g in grads))
+
+
+class Optimizer:
+    """Global-norm clip, then Adam / AdamW / SGD, with optional gradient
+    accumulation over ``accum_steps`` micro-steps. ``step`` takes the
+    gradients of ``params`` in order and updates the parameters in place
+    (under ``torch.no_grad``)."""
+
+    def __init__(self, params: Sequence[torch.Tensor], name: str = "adamw", lr: float = 1e-4,
+                 betas: Sequence[float] = (0.9, 0.999), eps: float = 1e-8,
+                 weight_decay: float = 0.01, momentum: Optional[float] = 0.9,
+                 nesterov: bool = False, max_norm: Optional[float] = 1.0, accum_steps: int = 1):
+        name = name.lower()
+        if name not in ("adam", "adamw", "sgd"):
+            raise ValueError(f"Unknown optimizer: {name}")
+        self.params = list(params)
+        self.name = name
+        self.lr = float(lr)
+        self.b1, self.b2 = (float(b) for b in betas)
+        self.eps = float(eps)
+        self.weight_decay = float(weight_decay)
+        self.momentum = momentum
+        self.nesterov = nesterov
+        self.max_norm = max_norm if max_norm and max_norm > 0 else None
+        self.accum_steps = int(accum_steps)
+        self.count = 0  # applied optimizer steps (Adam's bias-correction count)
+        self.mini_step = 0
+        zeros = lambda: [torch.zeros_like(p) for p in self.params]  # noqa: E731
+        self.mu = zeros() if name in ("adam", "adamw") else None
+        self.nu = zeros() if name in ("adam", "adamw") else None
+        self.trace = zeros() if name == "sgd" and momentum is not None else None
+        self.acc = zeros() if self.accum_steps > 1 else None
+
+    @classmethod
+    def from_config(cls, params, config: dict) -> "Optimizer":
+        tc = config.get("training", config)
+        oc = tc.get("optimizer", {})
+        return cls(
+            params, name=oc.get("name", "adamw"),
+            lr=oc.get("lr", 1e-4),
+            betas=tuple(oc.get("betas", (0.9, 0.999))), eps=oc.get("eps", 1e-8),
+            weight_decay=oc.get("weight_decay", 0.01), momentum=oc.get("momentum", 0.9),
+            nesterov=oc.get("nesterov", False), max_norm=tc.get("gradient_clip_max_norm", 1.0),
+            accum_steps=tc.get("gradient_accumulation_steps", 1),
+        )
+
+    @torch.no_grad()
+    def step(self, grads: Sequence[torch.Tensor]) -> bool:
+        """One (micro-)step; True when it changed the parameters."""
+        grads = list(grads)
+        if self.acc is not None:
+            n = self.mini_step
+            for a, g in zip(self.acc, grads):
+                a.add_((g - a) / (n + 1))
+            self.mini_step = (self.mini_step + 1) % self.accum_steps
+            if self.mini_step != 0:
+                return False
+            grads = [a.clone() for a in self.acc]
+            for a in self.acc:
+                a.zero_()
+        if self.max_norm is not None:
+            g_norm = global_norm(grads)
+            clip = g_norm >= self.max_norm
+            grads = [torch.where(clip, g / g_norm * self.max_norm, g) for g in grads]
+        self.count += 1
+        lr = -self.lr
+        if self.mu is not None:
+            # the bias corrections in float64: 1 - b2^count cancels, so optax's
+            # float32 power is off by up to ~3e-5 of it at count 3
+            c1, c2 = 1.0 - self.b1**self.count, 1.0 - self.b2**self.count
+            for p, g, m, v in zip(self.params, grads, self.mu, self.nu):
+                m.copy_((1 - self.b1) * g + self.b1 * m)
+                v.copy_((1 - self.b2) * (g * g) + self.b2 * v)
+                u = (m / c1) / (torch.sqrt(v / c2) + self.eps)
+                if self.name == "adamw":
+                    u = u + self.weight_decay * p
+                p.add_(lr * u)
+        else:
+            for i, (p, g) in enumerate(zip(self.params, grads)):
+                u = g
+                if self.trace is not None:
+                    t = self.trace[i]
+                    t.copy_(g + self.momentum * t)
+                    u = g + self.momentum * t if self.nesterov else t
+                p.add_(lr * u)
+        return True
+
+    def state_dict(self) -> Dict:
+        """The optimizer's state as plain values and lists of tensors."""
+        return {"name": self.name, "lr": self.lr, "count": self.count,
+                "mini_step": self.mini_step,
+                **{k: getattr(self, k) for k in ("mu", "nu", "trace", "acc")
+                   if getattr(self, k) is not None}}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Dict) -> None:
+        if state["name"] != self.name:
+            raise ValueError(f"optimizer state of {state['name']!r}, not {self.name!r}")
+        self.lr = float(state["lr"])
+        self.count = int(state["count"])
+        self.mini_step = int(state["mini_step"])
+        for k in ("mu", "nu", "trace", "acc"):
+            own = getattr(self, k)
+            if own is None:
+                continue
+            if k not in state or len(state[k]) != len(own):
+                raise ValueError(f"optimizer state {k!r} does not match the parameters")
+            for dst, src in zip(own, state[k]):
+                src = torch.from_numpy(np.array(src)) if isinstance(src, np.ndarray) else src
+                dst.copy_(src.reshape(dst.shape))
+
+
+# ---------------------------------------------------------------------------
+# Epoch-level learning-rate schedules
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class PlateauState:
+    best: float = math.inf
+    bad_epochs: int = 0
+    lr: float = 0.0
+
+
+class EpochScheduler:
+    """epoch -> lr; ``scheduler(epoch, val_loss)`` (plateau needs the loss)."""
+
+    def __init__(self, fn: Callable[[int], float], name: str):
+        self.fn = fn
+        self.name = name
+
+    def __call__(self, epoch: int, val_loss: Optional[float] = None) -> float:
+        return self.fn(epoch)
+
+
+class PlateauScheduler(EpochScheduler):
+    """ReduceLROnPlateau on the validation loss."""
+
+    def __init__(self, base_lr: float, patience: int, factor: float, min_lr: float):
+        super().__init__(lambda e: self.state.lr, "plateau")
+        self.state = PlateauState(lr=base_lr)
+        self.patience = patience
+        self.factor = factor
+        self.min_lr = min_lr
+
+    def __call__(self, epoch: int, val_loss: Optional[float] = None) -> float:
+        if val_loss is not None:
+            if val_loss < self.state.best - 1e-12:
+                self.state.best = val_loss
+                self.state.bad_epochs = 0
+            else:
+                self.state.bad_epochs += 1
+                if self.state.bad_epochs > self.patience:
+                    self.state.lr = max(self.state.lr * self.factor, self.min_lr)
+                    self.state.bad_epochs = 0
+        return self.state.lr
+
+
+def create_scheduler(config: dict, num_epochs: Optional[int] = None) -> EpochScheduler:
+    """The epoch schedule of ``training.scheduler``: ``none``, ``cosine``
+    (no warmup), ``warmup_cosine``, ``step`` or ``plateau``."""
+    tc = config.get("training", config)
+    sc = tc.get("scheduler", {})
+    base_lr = tc.get("optimizer", {}).get("lr", 1e-4)
+    name = sc.get("name", "cosine").lower()
+    total = num_epochs or tc.get("num_epochs", 100)
+    min_lr = sc.get("min_lr", 1e-6)
+
+    if name in ("none", "", "constant"):
+        return EpochScheduler(lambda e: base_lr, "none")
+    if name == "cosine":
+        def fn(epoch: int) -> float:
+            t = min(epoch, total) / max(total, 1)
+            return min_lr + 0.5 * (base_lr - min_lr) * (1 + math.cos(math.pi * t))
+        return EpochScheduler(fn, "cosine")
+    if name == "warmup_cosine":
+        warmup = sc.get("warmup_epochs", 5)
+
+        def fn(epoch: int) -> float:
+            if epoch < warmup:
+                return base_lr * (epoch + 1) / max(warmup, 1)
+            t = min((epoch - warmup) / max(total - warmup, 1), 1.0)
+            return min_lr + 0.5 * (base_lr - min_lr) * (1 + math.cos(math.pi * t))
+        return EpochScheduler(fn, "warmup_cosine")
+    if name == "step":
+        step_size = sc.get("step_size", 30)
+        gamma = sc.get("gamma", 0.1)
+        return EpochScheduler(lambda e: base_lr * gamma ** (e // step_size), "step")
+    if name == "plateau":
+        return PlateauScheduler(base_lr, patience=sc.get("patience", 5),
+                                factor=sc.get("factor", 0.5), min_lr=min_lr)
+    raise ValueError(f"Unknown scheduler: {name}")
+
+
+def parameters(model: torch.nn.Module) -> List[torch.Tensor]:
+    """The trainable parameters in ``named_parameters`` order."""
+    return [p for p in model.parameters() if p.requires_grad]

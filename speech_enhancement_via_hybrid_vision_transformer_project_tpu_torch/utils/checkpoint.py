@@ -1,9 +1,10 @@
-"""Read the JAX package's checkpoints into the port (read side only).
+"""Checkpoints in the JAX package's format: read, and written by training.
 
 A checkpoint directory holds ``state.msgpack`` (flax ``serialization``:
 nested msgpack maps whose array leaves are msgpack ext type 1, packing
 ``(shape, dtype name, raw C-order bytes)``) and ``meta.json``. The decoder
-here is self-contained, so neither ``flax`` nor ``msgpack`` is needed.
+and encoder here are self-contained, so neither ``flax`` nor ``msgpack`` is
+needed.
 
 ``flax_to_state_dict`` maps the JAX package's variables onto the port's
 ``state_dict`` names and layouts:
@@ -14,6 +15,13 @@ here is self-contained, so neither ``flax`` nor ``msgpack`` is needed.
   ``weight``/``bias``/``running_mean``/``running_var``;
 * ``attn/Dense_0`` -> ``attn.qkv``, ``attn/Dense_1`` -> ``attn.proj``,
   ``mlp/Dense_0|1`` -> ``mlp.fc1|fc2``, ``block_i`` -> ``blocks.i``.
+
+``state_dict_to_flax`` is its inverse. ``save_checkpoint`` writes the
+port's training state: ``params`` and ``batch_stats`` in the flax tree, so
+that the JAX package's ``load_model_weights`` and this module's reader both
+load them, plus ``step`` and ``port_opt_state`` (the port's optimizer, which
+only the port resumes from); ``meta.json`` carries the JAX keys (``epoch``,
+``global_step``, ``best_val_loss``, ``config``, ``format``).
 """
 
 from __future__ import annotations
@@ -22,7 +30,7 @@ import json
 import re
 import struct
 from pathlib import Path
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -175,6 +183,61 @@ def _leaves(tree: Dict, prefix: tuple = ()):
             yield prefix + (k,), v
 
 
+# ---------------------------------------------------------------------------
+# msgpack encoder (the subset flax writes)
+# ---------------------------------------------------------------------------
+
+
+def _pack(obj: Any, out: bytearray) -> None:
+    if obj is None:
+        out += b"\xc0"
+    elif obj is True or obj is False:
+        out += b"\xc3" if obj else b"\xc2"
+    elif isinstance(obj, int):
+        if 0 <= obj <= 0x7F:
+            out += struct.pack(">B", obj)
+        elif -32 <= obj < 0:
+            out += struct.pack(">b", obj)
+        elif obj > 0:
+            out += b"\xcf" + struct.pack(">Q", obj)
+        else:
+            out += b"\xd3" + struct.pack(">q", obj)
+    elif isinstance(obj, float):
+        out += b"\xcb" + struct.pack(">d", obj)
+    elif isinstance(obj, str):
+        raw = obj.encode("utf-8")
+        out += (struct.pack(">B", 0xA0 | len(raw)) if len(raw) < 32
+                else b"\xdb" + struct.pack(">I", len(raw))) + raw
+    elif isinstance(obj, bytes):
+        out += b"\xc6" + struct.pack(">I", len(obj)) + obj
+    elif isinstance(obj, (list, tuple)):
+        out += b"\xdd" + struct.pack(">I", len(obj))
+        for x in obj:
+            _pack(x, out)
+    elif isinstance(obj, dict):
+        out += b"\xdf" + struct.pack(">I", len(obj))
+        for k, v in obj.items():
+            if not isinstance(k, str):
+                raise TypeError(f"msgpack map keys must be str, got {type(k)}")
+            _pack(k, out)
+            _pack(v, out)
+    elif isinstance(obj, (np.ndarray, np.generic)):
+        arr = np.asarray(obj)  # (np.ascontiguousarray would make a 0-d array 1-d)
+        payload = msgpack_packb((list(arr.shape), arr.dtype.name, arr.tobytes("C")))
+        code = _EXT_NPSCALAR if isinstance(obj, np.generic) else _EXT_NDARRAY
+        out += b"\xc9" + struct.pack(">I", len(payload)) + struct.pack(">b", code) + payload
+    else:
+        raise TypeError(f"cannot msgpack {type(obj)}")
+
+
+def msgpack_packb(obj: Any) -> bytes:
+    """Encode maps (str keys), lists, scalars, str/bin and numpy arrays (the
+    flax ndarray/scalar ext types), readable by flax and ``msgpack_unpackb``."""
+    out = bytearray()
+    _pack(obj, out)
+    return bytes(out)
+
+
 def flax_to_state_dict(variables: Dict) -> Dict[str, torch.Tensor]:
     """The JAX package's ``{"params": ..., "batch_stats": ...}`` (nested
     numpy dicts) as the port's ``state_dict``."""
@@ -188,6 +251,92 @@ def flax_to_state_dict(variables: Dict) -> Dict[str, torch.Tensor]:
                 arr = arr.T  # Dense [in,out] -> Linear [out,in]
             out[_torch_name(path)] = torch.tensor(arr)  # a writable copy
     return out
+
+
+_FLAX_MODULES = {"conv": "Conv_0", "bn": "BatchNorm_0", "qkv": "Dense_0",
+                 "fc1": "Dense_0", "fc2": "Dense_1"}
+_FLAX_INDEXED = {"encoder": "encoder_", "decoder": "decoder_", "skip_proj": "skip_proj_",
+                 "blocks": "block_"}
+
+
+def _flax_path(name: str, ndim: int) -> tuple[str, tuple]:
+    """(collection, flax path) of a port ``state_dict`` name."""
+    parts = name.split(".")
+    path = []
+    i = 0
+    while i < len(parts) - 1:
+        p = parts[i]
+        if p in _FLAX_INDEXED and i + 1 < len(parts) - 1 and parts[i + 1].isdigit():
+            path.append(_FLAX_INDEXED[p] + parts[i + 1])
+            i += 2
+            continue
+        if p == "proj":
+            p = "Dense_1" if path and path[-1] == "attn" else "Conv_0"
+        path.append(_FLAX_MODULES.get(p, p))
+        i += 1
+    leaf = parts[-1]
+    if leaf in ("running_mean", "running_var"):
+        return "batch_stats", (*path, leaf[len("running_"):])
+    if leaf == "weight":
+        leaf = "kernel" if ndim in (2, 4) else "scale"
+    return "params", (*path, leaf)
+
+
+def state_dict_to_flax(sd: Dict[str, torch.Tensor]) -> Dict:
+    """The port's ``state_dict`` as the JAX package's ``{"params": ...,
+    "batch_stats": ...}`` of nested numpy dicts (inverse of
+    ``flax_to_state_dict``)."""
+    out: Dict = {"params": {}, "batch_stats": {}}
+    for name, t in sd.items():
+        if name.endswith("num_batches_tracked"):
+            continue
+        arr = t.detach().cpu().numpy()
+        collection, path = _flax_path(name, arr.ndim if name.endswith("weight") else 0)
+        if path[-1] == "kernel":
+            arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
+        node = out[collection]
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = np.ascontiguousarray(arr)
+    return out
+
+
+def save_checkpoint(path: str | Path, model: torch.nn.Module, *, step: int = 0,
+                    optimizer_state: Optional[Dict] = None, epoch: int = 0,
+                    global_step: int = 0, best_val_loss: float = float("inf"),
+                    config: Optional[Dict] = None) -> Path:
+    """Write ``<path>/state.msgpack`` and ``<path>/meta.json`` (see the
+    module docstring). ``optimizer_state``: ``Optimizer.state_dict()``."""
+    path = Path(path)
+    path.mkdir(parents=True, exist_ok=True)
+    tree = state_dict_to_flax(model.state_dict())
+    tree["step"] = np.asarray(step, np.int32)
+    if optimizer_state is not None:
+        tree["port_opt_state"] = {
+            k: ({str(i): x.detach().cpu().numpy() for i, x in enumerate(v)}
+                if isinstance(v, list) else v)
+            for k, v in optimizer_state.items()
+        }
+    (path / "state.msgpack").write_bytes(msgpack_packb(tree))
+    meta = {"epoch": int(epoch), "global_step": int(global_step),
+            "best_val_loss": float(best_val_loss), "config": config or {},
+            "format": "sevit-msgpack-v1"}
+    (path / "meta.json").write_text(json.dumps(meta, indent=2, default=str))
+    return path
+
+
+def load_checkpoint(path: str | Path, model: torch.nn.Module) -> tuple[int, Optional[Dict], Dict]:
+    """Load a checkpoint's weights into ``model`` (strict, as
+    ``load_model_weights``); returns ``(step, optimizer state or None,
+    meta)``."""
+    tree = msgpack_restore((Path(path) / "state.msgpack").read_bytes())
+    load_model_weights(path, model, tree=tree)
+    opt = tree.get("port_opt_state")
+    if opt is not None:
+        opt = {k: ([v[str(i)] for i in range(len(v))] if isinstance(v, dict) else v)
+               for k, v in opt.items()}
+    step = tree.get("step", 0)
+    return int(np.asarray(step)), opt, read_meta(path)
 
 
 def _extract_variables(tree: Dict) -> Dict:
@@ -220,10 +369,12 @@ def read_meta(path: str | Path) -> Dict:
     return meta if isinstance(meta, dict) else {}
 
 
-def load_model_weights(path: str | Path, model: torch.nn.Module) -> torch.nn.Module:
-    """Load a JAX checkpoint's weights into ``model`` (strict: every
-    parameter and buffer must be present with the right shape)."""
-    sd = flax_to_state_dict(read_variables(path))
+def load_model_weights(path: str | Path, model: torch.nn.Module,
+                       tree: Optional[Dict] = None) -> torch.nn.Module:
+    """Load a checkpoint's weights into ``model`` (strict: every parameter
+    and buffer must be present with the right shape). ``tree``: the
+    checkpoint's decoded ``state.msgpack``, when already read."""
+    sd = flax_to_state_dict(read_variables(path) if tree is None else _extract_variables(tree))
     own = model.state_dict()
     missing = sorted(set(own) - set(sd) - {k for k in own if k.endswith("num_batches_tracked")})
     unexpected = sorted(set(sd) - set(own))

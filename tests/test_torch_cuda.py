@@ -1,4 +1,5 @@
-"""CUDA kernels K1-K3 against their plain PyTorch versions, on the card.
+"""CUDA kernels K1-K3 and K2's backward against their plain PyTorch
+versions, on the card.
 
 Marked ``cuda``: each test skips where there is no CUDA device. The card's
 machine has no JAX, so run this file without the suite's conftest:
@@ -8,7 +9,12 @@ machine has no JAX, so run this file without the suite's conftest:
 Tolerances (max abs error): STFT 2e-4 at n_fft 512 (the plain version's
 fp32 sums of 512 products against an FFT's rounding), attention and iSTFT
 2e-5 (fp32, another summation order), waveforms 2e-4 (whole pipeline on
-two devices).
+two devices). K2's backward: each of dq, dk and dv within 1e-4 of that
+tensor's largest magnitude, or of 1 where that is smaller (at N = 1 the
+true dq and dk are 0, dS = P (dP - Delta) with P = 1 and Delta = dP, and
+both sides hold rounding residue): fp32 sums of up to 448 products in
+another order, and the weights recomputed from the forward's log-sum-exp
+rather than a two-pass softmax.
 """
 
 import numpy as np
@@ -162,6 +168,139 @@ def test_istft_polar_kernel_matches_plain(n_frames, length, dev, gen):
     assert not y[:, denom.numel():].any()
 
 
+TOL_BWD = 1e-4  # relative to each gradient's largest magnitude (at least 1)
+
+
+def _rel_err(got, ref):
+    return max(float((a - b).abs().max()) / max(float(b.abs().max()), 1.0)
+               for a, b in zip(got, ref))
+
+
+@pytest.mark.parametrize("n", [1, 37, 63, 64, 65, 200, 384])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_attention_bwd_kernel_matches_plain(n, d, dev, gen):
+    """K2's backward through the autograd Function against autograd through
+    the plain version, masks as in the forward's test. A masked key of a
+    row that keeps any key gets exactly zero dk and dv; a row that keeps
+    none gets zero dq and dk, and dv the mean of dO."""
+    q, k, v, dout = (torch.randn(2, 3, n, d, generator=gen).to(dev) for _ in range(4))
+    mask = torch.rand(2, n, generator=gen) > 0.3
+    mask[1] = False
+    edge = torch.zeros(2, n, dtype=torch.bool)
+    edge[0, n // 2] = True
+    edge[1] = torch.arange(n) % 24 < 17
+    for m in (None, mask.to(dev), edge.to(dev)):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        kernels.reset_launch_counts()
+        out = cuda_attention.attention(*leaves, scale=d**-0.5, mask=m)
+        out.backward(dout)
+        assert kernels.KERNELS["attention_fwd"].launches == 1
+        assert kernels.KERNELS["attention_bwd"].launches == 1
+        got = [t.grad for t in leaves]
+        ref = cuda_attention.attention_bwd_plain(q, k, v, dout, scale=d**-0.5, mask=m)
+        assert _rel_err(got, ref) < TOL_BWD
+        if m is not None:
+            for b in range(2):
+                dropped = ~m[b]
+                if m[b].any():
+                    assert not got[1][b][:, dropped].any() and not got[2][b][:, dropped].any()
+                else:
+                    assert not got[0][b].any() and not got[1][b].any()
+                    mean = dout[b].mean(dim=1, keepdim=True).expand_as(got[2][b])
+                    assert float((got[2][b] - mean).abs().max()) < 1e-6
+
+
+def test_attention_grad_dispatch(dev, gen):
+    """A CUDA tensor that needs grad goes through the Function, one with no
+    grad (or under no_grad) through the forward alone."""
+    q = torch.randn(2, 2, 40, 16, generator=gen).to(dev)
+    kernels.reset_launch_counts()
+    cuda_attention.attention(q, q, q, scale=0.25)
+    with torch.no_grad():
+        cuda_attention.attention(q.clone().requires_grad_(), q, q, scale=0.25)
+    assert kernels.KERNELS["attention_fwd"].launches == 2
+    x = q.clone().requires_grad_()
+    cuda_attention.attention(x, x, x, scale=0.25).sum().backward()
+    assert kernels.KERNELS["attention_bwd"].launches == 1 and x.grad is not None
+
+
+def test_attention_bwd_kernel_resources(dev):
+    """No spills at the training path's head dim (64)."""
+    info = cuda_attention.bwd_kernel_info(64)
+    assert info["dq"]["local_bytes"] == 0 and info["dkdv"]["local_bytes"] == 0, info
+
+
+class _Capture:
+    """Stands in for the optimizer: keeps the gradients it is handed."""
+
+    def __init__(self, params):
+        self.params = params
+        self.grads = None
+
+    def step(self, grads):
+        self.grads = [g.detach().cpu() for g in grads]
+
+
+@pytest.mark.parametrize("mode,mask_padding", [("magnitude", False), ("mask", True)])
+def test_train_step_cuda_matches_cpu(mode, mask_padding, dev):
+    """One train step of a small model (dropouts 0, SpecAugment off) on cuda
+    against the same step on cpu from the same weights, on a PCM16 batch
+    with a short row and a padding row (under ``mask_padding`` a fully
+    masked one): loss components within 1e-5, gradients within 1e-3 of the
+    model's largest (fp32 on both; cuDNN's backward convolutions sum in
+    another order), new BatchNorm statistics within 1e-5. On cuda the step
+    runs K1 twice and K2's forward and backward once a block."""
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.data.augmentation import (
+        SpecAugmentConfig,
+    )
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.training.losses import (
+        LossConfig,
+    )
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.training.trainer import (
+        make_step_fns,
+    )
+
+    n = 63 * 128  # the 64-frame bucket
+    rng = np.random.default_rng(0)
+    lengths = np.array([n, 5000, 0], np.int32)
+    wav = np.zeros((2, 3, n), np.float32)
+    for i, m in enumerate(lengths[:2]):
+        wav[1, i, :m] = 0.3 * np.sin(np.arange(m) * 0.05 * (i + 1))
+        wav[0, i, :m] = wav[1, i, :m] + 0.1 * rng.standard_normal(m)
+    pcm = np.clip(np.rint(wav * 32768), -32768, 32767).astype(np.int16)
+    batch = {"noisy_audio": pcm[0], "clean_audio": pcm[1], "length": lengths,
+             "valid": np.array([True, True, False])}
+    kw = dict(embed_dim=64, num_heads=4, num_layers=2, mlp_ratio=2.0,
+              encoder_channels=(16, 32, 64), decoder_channels=(32, 16, 8, 1), dropout=0.0,
+              attn_dropout=0.0, drop_path_rate=0.0)
+    state = init_weights(HybridViT(**kw), torch.Generator().manual_seed(0)).state_dict()
+    res = {}
+    for device in ("cuda", "cpu"):
+        model = HybridViT(**kw)
+        model.load_state_dict(state)
+        model.to(device)
+        cap = _Capture(list(model.parameters()))
+        step, _ = make_step_fns(model, cap, LossConfig(log_l1_weight=0.05), STFTConfig(),
+                                SpecAugmentConfig(), augment=False,
+                                use_attention_mask=mask_padding, output_mode=mode)
+        kernels.reset_launch_counts()
+        metrics = step({k: torch.from_numpy(v).to(device) for k, v in batch.items()})
+        if device == "cuda":
+            torch.cuda.synchronize()
+            assert {k: r.launches for k, r in kernels.KERNELS.items()} == {
+                "stft_mag": 2, "attention_fwd": 2, "attention_bwd": 2, "istft_polar": 0}
+        res[device] = ({k: float(v) for k, v in metrics.items()}, cap.grads,
+                       {k: v.cpu() for k, v in model.state_dict().items() if "running" in k})
+    (lc, gc, sc), (lp, gp, sp) = res["cuda"], res["cpu"]
+    for k in lp:
+        if k != "grad_norm":
+            assert abs(lc[k] - lp[k]) <= 1e-5, k
+    scale = max(float(g.abs().max()) for g in gp)
+    assert max(float((a - b).abs().max()) for a, b in zip(gc, gp)) <= 1e-3 * scale
+    for k in sp:
+        assert float((sc[k] - sp[k]).abs().max()) <= 1e-5, k
+
+
 def test_kernels_refuse_what_they_do_not_take(dev, gen):
     x = torch.randn(2, 4000, generator=gen).to(dev)
     with pytest.raises(RuntimeError, match="backward"):
@@ -198,7 +337,9 @@ def test_enhancer_cuda_matches_cpu(dev, gen):
     kernels.reset_launch_counts()
     out = AudioEnhancer(model, cfg, device=dev, buckets=(128, 256), mask_padding=True
                         ).enhance_batch(wavs)
-    assert min(k.launches for k in kernels.KERNELS.values()) >= 1
+    # the serving path runs every forward kernel, and no backward
+    launched = {name: k.launches for name, k in kernels.KERNELS.items()}
+    assert launched.pop("attention_bwd") == 0 and min(launched.values()) >= 1
     for a, b in zip(out, ref):
         assert a.shape == b.shape
         assert float(np.abs(a - b).max()) < 2e-4
