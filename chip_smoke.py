@@ -11,9 +11,10 @@ which raises on failure:
    turns TF32 off (float32 end to end).
 2. build: compiles the four kernels (K1, K2 forward and backward, K3)
    from the port's ``csrc/``, one nvcc per source, all started together;
-   prints K2's registers, shared memory and blocks per SM (its backward's
-   registers and spills), and checks that its code holds TF32 tensor-core
-   instructions (``HMMA ... TF32`` in ``cuobjdump -sass``).
+   prints K2's registers, shared memory and blocks per SM and its
+   backward's registers and spills per pass, and checks that K2's forward
+   and both passes of its backward hold TF32 tensor-core instructions
+   (``HMMA ... TF32`` in ``cuobjdump -sass``).
 3. kernels: each kernel against its plain PyTorch version at the serving
    path's shapes (batch 32 x 3 s; attention under the serving batch's own
    mask and under a mix of clip lengths) and at ragged shapes (attention: a
@@ -43,12 +44,14 @@ which raises on failure:
    batch 32 x 3 s, and each kernel's device time per launch in one
    profiled batch.
 8. training (its wall time printed):
-   a. K2's backward (``csrc/attention_bwd.cu``, through the autograd
-      Function around K2) against autograd through the plain version, at
-      q/k/v [16, 8, 384, 64] under the train batch's own patch mask, under
-      a 1-3.06 s length mix and with no mask, and at N = 200 with a fully
-      masked row and N = 37 with a one-key row; dq, dk and dv each within
-      ``TOL_BWD`` of its largest magnitude, masked keys' dk exactly 0.
+   a. K2's backward (``csrc/attention_bwd.cu``: a dq pass and a dk/dv
+      pass, each on the tensor cores in 3xTF32 as the forward; through the
+      autograd Function around K2) against autograd through the plain
+      version, at q/k/v [16, 8, 384, 64] under the train batch's own patch
+      mask, under a 1-3.06 s length mix and with no mask, and at N = 200
+      with a fully masked row and N = 37 with a one-key row; dq, dk and dv
+      each within ``TOL_BWD`` of its largest magnitude, masked keys' dk
+      exactly 0.
    b. full width: the 28M configuration with the README's recipe, dropout
       and drop-path 0.1, attention dropout 0 (so attention runs through K2),
       fp32, AdamW at lr 1e-4, clip 1.0, seeded weights, SpecAugment on, a
@@ -227,6 +230,20 @@ def rfft_flops(n: int) -> float:
     """Operations of one real FFT of ``n`` points (half a complex one's
     5 n log2 n)."""
     return 2.5 * n * np.log2(n)
+
+
+def tf32_hmma(cuobjdump: str, lib: Path) -> dict[str, list[str]]:
+    """The TF32 tensor-core instructions (``HMMA ... TF32``) in a library's
+    SASS, by the (mangled) name of the function that holds them."""
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    found, fn = {}, ""
+    for line in sass.splitlines():
+        if "Function : " in line:
+            fn = line.split("Function : ")[1].strip()
+        elif "HMMA" in line and "TF32" in line:
+            found.setdefault(fn, []).append(line.split(";")[0].split("*/")[-1].strip())
+    return found
 
 
 def max_err(a, b) -> float:
@@ -699,16 +716,19 @@ def main() -> int:
     for d in (64, 128):
         print(f"attention_fwd at head dim {d}, 384 keys, masked: "
               f"{cuda_attention.kernel_info(d, 384)}", flush=True)
-    print(f"attention_bwd at head dim 64: {cuda_attention.bwd_kernel_info(64)}", flush=True)
+    print(f"attention_bwd at head dim 64, registers and local (spill) bytes a thread of each "
+          f"pass: {cuda_attention.bwd_kernel_info(64)}", flush=True)
     cuobjdump = shutil.which("cuobjdump") or str(Path(kernels._nvcc()).parent / "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", str(libs["attention_fwd"])],
-                          capture_output=True, text=True, check=True).stdout
-    hmma = [line.split(";")[0].split("*/")[-1].strip() for line in sass.splitlines()
-            if "HMMA" in line and "TF32" in line]
-    if not hmma:
-        raise AssertionError("attention_fwd's SASS holds no TF32 tensor-core instruction")
-    print(f"attention_fwd SASS: {len(hmma)} TF32 tensor-core instructions "
-          f"({sorted(set(i.split()[0] for i in hmma))}, e.g. {hmma[0]!r})", flush=True)
+    for name, passes in (("attention_fwd", ("attention_fwd_kernel",)),
+                         ("attention_bwd", ("attention_bwd_dq_kernel", "attention_bwd_dkdv_kernel"))):
+        hmma = tf32_hmma(cuobjdump, libs[name])
+        for fn in passes:
+            found = [i for f, instrs in hmma.items() if fn in f for i in instrs]
+            if not found:
+                raise AssertionError(f"{fn}'s SASS holds no TF32 tensor-core instruction")
+            print(f"{fn} SASS: {len(found)} TF32 tensor-core instructions over its head-dim "
+                  f"instances ({sorted(set(i.split()[0] for i in found))}, e.g. {found[0]!r})",
+                  flush=True)
 
     phase("kernels vs plain")
     cfg = STFTConfig()

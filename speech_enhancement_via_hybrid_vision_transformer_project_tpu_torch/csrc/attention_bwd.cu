@@ -1,5 +1,5 @@
 // K2 attention_bwd: the gradient of softmax(Q K^T * scale, key mask) V with
-// respect to Q, K and V, fp32 on the CUDA cores.
+// respect to Q, K and V, fp32-accurate, on Hopper's tensor cores in 3xTF32.
 //
 // Replaces the backward of the TPU kernel's custom VJP, _fused_bwd in
 // speech_enhancement_via_hybrid_vision_transformer_project_tpu/ops/pallas_attention.py
@@ -21,30 +21,50 @@
 // What bounds it on an H100: its operations, 10 N^2 D per (batch, head) on
 // kept keys at the least (S, dP, dq, dk, dv), at the card's fastest rate for
 // fp32-accurate matrix products (3xTF32 on the tensor cores, 165 TFLOP/s).
-// This kernel does 14 (the key pass recomputes S and dP rather than read
-// them back from device memory) in fp32 FMAs on the CUDA cores (67
-// TFLOP/s), so it reaches at most 10/14 x 67/165 = 29% of that bound. Why
-// the CUDA cores and not the forward's 3xTF32 mma.sync: the backward
-// multiplies by P^T and dS^T, whose tensor-core fragments the forward's
-// column-order trick does not give, and a first kernel that is right comes
-// before a fast one.
+// This kernel does 14: two deterministic passes (no atomics), each of which
+// recomputes S and dP. A single pass that adds each tile's dq into device
+// memory by atomics does 10, but its sums then change order from run to run.
 //
-// Design: two kernels, deterministic (no atomics), 256 threads each as a
-// 16 x 16 grid; each thread owns a 4 x 4 (or 4 x D/16) register tile of
-// every 64 x 64 (or 64 x D) product, rows ty + 16 r and columns tx + 16 c.
-// Tiles live in shared memory row-major with an odd row stride (D + 1, 65),
-// so that 16 consecutive threads reading a row or a column hit 16 banks.
-// - dq pass, a block per (batch*head, 64 query rows): Delta of its rows
-//   (written to device memory for the next pass), then over the kept keys in
-//   tiles of 64: S, dP -> dS^T (shared memory) -> dq += dS K.
-// - dk/dv pass, a block per (batch*head, 64 kept keys): over all query rows
-//   in tiles of 64: S^T, dP^T -> P, dS (shared memory) -> dv += P^T dO,
-//   dk += dS^T Q, both held in registers across the query tiles. The block
-//   also writes the zero rows of the masked keys among key positions
-//   [64 x, 64 x + 64), so every row of dk and dv is written.
+// Design: the forward's building blocks (tf32_mma.cuh): mma.sync m16n8k8
+// TF32, three per product (x = hi + lo), and an accumulator fragment of S
+// (columns 2t, 2t + 1) taken as the A fragment of the next product with no
+// shuffle, each 8-deep k-step taking its columns in the order 0,2,4,6,1,3,5,7.
+// Each pass computes its products in its own orientation, so that the
+// weights are always the first operand:
+// - dq pass, a block of 4 warps per (batch*head, 64 query rows), 16 rows a
+//   warp, A operands Q (scaled by scale * log2(e)) and dO. It writes Delta of
+//   its rows for the next pass and walks the kept keys in tiles of 32, K and
+//   V double buffered by cp.async: S = Q K^T and dP = dO V^T, P = exp2(S -
+//   lse), dS = P (dP - Delta) in registers, dq += dS K.
+// - dk/dv pass, a block of 4 warps per (batch*head, 64 walked keys), 16 keys
+//   a warp, A operands K (scaled) and V. It walks all query rows in tiles of
+//   32 (16 at D = 128), Q, dO and the rows' lse and Delta double buffered by
+//   cp.async: S^T = K Q^T and dP^T = V dO^T (rows: keys), P^T = exp2(S^T -
+//   lse of the columns), dS^T = P^T (dP^T - Delta of the columns), dv += P^T
+//   dO, dk += dS^T Q. It also writes the zero rows of the masked keys among
+//   key positions [64 x, 64 x + 64), so every row of dk and dv is written.
+// Registers: two A operands (64 fp32 values a thread at D = 64, 128 as hi
+// and lo), two accumulators (64 in the dk/dv pass) and two S-sized products.
+// With the A operands in registers, split per k-step, both passes took 255
+// registers and spilled on an H100. So each thread splits its A fragments
+// once into hi and lo and keeps them in shared memory, its own 16-byte words
+// (64 KB a block at D = 64), read back with one 16-byte load per k-step and
+// half: 166 (dq) and 182 (dk/dv) registers at D = 64, no spills, two blocks
+// an SM. Larger tiles (64 keys in the dq pass, 64 rows in the dk/dv pass)
+// leave one block an SM or spill, and ran slower.
+// Shared memory: every streamed tile is read in two patterns. As the B
+// operand of S (8 rows g, a float2 at columns kcol(kk, t)) and as the B
+// operand of dS K (rows 2t and 2t + 1, a float2 at columns 2g, 2g + 1 of a
+// 16-column pair of n-tiles: n-tile 2p takes column 16p + 2g, 2p + 1 the
+// next, so a thread's dq values lie at 16p + 4t .. 16p + 4t + 3, one float4
+// store). One row stride, D + 4 floats (4 mod 32 banks), serves both when S's
+// k-steps take their column pairs at 2 (t & 1) + 16 (t >> 1) in chunks of 32
+// columns (kcol): no bank conflicts for D >= 32; at D = 16 the S loads are
+// 2-way conflicted.
 // The kept keys are listed per block as in the forward (kept_keys.cuh), 4
-// bytes a key of shared memory, so an N whose tiles and list exceed the
-// card's shared memory a block fails to launch.
+// bytes a key of shared memory beside the A operands and tiles (100,864
+// bytes in the dk/dv pass at D = 64), so a mask over more than 30,956 keys at
+// D = 64 (7,946 at D = 128) fails to launch.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -52,88 +72,160 @@
 
 #include "kept_keys.cuh"
 #include "max_smem.cuh"
+#include "tf32_mma.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-constexpr int T = 64;       // query rows and keys per tile
-constexpr int LDP = T + 1;  // row stride of the P and dS tiles
+constexpr int WARPS = 4;
+constexpr int THREADS = 32 * WARPS;
+constexpr int BM = 16 * WARPS;  // query rows (dq pass) or walked keys (dk/dv pass) per block
+
+// Keys per K/V tile of the dq pass, and query rows per Q/dO tile of the
+// dk/dv pass.
+constexpr int BK = 32;
+template <int D>
+__host__ __device__ constexpr int dkdv_tile() { return D <= 64 ? 32 : 16; }
+
+// Shared memory of a block's A operands in 16-byte words: two operands, D / 8
+// k-steps, hi and lo, a word per thread.
+template <int D>
+__host__ __device__ constexpr int a_words() { return 2 * (D / 8) * 2 * THREADS; }
 
 template <int D>
-__host__ __device__ constexpr int ld() { return D + 1; }
+__host__ __device__ constexpr int ld() { return D + 4; }  // row stride of every tile
 
-// Shared memory before the kept-key list: four T x (D + 1) tiles, the P / dS
-// tiles (one in the dq pass, two in the dk/dv pass), Delta and lse of T rows.
+// Shared memory before the kept-key list: the A operands, then two K and
+// two V tiles (dq pass) or two Q and two dO tiles and their rows' lse and
+// Delta (dk/dv pass).
 template <int D>
 constexpr size_t tiles_bytes(bool dkdv) {
-  return sizeof(float) * (4 * T * ld<D>() + (dkdv ? 2 : 1) * T * LDP + 2 * T);
+  return 16 * a_words<D>() + sizeof(float) * (dkdv ? 2 * dkdv_tile<D>() * (2 * ld<D>() + 2)
+                                                   : 2 * 2 * BK * ld<D>());
 }
 
-// Rows [r0, r0 + T) of a row-major [*, D] matrix (gathered through `idx`
-// when it is not null) into a T x (D + 1) tile; rows from `count` on are 0.
+// The first of the two columns thread t takes at k-step kk of a product over
+// the head dim (the forward's order at D = 16).
 template <int D>
-__device__ __forceinline__ void load_rows(float* __restrict__ dst, const float* __restrict__ src,
-                                          int r0, int count, const int* __restrict__ idx) {
+__device__ __forceinline__ int kcol(int kk, int t) {
+  if constexpr (D >= 32)
+    return (kk >> 2) * 32 + (kk & 3) * 4 + (t & 1) * 2 + (t >> 1) * 16;
+  else
+    return kk * 8 + 2 * t;
+}
+
+__device__ __forceinline__ float2 ld2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+
+// The hi and lo A fragments of four fp32 values.
+__device__ __forceinline__ void split4(const float (&x)[4], uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) split(x[e], hi[e], lo[e]);
+}
+
+// An accumulator tile (columns 2t, 2t + 1 of rows g, g + 8) as the A
+// fragment of the next product's k-step (columns t and t + 4).
+__device__ __forceinline__ void acc_as_a(const float (&c)[4], uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  split(c[0], hi[0], lo[0]);
+  split(c[2], hi[1], lo[1]);
+  split(c[1], hi[2], lo[2]);
+  split(c[3], hi[3], lo[3]);
+}
+
+// acc[2p + e] += A B for the k-step whose B rows are `r` and `r + LD` of a
+// tile (float2 loads at columns 16p + 2g: e = 0, 1).
+template <int D>
+__device__ __forceinline__ void mma_rows(float (&acc)[D / 8][4], const uint32_t (&ah)[4],
+                                         const uint32_t (&al)[4], const float* r) {
+#pragma unroll
+  for (int p = 0; p < D / 16; ++p) {
+    const float2 b0 = ld2(r + 16 * p), b1 = ld2(r + ld<D>() + 16 * p);
+    mma3(acc[2 * p], ah, al, b0.x, b1.x);
+    mma3(acc[2 * p + 1], ah, al, b0.y, b1.y);
+  }
+}
+
+// The accumulators' rows g and g + 8 (n-tiles 2p, 2p + 1 of each 16-column
+// pair) times `mul` into rows ra and rb (-1: none) of a [*, D] matrix, as
+// float4 stores at columns 16p + 4t.
+template <int D>
+__device__ __forceinline__ void store_rows(float* dst, long ra, long rb, const float (&acc)[D / 8][4],
+                                           float mul, int t) {
+#pragma unroll
+  for (int p = 0; p < D / 16; ++p) {
+    const int c = 16 * p + 4 * t;
+    if (ra >= 0)
+      *reinterpret_cast<float4*>(dst + ra * D + c) =
+          make_float4(acc[2 * p][0] * mul, acc[2 * p + 1][0] * mul, acc[2 * p][1] * mul,
+                      acc[2 * p + 1][1] * mul);
+    if (rb >= 0)
+      *reinterpret_cast<float4*>(dst + rb * D + c) =
+          make_float4(acc[2 * p][2] * mul, acc[2 * p + 1][2] * mul, acc[2 * p][3] * mul,
+                      acc[2 * p + 1][3] * mul);
+  }
+}
+
+// A fragments of rows ra and rb (-1: a zero row) of a [*, D] matrix, times
+// `mul`, in kcol's column order.
+template <int D>
+__device__ __forceinline__ void load_a(float (&f)[D / 8][4], const float* src, long ra, long rb,
+                                       float mul, int t) {
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+    const int c = kcol<D>(kk, t);
+    const float2 x = ra >= 0 ? ld2(src + ra * D + c) : make_float2(0.f, 0.f);
+    const float2 y = rb >= 0 ? ld2(src + rb * D + c) : make_float2(0.f, 0.f);
+    f[kk][0] = x.x * mul;
+    f[kk][1] = y.x * mul;
+    f[kk][2] = x.y * mul;
+    f[kk][3] = y.y * mul;
+  }
+}
+
+// The A fragments of operand `op` (0 or 1) over the head dim, rows ra and
+// rb of `src` times `mul`, split into hi and lo once and kept in shared
+// memory: each thread's own 16-byte words (`own` = the A words +
+// threadIdx.x; it alone writes and reads them, so no barrier), a word per
+// k-step and half, lane after lane.
+template <int D>
+__device__ __forceinline__ void put_a(uint4* own, int op, const float* src, long ra, long rb,
+                                      float mul, int t) {
+  float a[D / 8][4];
+  load_a<D>(a, src, ra, rb, mul, t);
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+    uint32_t hi[4], lo[4];
+    split4(a[kk], hi, lo);
+    own[(op * (D / 8) + kk) * 2 * THREADS] = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+    own[((op * (D / 8) + kk) * 2 + 1) * THREADS] = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void get_a(const uint4* own, int op, int kk, uint32_t (&hi)[4],
+                                      uint32_t (&lo)[4]) {
+  const uint4 h = own[(op * (D / 8) + kk) * 2 * THREADS];
+  const uint4 l = own[((op * (D / 8) + kk) * 2 + 1) * THREADS];
+  hi[0] = h.x, hi[1] = h.y, hi[2] = h.z, hi[3] = h.w;
+  lo[0] = l.x, lo[1] = l.y, lo[2] = l.z, lo[3] = l.w;
+}
+
+// Rows [r0, r0 + R) of a row-major [*, D] matrix (gathered through `idx`
+// when it is not null) into an R x ld<D>() tile by cp.async; rows from
+// `count` on are zero filled.
+template <int D, int R>
+__device__ __forceinline__ void copy_rows(float* dst, const float* src, int r0, int count,
+                                          const int* idx) {
   constexpr int CH = D / 4;  // 16-byte chunks of a row
-  for (int i = threadIdx.x; i < T * CH; i += THREADS) {
+#pragma unroll
+  for (int it = 0; it < (R * CH + THREADS - 1) / THREADS; ++it) {
+    const int i = threadIdx.x + it * THREADS;
+    if (R * CH % THREADS && i >= R * CH) break;
     const int r = i / CH, c = i % CH;
     const int p = r0 + r;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (p < count) {
-      const long row = idx ? idx[p] : p;
-      x = *reinterpret_cast<const float4*>(src + row * D + c * 4);
-    }
-    float* d = dst + r * ld<D>() + c * 4;
-    d[0] = x.x;
-    d[1] = x.y;
-    d[2] = x.z;
-    d[3] = x.w;
-  }
-}
-
-// acc[r][c] = sum_{k < D} a[(ty + 16 r) * (D + 1) + k] * b[(tx + 16 c) * (D + 1) + k]:
-// the thread's 4 x 4 tile of A B^T for two T x (D + 1) tiles.
-template <int D>
-__device__ __forceinline__ void tile_abt(float (&acc)[4][4], const float* __restrict__ a,
-                                         const float* __restrict__ b) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
-#pragma unroll 8
-  for (int k = 0; k < D; ++k) {
-    float x[4], y[4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) x[r] = a[(ty + 16 * r) * ld<D>() + k];
-#pragma unroll
-    for (int c = 0; c < 4; ++c) y[c] = b[(tx + 16 * c) * ld<D>() + k];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(x[r], y[c], acc[r][c]);
-  }
-}
-
-// acc[r][c] += sum_{i < T} a[i * LDP + ty + 16 r] * b[i * (D + 1) + tx + 16 c]:
-// the thread's 4 x D/16 tile of A^T B, A a T x T tile (stride LDP) and B a
-// T x (D + 1) tile, both with the summed index as rows.
-template <int D>
-__device__ __forceinline__ void tile_atb(float (&acc)[4][D / 16], const float* __restrict__ a,
-                                         const float* __restrict__ b) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll 4
-  for (int i = 0; i < T; ++i) {
-    float x[4], y[D / 16];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) x[r] = a[i * LDP + ty + 16 * r];
-#pragma unroll
-    for (int c = 0; c < D / 16; ++c) y[c] = b[i * ld<D>() + tx + 16 * c];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < D / 16; ++c) acc[r][c] = fmaf(x[r], y[c], acc[r][c]);
+    const bool in = p < count;
+    const long row = in ? (idx ? idx[p] : p) : 0;
+    cp_async16(dst + r * ld<D>() + c * 4, src + row * D + c * 4, in);
   }
 }
 
@@ -152,117 +244,161 @@ __device__ __forceinline__ int walked_keys(const unsigned char* mrow, int n, voi
 }
 
 template <int D>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 2)
 attention_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                         const float* __restrict__ v, const float* __restrict__ o,
                         const float* __restrict__ dout, const float* __restrict__ lse,
                         const unsigned char* __restrict__ key_mask,
                         float* __restrict__ delta, float* __restrict__ dq,
                         int heads, int n, float qscale, float scale) {
-  extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);  // [T][D + 1] each
-  float* dos = qs + T * ld<D>();
-  float* ks = dos + T * ld<D>();
-  float* vs = ks + T * ld<D>();
-  float* dst = vs + T * ld<D>();  // dS^T: [key][query], stride LDP
-  float* dl = dst + T * LDP;      // Delta of the block's rows
-  float* ls = dl + T;             // lse of the block's rows
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int tx = tid & 15, ty = tid >> 4;
-  const long g = blockIdx.y;
-  const long base = g * n * D;
-  const int i0 = blockIdx.x * T;
-  const unsigned char* mrow = key_mask ? key_mask + (g / heads) * n : nullptr;
+  constexpr int LD = ld<D>();
+  constexpr int KS = D / 8;   // k-steps of S and dP
+  constexpr int NT = BK / 8;  // 8-key column tiles of S, k-steps of dS K
 
-  // Delta_i = rowsum(dO_i * O_i), a warp per row
-  for (int r = warp; r < T; r += WARPS) {
-    const int i = i0 + r;
-    float s = 0.f;
-    if (i < n)
-      for (int d = lane; d < D; d += 32)
-        s = fmaf(dout[base + static_cast<long>(i) * D + d], o[base + static_cast<long>(i) * D + d], s);
-#pragma unroll
-    for (int off = 16; off; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-    if (lane == 0) {
-      dl[r] = s;
-      ls[r] = i < n ? lse[g * n + i] : 0.f;
-      if (i < n) delta[g * n + i] = s;
-    }
-  }
+  extern __shared__ uint4 smem[];
+  float* ks = reinterpret_cast<float*>(smem + a_words<D>());  // [2][BK][LD]
+  float* vs = ks + 2 * BK * LD;                               // [2][BK][LD]
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const long gi = blockIdx.y;
+  const long base = gi * n * D;
+  const unsigned char* mrow = key_mask ? key_mask + (gi / heads) * n : nullptr;
+
   const int* kept;
   bool all_masked;
-  const int count = walked_keys(mrow, n, ls + T, &kept, &all_masked);
+  const int count = walked_keys(mrow, n, vs + 2 * BK * LD, &kept, &all_masked);
 
-  float acc[4][D / 16];
+  // the warp's rows g and g + 8 (-1 past the last row)
+  const int i_a = blockIdx.x * BM + warp * 16 + g, i_b = i_a + 8;
+  const long ra = i_a < n ? i_a : -1, rb = i_b < n ? i_b : -1;
+  uint4* own = smem + threadIdx.x;  // A operands 0: Q (scaled), 1: dO
+  put_a<D>(own, 0, q + base, ra, rb, qscale, t);
+  put_a<D>(own, 1, dout + base, ra, rb, 1.f, t);
+  // Delta of rows g and g + 8: this thread's columns, then the quad's
+  float d0 = 0.f, d1 = 0.f;
+  {
+    float df[KS][4], of[KS][4];
+    load_a<D>(df, dout + base, ra, rb, 1.f, t);
+    load_a<D>(of, o + base, ra, rb, 1.f, t);
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < D / 16; ++c) acc[r][c] = 0.f;
-
-  if (!all_masked) {  // (a row that keeps no key: every dS is 0, so dq = 0)
-    load_rows<D>(qs, q + base, i0, n, nullptr);
-    load_rows<D>(dos, dout + base, i0, n, nullptr);
-    for (int j0 = 0; j0 < count; j0 += T) {
-      __syncthreads();  // the previous tile's K, V and dS^T are read
-      load_rows<D>(ks, k + base, j0, count, kept);
-      load_rows<D>(vs, v + base, j0, count, kept);
-      __syncthreads();
-      float s[4][4], dp[4][4];
-      tile_abt<D>(s, qs, ks);    // rows: queries ty + 16 r, columns: keys tx + 16 c
-      tile_abt<D>(dp, dos, vs);
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int row = ty + 16 * r;
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int col = tx + 16 * c;
-          const float p = j0 + col < count ? exp2f(fmaf(s[r][c], qscale, -ls[row])) : 0.f;
-          dst[col * LDP + row] = p * (dp[r][c] - dl[row]);
-        }
-      }
-      __syncthreads();
-      tile_atb<D>(acc, dst, ks);  // dq += dS K
+    for (int kk = 0; kk < KS; ++kk) {
+      d0 = fmaf(df[kk][0], of[kk][0], fmaf(df[kk][2], of[kk][2], d0));
+      d1 = fmaf(df[kk][1], of[kk][1], fmaf(df[kk][3], of[kk][3], d1));
     }
   }
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int i = i0 + ty + 16 * r;
-    if (i < n)
-#pragma unroll
-      for (int c = 0; c < D / 16; ++c)
-        dq[base + static_cast<long>(i) * D + tx + 16 * c] = acc[r][c] * scale;
+  d0 = quad_sum(d0);
+  d1 = quad_sum(d1);
+  if (t == 0) {
+    if (ra >= 0) delta[gi * n + ra] = d0;
+    if (rb >= 0) delta[gi * n + rb] = d1;
   }
+  const float l0 = ra >= 0 ? lse[gi * n + ra] : 0.f, l1 = rb >= 0 ? lse[gi * n + rb] : 0.f;
+
+  float acc[D / 8][4];  // dq: n-tiles 2p, 2p + 1 of each 16-column pair
+#pragma unroll
+  for (int c = 0; c < D / 8; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[c][e] = 0.f;
+
+  if (!all_masked) {  // (a row that keeps no key: every dS is 0, so dq = 0)
+    auto load_tile = [&](int tile, int buf) {
+      copy_rows<D, BK>(ks + buf * BK * LD, k + base, tile * BK, count, kept);
+      copy_rows<D, BK>(vs + buf * BK * LD, v + base, tile * BK, count, kept);
+      cp_async_commit();
+    };
+    const int ntiles = (count + BK - 1) / BK;
+    load_tile(0, 0);
+    for (int tile = 0; tile < ntiles; ++tile) {
+      const int buf = tile & 1;
+      if (tile + 1 < ntiles) {
+        load_tile(tile + 1, buf ^ 1);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      const float* kt = ks + buf * BK * LD;
+      const float* vt = vs + buf * BK * LD;
+
+      // S = Q K^T (log2 units) and dP = dO V^T
+      float s[NT][4], dp[NT][4];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        uint32_t qh[4], ql[4], dh[4], dl[4];
+        get_a<D>(own, 0, kk, qh, ql);
+        get_a<D>(own, 1, kk, dh, dl);
+        const int c = kcol<D>(kk, t);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const float2 b = ld2(kt + (nt * 8 + g) * LD + c);
+          mma3(s[nt], qh, ql, b.x, b.y);
+          const float2 e = ld2(vt + (nt * 8 + g) * LD + c);
+          mma3(dp[nt], dh, dl, e.x, e.y);
+        }
+      }
+
+      // P = exp2(S - lse), 0 past the last walked key; dS = P (dP - Delta)
+      const int lim = count - tile * BK;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          float p0 = exp2f(s[nt][c] - l0), p1 = exp2f(s[nt][2 + c] - l1);
+          if (lim < BK && nt * 8 + 2 * t + c >= lim) p0 = p1 = 0.f;
+          s[nt][c] = p0 * (dp[nt][c] - d0);
+          s[nt][2 + c] = p1 * (dp[nt][2 + c] - d1);
+        }
+      }
+
+      // dq += dS K: k-step nt is S's column tile nt, keys 2t and 2t + 1
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        uint32_t ah[4], al[4];
+        acc_as_a(s[nt], ah, al);
+        mma_rows<D>(acc, ah, al, kt + (nt * 8 + 2 * t) * LD + 2 * g);
+      }
+      __syncthreads();  // the next iteration refills this buffer
+    }
+  }
+  store_rows<D>(dq + base, ra, rb, acc, scale, t);
 }
 
 template <int D>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 2)
 attention_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                           const float* __restrict__ v, const float* __restrict__ dout,
                           const float* __restrict__ lse, const unsigned char* __restrict__ key_mask,
                           const float* __restrict__ delta, float* __restrict__ dk,
                           float* __restrict__ dv, int heads, int n, float qscale, float scale) {
-  extern __shared__ float4 smem4[];
-  float* ks = reinterpret_cast<float*>(smem4);  // [T][D + 1] each
-  float* vs = ks + T * ld<D>();
-  float* qs = vs + T * ld<D>();
-  float* dos = qs + T * ld<D>();
-  float* ps = dos + T * ld<D>();  // P: [query][key], stride LDP
-  float* dss = ps + T * LDP;      // dS: [query][key]
-  float* dl = dss + T * LDP;      // Delta of the query tile's rows
-  float* ls = dl + T;             // lse of the query tile's rows
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-  const long g = blockIdx.y;
-  const long base = g * n * D;
-  const int j0 = blockIdx.x * T;  // the block's first position in the walked keys
-  const unsigned char* mrow = key_mask ? key_mask + (g / heads) * n : nullptr;
+  constexpr int BQ = dkdv_tile<D>();
+  constexpr int LD = ld<D>();
+  constexpr int KS = D / 8;   // k-steps of S^T and dP^T
+  constexpr int NT = BQ / 8;  // 8-query column tiles of S^T, k-steps of P^T dO and dS^T Q
+
+  extern __shared__ uint4 smem[];
+  float* qs = reinterpret_cast<float*>(smem + a_words<D>());  // [2][BQ][LD]
+  float* dos = qs + 2 * BQ * LD;                              // [2][BQ][LD]
+  float* ls = dos + 2 * BQ * LD;  // [2][BQ]: lse of the tile's rows
+  float* dls = ls + 2 * BQ;       // [2][BQ]: Delta of the tile's rows
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const long gi = blockIdx.y;
+  const long base = gi * n * D;
+  const int j0 = blockIdx.x * BM;  // the block's first position in the walked keys
+  const unsigned char* mrow = key_mask ? key_mask + (gi / heads) * n : nullptr;
 
   const int* kept;
   bool all_masked;
-  const int count = walked_keys(mrow, n, ls + T, &kept, &all_masked);
+  const int count = walked_keys(mrow, n, dls + 2 * BQ, &kept, &all_masked);
 
-  if (mrow && !all_masked) {  // masked keys among positions [j0, j0 + T): zero rows
-    for (int i = tid; i < T * D; i += THREADS) {
+  if (mrow && !all_masked) {  // masked keys among positions [j0, j0 + BM): zero rows
+    for (int i = tid; i < BM * D; i += THREADS) {
       const int p = j0 + i / D;
       if (p < n && !mrow[p]) {
         dk[base + static_cast<long>(p) * D + i % D] = 0.f;
@@ -284,7 +420,7 @@ attention_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__
       qs[THREADS + tid] = tot / static_cast<float>(n);
     }
     __syncthreads();
-    for (int i = tid; i < T * D; i += THREADS) {
+    for (int i = tid; i < BM * D; i += THREADS) {
       const int p = j0 + i / D;
       if (p < n) {
         dk[base + static_cast<long>(p) * D + i % D] = 0.f;
@@ -295,55 +431,100 @@ attention_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__
   }
   if (j0 >= count) return;
 
-  load_rows<D>(ks, k + base, j0, count, kept);
-  load_rows<D>(vs, v + base, j0, count, kept);
-  float dka[4][D / 16], dva[4][D / 16];
+  // the warp's keys g and g + 8 (-1 past the last walked key)
+  const int j_a = j0 + warp * 16 + g, j_b = j_a + 8;
+  const long ka = j_a < count ? (kept ? kept[j_a] : j_a) : -1;
+  const long kb = j_b < count ? (kept ? kept[j_b] : j_b) : -1;
+  uint4* own = smem + tid;  // A operands 0: K (scaled), 1: V
+  put_a<D>(own, 0, k + base, ka, kb, qscale, t);
+  put_a<D>(own, 1, v + base, ka, kb, 1.f, t);
+  float dka[D / 8][4], dva[D / 8][4];
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
+  for (int c = 0; c < D / 8; ++c)
 #pragma unroll
-    for (int c = 0; c < D / 16; ++c) dka[r][c] = dva[r][c] = 0.f;
+    for (int e = 0; e < 4; ++e) dka[c][e] = dva[c][e] = 0.f;
 
-  for (int i0 = 0; i0 < n; i0 += T) {
-    __syncthreads();  // the previous tile's Q, dO, P and dS are read
-    load_rows<D>(qs, q + base, i0, n, nullptr);
-    load_rows<D>(dos, dout + base, i0, n, nullptr);
-    if (tid < T) {
-      const int i = i0 + tid;
-      ls[tid] = i < n ? lse[g * n + i] : 0.f;
-      dl[tid] = i < n ? delta[g * n + i] : 0.f;
+  auto load_tile = [&](int tile, int buf) {
+    const int i0 = tile * BQ;
+    copy_rows<D, BQ>(qs + buf * BQ * LD, q + base, i0, n, nullptr);
+    copy_rows<D, BQ>(dos + buf * BQ * LD, dout + base, i0, n, nullptr);
+    static_assert(2 * BQ <= THREADS, "one round of lse and Delta copies");
+    if (tid < 2 * BQ) {
+      const int r = tid % BQ;
+      const bool in = i0 + r < n;
+      const long at = gi * n + (in ? i0 + r : 0);
+      cp_async4((tid < BQ ? ls : dls) + buf * BQ + r, (tid < BQ ? lse : delta) + at, in);
+    }
+    cp_async_commit();
+  };
+  const int ntiles = (n + BQ - 1) / BQ;
+  load_tile(0, 0);
+  for (int tile = 0; tile < ntiles; ++tile) {
+    const int buf = tile & 1;
+    if (tile + 1 < ntiles) {
+      load_tile(tile + 1, buf ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
-    float s[4][4], dp[4][4];
-    tile_abt<D>(s, ks, qs);    // rows: keys ty + 16 r, columns: queries tx + 16 c
-    tile_abt<D>(dp, vs, dos);
+    const float* qt = qs + buf * BQ * LD;
+    const float* dt = dos + buf * BQ * LD;
+
+    // S^T = K Q^T (log2 units) and dP^T = V dO^T: rows keys, columns queries
+    float s[NT][4], dp[NT][4];
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int key = ty + 16 * r;
+    for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int row = tx + 16 * c;
-        const float p = (i0 + row < n && j0 + key < count)
-                            ? exp2f(fmaf(s[r][c], qscale, -ls[row])) : 0.f;
-        ps[row * LDP + key] = p;
-        dss[row * LDP + key] = p * (dp[r][c] - dl[row]);
+      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t kh[4], kl[4], vh[4], vl[4];
+      get_a<D>(own, 0, kk, kh, kl);
+      get_a<D>(own, 1, kk, vh, vl);
+      const int c = kcol<D>(kk, t);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const float2 b = ld2(qt + (nt * 8 + g) * LD + c);
+        mma3(s[nt], kh, kl, b.x, b.y);
+        const float2 e = ld2(dt + (nt * 8 + g) * LD + c);
+        mma3(dp[nt], vh, vl, e.x, e.y);
       }
     }
-    __syncthreads();
-    tile_atb<D>(dva, ps, dos);  // dv += P^T dO
-    tile_atb<D>(dka, dss, qs);  // dk += dS^T Q
-  }
+
+    // P^T = exp2(S^T - lse of the column), 0 past the last query row;
+    // dS^T = P^T (dP^T - Delta of the column)
+    const int lim = n - tile * BQ;
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int j = j0 + ty + 16 * r;
-    if (j < count) {
-      const long key = kept ? kept[j] : j;
+    for (int nt = 0; nt < NT; ++nt) {
+      const float2 lc = ld2(ls + buf * BQ + nt * 8 + 2 * t);
+      const float2 dc = ld2(dls + buf * BQ + nt * 8 + 2 * t);
 #pragma unroll
-      for (int c = 0; c < D / 16; ++c) {
-        dk[base + key * D + tx + 16 * c] = dka[r][c] * scale;
-        dv[base + key * D + tx + 16 * c] = dva[r][c];
+      for (int c = 0; c < 2; ++c) {
+        const float l = c ? lc.y : lc.x, dl = c ? dc.y : dc.x;
+        float p0 = exp2f(s[nt][c] - l), p1 = exp2f(s[nt][2 + c] - l);
+        if (lim < BQ && nt * 8 + 2 * t + c >= lim) p0 = p1 = 0.f;
+        s[nt][c] = p0;
+        s[nt][2 + c] = p1;
+        dp[nt][c] = p0 * (dp[nt][c] - dl);
+        dp[nt][2 + c] = p1 * (dp[nt][2 + c] - dl);
       }
     }
+
+    // dv += P^T dO and dk += dS^T Q: k-step nt is S^T's column tile nt,
+    // query rows 2t and 2t + 1
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      uint32_t ah[4], al[4];
+      acc_as_a(s[nt], ah, al);
+      mma_rows<D>(dva, ah, al, dt + (nt * 8 + 2 * t) * LD + 2 * g);
+      acc_as_a(dp[nt], ah, al);
+      mma_rows<D>(dka, ah, al, qt + (nt * 8 + 2 * t) * LD + 2 * g);
+    }
+    __syncthreads();  // the next iteration refills this buffer
   }
+  store_rows<D>(dk + base, ka, kb, dka, scale, t);
+  store_rows<D>(dv + base, ka, kb, dva, 1.f, t);
 }
 
 template <int D>
@@ -351,9 +532,6 @@ size_t smem_bytes(bool dkdv, bool masked, int n) {
   return tiles_bytes<D>(dkdv) + (masked ? kept_list_bytes(n) : 0);
 }
 
-// Lets both kernels take all the shared memory a block may have on the
-// current device, set once per device (always the same values, so threads
-// racing here do no harm).
 template <int D>
 cudaError_t launch(const float* q, const float* k, const float* v, const float* o,
                    const float* dout, const float* lse, const unsigned char* key_mask,
@@ -362,7 +540,7 @@ cudaError_t launch(const float* q, const float* k, const float* v, const float* 
   // both passes may take all the shared memory a block may have (max_smem.cuh)
   cudaError_t err = allow_max_smem<D>(attention_bwd_dq_kernel<D>, attention_bwd_dkdv_kernel<D>);
   if (err != cudaSuccess) return err;
-  const dim3 grid((n + T - 1) / T, groups);
+  const dim3 grid((n + BM - 1) / BM, groups);
   const bool masked = key_mask != nullptr;
   attention_bwd_dq_kernel<D><<<grid, THREADS, smem_bytes<D>(false, masked, n), stream>>>(
       q, k, v, o, dout, lse, key_mask, delta, dq, heads, n, qscale, scale);

@@ -8,8 +8,8 @@ raises: with no gradient wanted, the forward (``csrc/attention.cu``: a
 flash-attention forward on the tensor cores in 3xTF32); when q, k or v
 require grad, the autograd Function ``_Attention``, whose forward is that
 kernel (it also writes each row's log-sum-exp) and whose backward is
-``csrc/attention_bwd.cu`` (fp32, the softmax weights recomputed, never
-stored).
+``csrc/attention_bwd.cu`` (a dq pass and a dk/dv pass, each on the tensor
+cores in 3xTF32; the softmax weights recomputed, never stored).
 """
 
 from __future__ import annotations
@@ -157,8 +157,8 @@ def attention(
     its backward when q, k or v require grad), which walks only the keys a
     masked row keeps. Its blocks list those keys in shared memory, 4 bytes a
     key, so a mask over more than about 37,000 keys (head dim 64; fewer in
-    the backward, whose tiles are larger: about 30,000) does not fit and
-    raises."""
+    the backward, whose A operands and tiles take more: 30,956) does not fit
+    and raises."""
     _check(q, k, v, mask)
     if not kernels.uses_kernel(q):
         return attention_plain(q, k, v, scale=scale, mask=mask)

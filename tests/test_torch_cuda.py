@@ -230,6 +230,21 @@ def test_attention_bwd_kernel_resources(dev):
     assert info["dq"]["local_bytes"] == 0 and info["dkdv"]["local_bytes"] == 0, info
 
 
+def test_attention_bwd_kernel_long_mask(dev, gen):
+    """The backward under the forward's 8,200-key mask: the kept-key list
+    beside the A operands and tiles in shared memory; row 0 keeps the first
+    and last keys, row 1 keeps none."""
+    n, d = 8200, 16
+    q, k, v, dout = (torch.randn(2, 1, n, d, generator=gen).to(dev) for _ in range(4))
+    mask = torch.zeros(2, n, dtype=torch.bool)
+    mask[0, [0, n - 1]] = True
+    mask = mask.to(dev)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    cuda_attention.attention(*leaves, scale=d**-0.5, mask=mask).backward(dout)
+    ref = cuda_attention.attention_bwd_plain(q, k, v, dout, scale=d**-0.5, mask=mask)
+    assert _rel_err([t.grad for t in leaves], ref) < TOL_BWD
+
+
 class _Capture:
     """Stands in for the optimizer: keeps the gradients it is handed."""
 
