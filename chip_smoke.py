@@ -43,7 +43,21 @@ which raises on failure:
    masked) and with no mask. Then the slice's audio-seconds per second at
    batch 32 x 3 s, and each kernel's device time per launch in one
    profiled batch.
-8. training (its wall time printed):
+8. offline (its wall time printed): the 28M serving recipe with seeded
+   weights and seeded non-trivial BatchNorm statistics, written with the
+   port's checkpoint writer; 64 synthetic PCM16 pairs of 1-6 s at -5 to
+   15 dB and one of 10 s (longer than the largest bucket: streaming). The
+   enhance CLI on cuda over the directory, plain and with ``--fold-bn``:
+   every file written at its input's length, finite, folded within
+   ``TOL_WAVE`` of plain, K1, K2 and K3 launched and K2's backward not.
+   The evaluate CLI on cuda (batch 32, 2 metric workers): 65 rows with
+   finite SI-SDR, STOI and PESQ; the same CLI on cpu over the first 4
+   files scores each within the evaluator tests' tolerances of cuda's.
+   Then the same batches swept twice, through ``enhance_batch_async``
+   with two batches in flight and through the blocking
+   ``enhance_batch``, at batch 8 and 32: wall time, audio-seconds per
+   second and the pipelined sweep's device busy share (profiler).
+9. training (its wall time printed):
    a. K2's backward (``csrc/attention_bwd.cu``: a dq pass and a dk/dv
       pass, each on the tensor cores in 3xTF32 as the forward; through the
       autograd Function around K2) against autograd through the plain
@@ -76,7 +90,9 @@ which raises on failure:
       step split by operator.
 
 Prints, on its last three lines: the card's ``nvidia-smi`` name and power
-limit, a JSON line of per-kernel results, and the result JSON.
+limit, a JSON line of per-kernel results (``launches`` in the phase 5
+batch, ``offline_launches`` in the phase 8 evaluate run,
+``train_launches`` in the phase 9 train steps), and the result JSON.
 """
 
 from __future__ import annotations
@@ -147,6 +163,10 @@ TOL_STEP_PARAM_ULPS = 8
 SERVING = ("stft_mag", "attention_fwd", "istft_polar")  # the kernels each path runs
 TRAINING = ("stft_mag", "attention_fwd", "attention_bwd")
 TRAIN_BATCH, TRAIN_LR, TRAIN_STEPS = 16, 1e-4, 5
+# the evaluator tests' tolerances on a metric of two enhanced waveforms
+# within the port's limits (tests/test_torch_evaluator.py)
+TOL_METRIC = {"si_sdr": 1e-4, "snr": 1e-4, "seg_snr": 1e-4, "stoi": 1e-5, "pesq": 1e-5,
+              "lsd": 2e-2, "lsd_db": 0.2}
 # the README's recipe with attention dropout 0, so that attention runs through K2
 RECIPE = {"model": {"output_mode": "mask", "head": "fullres_mask",
                     "transformer": {"pos_embed": "factored_2d", "attention_dropout": 0.0}}}
@@ -406,8 +426,204 @@ def check_step(errs: dict) -> None:
         raise AssertionError("a train step on cuda differs from the same step on cpu")
 
 
+def sweep(enhancer, batches, in_flight: int) -> None:
+    """Enhance ``batches`` (lists of waveforms) and trim every row to its
+    clip: through ``enhance_batch_async`` with ``in_flight`` batches
+    dispatched ahead of the one being read, or, at 0, through the blocking
+    ``enhance_batch``."""
+    if not in_flight:
+        for b in batches:
+            enhancer.enhance_batch(b)
+        return
+
+    def take(wavs, batch) -> list:
+        out = batch.result()
+        return [out[i, : len(w)].copy() for i, w in enumerate(wavs)]
+
+    pending = []
+    for b in batches:
+        pending.append((b, enhancer.enhance_batch_async(b)))
+        if len(pending) > in_flight:
+            take(*pending.pop(0))
+    for wavs, batch in pending:
+        take(wavs, batch)
+
+
+def offline(dev: torch.device, smi: str, rng: np.random.Generator) -> dict:
+    """Phase 8. Returns every kernel's launches in the evaluate CLI's cuda
+    run."""
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.cli.enhance import (
+        main as enhance_cli,
+    )
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.cli.evaluate import (
+        main as evaluate_cli,
+    )
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.data.wavio import (
+        load_audio, save_wav, wav_info,
+    )
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.inference import (
+        AudioEnhancer, load_model_for_inference,
+    )
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.models import (
+        create_hybrid_vit, init_weights,
+    )
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.ops import kernels
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.utils.checkpoint import (
+        save_checkpoint,
+    )
+
+    phase("offline: enhance and evaluate at full width")
+    t_phase = time.perf_counter()
+
+    def counts() -> dict[str, int]:
+        torch.cuda.synchronize()
+        return {name: k.launches for name, k in kernels.KERNELS.items()}
+
+    def check_path(launches: dict, what: str) -> None:
+        if min(launches[n] for n in SERVING) < 1 or launches["attention_bwd"]:
+            raise AssertionError(f"{what}: a kernel of the path did not run, or a backward "
+                                 f"did: {launches}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # 1. the 28M serving recipe, BatchNorm made non-trivial (at init the
+        # fold would be nearly the identity)
+        config = {"model": {"output_mode": "mask", "head": "fullres_mask",
+                            "transformer": {"pos_embed": "factored_2d"}}}
+        model = init_weights(create_hybrid_vit(config), torch.Generator().manual_seed(0))
+        with torch.no_grad():
+            for mod in model.modules():
+                if isinstance(mod, torch.nn.BatchNorm2d):
+                    n = mod.num_features
+                    mod.weight.copy_(torch.from_numpy(rng.uniform(0.5, 1.5, n)))
+                    mod.bias.copy_(torch.from_numpy(rng.normal(0.0, 0.3, n)))
+                    mod.running_mean.copy_(torch.from_numpy(rng.normal(0.0, 0.5, n)))
+                    mod.running_var.copy_(torch.from_numpy(rng.uniform(0.2, 3.0, n)))
+        ckpt = save_checkpoint(tmp / "ckpt", model, config=config)
+        del model
+        # 2. 64 pairs of 1-6 s and one of 10 s, PCM16, noise at -5 to 15 dB
+        seconds = list(rng.uniform(1.0, 6.0, 64)) + [10.0]
+        for i, sec in enumerate(seconds):
+            clean = speechlike(int(sec * SR), rng)
+            noise = rng.standard_normal(len(clean)).astype(np.float32)
+            gain = np.sqrt(np.mean(clean**2) / np.mean(noise**2) / 10 ** (rng.uniform(-5, 15) / 10))
+            save_wav(tmp / "clean" / f"p{i:03d}.wav", clean, SR)
+            save_wav(tmp / "noisy" / f"p{i:03d}.wav", np.clip(clean + gain * noise, -1, 1), SR)
+        names = sorted(p.name for p in (tmp / "noisy").glob("*.wav"))
+        audio_s = sum(wav_info(tmp / "noisy" / n)[0] for n in names) / SR
+        common = ["--checkpoint", str(ckpt), "--config-dir", str(tmp / "no_config")]
+
+        # 3. the enhance CLI over the directory, plain and folded
+        outs, enhance_s = {}, {}
+        for mode, extra in (("plain", []), ("folded", ["--fold-bn"])):
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            rc = enhance_cli(common + ["--device", "cuda", "--input", str(tmp / "noisy"),
+                                       "--output", str(tmp / mode), "--batch-size", "32",
+                                       "--mask-padding"] + extra)
+            enhance_s[mode] = time.perf_counter() - t0
+            launches = counts()
+            check_path(launches, f"enhance CLI ({mode})")
+            outs[mode] = {}
+            for n in names:
+                y = load_audio(tmp / mode / n, SR)[0]
+                if rc or len(y) != wav_info(tmp / "noisy" / n)[0] or not np.isfinite(y).all():
+                    raise AssertionError(f"enhance CLI ({mode}): exit {rc}, {n} malformed")
+                outs[mode][n] = y
+            print(f"enhance CLI ({mode}): {len(names)} files, {audio_s:.1f} audio-s in "
+                  f"{enhance_s[mode]:.2f} s (model load and kernel use included), launches "
+                  f"{launches}; {smi}", flush=True)
+        fold_err = max(float(np.abs(outs["folded"][n] - outs["plain"][n]).max()) for n in names)
+        print(f"enhance CLI folded vs plain: max abs err {fold_err:.3g} over {len(names)} PCM16 "
+              f"files (tolerance {TOL_WAVE})", flush=True)
+        if fold_err > TOL_WAVE:
+            raise AssertionError("the folded model's output differs from the plain model's")
+
+        # 4. the evaluate CLI on cuda, then on cpu over the first 4 files
+        results = {}
+        offline_launches = None
+        for device, extra in (("cuda", ["--batch-size", "32", "--metric-workers", "2"]),
+                              ("cpu", ["--batch-size", "32", "--metric-workers", "0",
+                                       "--max-files", "4"])):
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            rc = evaluate_cli(common + ["--device", device, "--noisy-dir", str(tmp / "noisy"),
+                                        "--clean-dir", str(tmp / "clean"), "--mask-padding",
+                                        "--output", str(tmp / f"eval_{device}.json")] + extra)
+            wall = time.perf_counter() - t0
+            if device == "cuda":
+                offline_launches = counts()
+                check_path(offline_launches, "evaluate CLI")
+            results[device] = json.loads((tmp / f"eval_{device}.json").read_text())
+            meta = results[device]["summary"]["_meta"]
+            print(f"evaluate CLI on {device}: exit {rc}, {len(results[device]['per_file'])} "
+                  f"files in {wall:.2f} s; its own sweep {meta['audio_seconds_per_second']:.1f} "
+                  f"audio-s/s ({meta['audio_seconds']:.1f} audio-s in {meta['wall_seconds']:.2f} "
+                  f"s, {meta['metric_workers']:g} metric workers, PESQ {meta['pesq_impl']}); "
+                  f"{smi}", flush=True)
+            if rc:
+                raise AssertionError(f"the evaluate CLI on {device} exited {rc}")
+        rows = results["cuda"]["per_file"]
+        if sorted(rows) != names or not all(np.isfinite(r[k]) for r in rows.values()
+                                            for k in ("si_sdr", "stoi", "pesq")):
+            raise AssertionError("the evaluate CLI's rows are missing or not finite")
+        summary = results["cuda"]["summary"]
+        print("evaluate summary (cuda): " + ", ".join(
+            f"{k} {summary[k]['mean']:.4f}" for k in ("si_sdr", "si_sdr_improvement", "stoi",
+                                                     "pesq", "lsd")), flush=True)
+        worst = {}
+        for n, row in results["cpu"]["per_file"].items():
+            for k, v in row.items():
+                key = k.replace("noisy_", "").replace("_improvement", "")
+                worst[k] = max(worst.get(k, 0.0), abs(v - rows[n][k]))
+                if abs(v - rows[n][k]) > TOL_METRIC[key]:
+                    raise AssertionError(f"{n} {k}: cpu {v} vs cuda {rows[n][k]}")
+        print(f"evaluate cpu vs cuda over {len(results['cpu']['per_file'])} files, max abs "
+              f"difference per metric {({k: float(f'{v:.3g}') for k, v in worst.items()})} "
+              f"(tolerances {TOL_METRIC})", flush=True)
+
+        # 5. the same batches swept with two in flight and one at a time
+        model, cfg = load_model_for_inference(ckpt, device=dev)
+        enhancer = AudioEnhancer(model, cfg, device=dev, mask_padding=True)
+        clips = [load_audio(tmp / "noisy" / n, SR)[0] for n in names[:64]]
+        clips.sort(key=len)
+        sweep_s = sum(len(c) for c in clips) / SR
+        for size in (8, 32):
+            batches = [clips[i : i + size] for i in range(0, len(clips), size)]
+            sweep(enhancer, batches, 2)  # each bucket's first call
+            sweep(enhancer, batches, 0)
+
+            def timed(in_flight: int) -> float:
+                walls = []
+                for _ in range(3):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    sweep(enhancer, batches, in_flight)
+                    walls.append(time.perf_counter() - t0)
+                return statistics.median(walls)
+
+            a1, b1, b2, a2 = (timed(k) for k in (2, 0, 0, 2))
+            piped, blocking = min(a1, a2), min(b1, b2)
+            times = device_times(lambda: sweep(enhancer, batches, 2))
+            busy = sum(times.values())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sweep(enhancer, batches, 2)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            print(f"sweep of {len(clips)} clips ({sweep_s:.1f} audio-s) in {len(batches)} batches "
+                  f"of {size}: two in flight {piped * 1e3:.1f} ms = {sweep_s / piped:.1f} "
+                  f"audio-s/s, blocking {blocking * 1e3:.1f} ms = {sweep_s / blocking:.1f} "
+                  f"audio-s/s ({blocking / piped:.3f}x; better median of 3 of two runs each); "
+                  f"device busy {busy:.2f} ms of the pipelined sweep's {wall * 1e3:.1f} ms wall = "
+                  f"{busy / (wall * 1e3):.1%} (profiler; wall unprofiled); {smi}", flush=True)
+        del enhancer, model
+    print(f"offline phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"launches": offline_launches}
+
+
 def training(dev: torch.device, smi: str, rng: np.random.Generator, g: torch.Generator) -> dict:
-    """Phase 8. Returns K2 backward's max abs errors and times, and every
+    """Phase 9. Returns K2 backward's max abs errors and times, and every
     kernel's launches in the ``TRAIN_STEPS`` full-width train steps."""
     from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.cli.train import (
         main as train_cli,
@@ -946,6 +1162,7 @@ def main() -> int:
           f"launch {({n: round(ms[n]['path_device_ms'], 4) for n in SERVING})} ms; {smi}",
           flush=True)
 
+    offline_run = offline(dev, smi, rng)
     train = training(dev, smi, rng, g)
     errs["attention_bwd"] = train["errs"]
     ms["attention_bwd"] = train["ms"]
@@ -956,6 +1173,7 @@ def main() -> int:
         {"name": name, "route": "cuda", "source": str(Path(
             "speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch") / k.source),
          "replaces": k.replaces, "launches": launches[name],
+         "offline_launches": offline_run["launches"][name],
          "train_launches": train["launches"][name], "max_abs_err": max(errs[name]),
          **ms[name]}
         for name, k in kernels.KERNELS.items()

@@ -5,20 +5,25 @@
     curl -s --data-binary @noisy.wav http://127.0.0.1:8080/enhance > out.wav
 
 The model's architecture, audio and output mode come from the checkpoint's
-``meta.json``. On ``--device cuda`` the STFT, attention and iSTFT kernels
-are built from ``csrc/`` with nvcc at the first request, or at start-up
-with ``--warmup``.
+``meta.json``; ``--config-dir`` supplies the runtime sections (a fitted
+``inference.blend``) where ``meta.json`` has none. On ``--device cuda``
+the STFT, attention and iSTFT kernels are built from ``csrc/`` with nvcc
+at the first request, or at start-up with ``--warmup``.
 """
 
 from __future__ import annotations
 
 import argparse
 
+from ._blendargs import add_blend_args, blend_kwargs
+from ._runtime import caller_config, use_device
+
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Batched enhancement server (PyTorch)")
     p.add_argument("--checkpoint", required=True)
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    p.add_argument("--config-dir", default="config")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8080)
     p.add_argument("--max-batch", type=int, default=32,
@@ -28,52 +33,29 @@ def build_parser() -> argparse.ArgumentParser:
                    help="max time a request waits for batch peers")
     p.add_argument("--io-dtype", default="int16", choices=["float32", "int16"],
                    help="host<->device transfer width (int16 halves it)")
-    p.add_argument("--blend", default=None,
-                   help="do-no-harm output mix: float in [0,1] (fraction of "
-                        "enhanced magnitude; 1.0 = pure model output) or "
-                        "'snr_adaptive'. Default: the checkpoint's fitted "
-                        "parameters when present, else 1.0")
-    p.add_argument("--blend-min", type=float, default=0.3,
-                   help="snr_adaptive floor: minimum enhanced fraction")
-    p.add_argument("--blend-pivot-db", type=float, default=18.0,
-                   help="snr_adaptive pivot: est-SNR (dB) of half back-off")
-    p.add_argument("--blend-width-db", type=float, default=4.0,
-                   help="snr_adaptive transition width (dB)")
+    p.add_argument("--fold-bn", action="store_true",
+                   help="fold eval-mode BatchNorm into the conv weights (equal "
+                        "output to fp32 rounding)")
+    add_blend_args(p)
     p.add_argument("--warmup", action="store_true",
                    help="build the kernels and run each common bucket once "
                         "at start-up")
     return p
 
 
-def parse_blend(value):
-    if value is None:
-        return None
-    try:
-        return float(value)
-    except ValueError:
-        return value
-
-
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    use_device(args.device)
 
     import numpy as np
-    import torch
 
     from ..inference import AudioEnhancer, load_model_for_inference, make_server
 
-    if args.device == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("--device cuda: no CUDA device available")
-    # float32 end to end: cuDNN convolutions would otherwise run in TF32
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-
-    model, config = load_model_for_inference(args.checkpoint, device=args.device)
+    model, config = load_model_for_inference(args.checkpoint, caller_config(args.config_dir),
+                                             device=args.device)
     enhancer = AudioEnhancer(
-        model, config, device=args.device, io_dtype=args.io_dtype,
-        blend=parse_blend(args.blend),
-        blend_min=args.blend_min, blend_pivot_db=args.blend_pivot_db,
-        blend_width_db=args.blend_width_db,
+        model, config, device=args.device, io_dtype=args.io_dtype, fold_bn=args.fold_bn,
+        **blend_kwargs(args),
     )
     if args.warmup:
         for seconds in (1.0, 2.0, 4.0):

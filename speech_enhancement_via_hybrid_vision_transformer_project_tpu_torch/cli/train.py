@@ -16,6 +16,8 @@ import argparse
 import random
 from pathlib import Path
 
+from ._runtime import use_device
+
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Train the Hybrid ViT speech enhancer (PyTorch)")
@@ -60,11 +62,7 @@ def main(argv=None) -> int:
     from ..training.trainer import Trainer
     from ..utils.config import load_all_configs, set_config_value, validate_config
 
-    if args.device == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("--device cuda: no CUDA device available")
-    # float32 end to end: cuDNN convolutions would otherwise run in TF32
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    use_device(args.device)
 
     config = load_all_configs(args.config_dir)
     overrides = (
@@ -84,7 +82,7 @@ def main(argv=None) -> int:
     tc = config.get("training", {})
     if tc.get("use_amp", True) and config.get("tpu", {}).get("compute_dtype", "bfloat16") == "bfloat16":
         raise SystemExit("the config asks for bf16 (training.use_amp with tpu.compute_dtype "
-                         "bfloat16), which is not ported yet (ROADMAP queue 1 item 9): set "
+                         "bfloat16), which is not ported yet (ROADMAP queue 1 item 5): set "
                          "training.use_amp: false to train in float32")
 
     seed = tc.get("seed", 42)

@@ -1,6 +1,13 @@
 """Enhancer and batched HTTP server."""
 
-from .enhancer import AudioEnhancer, load_model_for_inference
+from .enhancer import (
+    AudioEnhancer,
+    PendingBatch,
+    enhance_audio,
+    enhance_file,
+    load_model_for_inference,
+)
 from .server import DynamicBatcher, make_server
 
-__all__ = ["AudioEnhancer", "DynamicBatcher", "load_model_for_inference", "make_server"]
+__all__ = ["AudioEnhancer", "DynamicBatcher", "PendingBatch", "enhance_audio", "enhance_file",
+           "load_model_for_inference", "make_server"]

@@ -6,6 +6,14 @@ through kernel K2 on CUDA) -> mask or magnitude denorm -> do-no-harm blend
 -> noisy-phase iSTFT (kernel K3 on CUDA) -> output denorm, optionally with
 PCM16 in and out. Waveforms are padded to length buckets; clips longer
 than the largest bucket go through chunked overlap-add streaming.
+
+On CUDA a batch is dispatched without waiting for the device: its input is
+staged in pinned host memory and copied with ``non_blocking=True`` (a copy
+from pageable memory would first wait for every kernel queued on the
+stream), and its output is copied into pinned host memory right after its
+own kernels, followed by a CUDA event. ``enhance_batch_async`` returns that
+``PendingBatch``, so a caller can dispatch the next batch before it reads
+this one; the blocking paths read theirs at once.
 """
 
 from __future__ import annotations
@@ -18,12 +26,39 @@ import numpy as np
 import torch
 
 from ..data.dataset import DEFAULT_BUCKETS, bucket_for_frames, frames_needed
-from ..data.wavio import load_audio, save_wav
+from ..data.wavio import load_audio, save_wav, wav_info
 from ..models.components import patch_validity_mask
+from ..models.fold import fold_batchnorm
 from ..models.hybrid_vit import create_hybrid_vit
 from ..ops.cuda_stft import istft_polar, stft_mag
 from ..ops.stft import STFTConfig
 from ..utils.checkpoint import load_model_weights, read_meta
+
+
+class PendingBatch:
+    """One batch that ``enhance_batch_async`` dispatched. ``result()`` waits
+    for this batch alone and returns its rows ``[B, padded_len]`` float32
+    on the host; the caller trims each row to its clip's length.
+
+    On CUDA, ``host`` is the pinned host tensor that the device-to-host copy
+    fills and ``event`` the CUDA event recorded after that copy, which
+    ``result()`` waits on. On the CPU, ``host`` is the finished output and
+    ``event`` is None. ``host`` stays referenced here until the batch is
+    read, so its pinned buffer is not reused while the copy into it is in
+    flight (the pinned input buffer is held the same way by PyTorch's
+    caching host allocator, which records the copy's stream)."""
+
+    def __init__(self, host: torch.Tensor, event: Optional[torch.cuda.Event]):
+        self.host = host
+        self.event = event
+
+    def result(self) -> np.ndarray:
+        if self.event is not None:
+            self.event.synchronize()
+        out = self.host.numpy()
+        if out.dtype == np.int16:
+            out = out.astype(np.float32) / 32767.0
+        return out
 
 
 class AudioEnhancer:
@@ -38,7 +73,9 @@ class AudioEnhancer:
     ``blend*enhanced + (1-blend)*noisy`` magnitudes, ``"snr_adaptive"``
     backs off per clip where the model's own SNR estimate is high. ``None``
     adopts the checkpoint's fitted ``inference.blend`` for magnitude-head
-    models, else 1.0.
+    models, else 1.0. ``fold_bn=True`` enhances with a copy of the model
+    whose eval-mode BatchNorm is folded into its convs (``models/fold.py``;
+    equal to the unfolded output to fp32 rounding).
     """
 
     def __init__(
@@ -54,8 +91,11 @@ class AudioEnhancer:
         blend_min: float = 0.3,
         blend_pivot_db: float = 18.0,
         blend_width_db: float = 4.0,
+        fold_bn: bool = False,
     ):
         self.device = torch.device(device)
+        if fold_bn:
+            model = fold_batchnorm(model)
         self.model = model.to(self.device).eval()
         self.config = config or {}
         audio_cfg = self.config.get("audio", {})
@@ -191,17 +231,30 @@ class AudioEnhancer:
         truncation; longer clips go to ``enhance_streaming``."""
         return (self.buckets[-1] - 1) * self.stft_cfg.hop_length
 
+    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+        t = torch.from_numpy(a)
+        if self.device.type != "cuda":
+            return t
+        staged = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        staged.copy_(t)
+        return staged.to(self.device, non_blocking=True)
+
     @torch.inference_mode()
-    def _run(self, batch: np.ndarray, lens: np.ndarray, normalize: bool) -> np.ndarray:
-        x = torch.from_numpy(batch).to(self.device)
+    def _dispatch(self, batch: np.ndarray, lens: np.ndarray, normalize: bool) -> PendingBatch:
+        """Enqueue one padded batch (see the module docstring) and return
+        without waiting for the device."""
+        x = self._to_device(batch)
         if normalize:
-            out = self._core(x, torch.from_numpy(lens).to(self.device))
+            out = self._core(x, self._to_device(lens))
         else:
             out = self._enhance_nonorm(x)
-        out = out.cpu().numpy()
-        if out.dtype == np.int16:
-            out = out.astype(np.float32) / 32767.0
-        return out
+        if self.device.type != "cuda":
+            return PendingBatch(out, None)
+        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+        host.copy_(out, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return PendingBatch(host, event)
 
     # ------------------------------------------------------------------
     def enhance(self, noisy_audio: np.ndarray, normalize: bool = True,
@@ -216,7 +269,35 @@ class AudioEnhancer:
         if normalize and self.io_dtype == "int16":
             x = (np.clip(x, -1.0, 1.0) * 32767.0).astype(np.int16)
         lens = np.full((1,), x.shape[-1], np.int32)
-        return self._run(x, lens, normalize)[0]
+        return self._dispatch(x, lens, normalize).result()[0]
+
+    def enhance_batch_async(self, wavs: List[np.ndarray], normalize: bool = True) -> PendingBatch:
+        """Pad one batch to its length bucket and dispatch it without waiting
+        for the device (JAX ``enhance_batch_async``, which returns the device
+        array). Returns a ``PendingBatch``: its ``result()`` is the
+        ``[len(wavs), padded_len]`` float32 output on the host; trim each row
+        to its clip's length. Every waveform must fit the largest bucket
+        (``max_samples``); route longer clips to ``enhance`` or
+        ``enhance_streaming``."""
+        longest = max(len(w) for w in wavs)
+        if longest > self.max_samples:
+            raise ValueError(
+                f"waveform of {longest} samples exceeds the largest bucket "
+                f"({self.max_samples} samples ≈ "
+                f"{self.max_samples / self.sample_rate:.2f}s); use "
+                f"enhance()/enhance_streaming() for long clips"
+            )
+        wav_len = self._padded_len(longest)
+        io16 = self.io_dtype == "int16" and normalize
+        batch = np.zeros((len(wavs), wav_len), np.int16 if io16 else np.float32)
+        lens = np.zeros((len(wavs),), np.int32)
+        for row, w in enumerate(wavs):
+            w = np.asarray(w, np.float32)
+            lens[row] = len(w)
+            batch[row, : len(w)] = (
+                (np.clip(w, -1.0, 1.0) * 32767.0).astype(np.int16) if io16 else w
+            )
+        return self._dispatch(batch, lens, normalize)
 
     def enhance_batch(self, wavs: List[np.ndarray], normalize: bool = True) -> List[np.ndarray]:
         """Enhance a list of waveforms as one padded batch; clips longer than
@@ -227,17 +308,7 @@ class AudioEnhancer:
         fit_set = set(fits)
         results: List[Optional[np.ndarray]] = [None] * len(wavs)
         if fits:
-            wav_len = self._padded_len(max(len(wavs[i]) for i in fits))
-            io16 = self.io_dtype == "int16" and normalize
-            batch = np.zeros((len(fits), wav_len), np.int16 if io16 else np.float32)
-            lens = np.ones((len(fits),), np.int32)
-            for row, i in enumerate(fits):
-                w = np.asarray(wavs[i], np.float32)
-                lens[row] = len(w)
-                batch[row, : len(w)] = (
-                    (np.clip(w, -1.0, 1.0) * 32767.0).astype(np.int16) if io16 else w
-                )
-            out = self._run(batch, lens, normalize)
+            out = self.enhance_batch_async([wavs[i] for i in fits], normalize).result()
             for row, i in enumerate(fits):
                 results[i] = out[row, : len(wavs[i])].copy()
         for i in range(len(wavs)):
@@ -290,6 +361,35 @@ class AudioEnhancer:
         save_wav(output_path, enhanced, sr)
         return enhanced
 
+    def enhance_directory(
+        self,
+        input_dir: str | Path,
+        output_dir: str | Path,
+        pattern: str = "*.wav",
+        batch_size: int = 8,
+        window_batches: int = 4,
+    ) -> int:
+        """Enhance every ``pattern`` file of ``input_dir`` into a PCM16 file
+        of the same name under ``output_dir``, in padded batches; returns the
+        number of files. Memory is bounded: the files are length-sorted from
+        their WAV headers alone (``wav_info``), then loaded, enhanced and
+        written in windows of ``window_batches * batch_size`` files, so at
+        most one window of audio is on the host at a time."""
+        input_dir, output_dir = Path(input_dir), Path(output_dir)
+        files = sorted(input_dir.glob(pattern))
+        lengths = [wav_info(f)[0] for f in files]
+        order = np.argsort(lengths, kind="stable")
+        window = max(1, window_batches) * batch_size
+        for w0 in range(0, len(order), window):
+            idx = order[w0 : w0 + window]
+            loaded = {j: load_audio(files[j], self.sample_rate)[0] for j in idx}
+            for i in range(0, len(idx), batch_size):
+                chunk = idx[i : i + batch_size]
+                outs = self.enhance_batch([loaded[j] for j in chunk])
+                for j, out in zip(chunk, outs):
+                    save_wav(output_dir / files[j].name, out, self.sample_rate)
+        return len(files)
+
 
 def load_model_for_inference(
     checkpoint_path: str | Path,
@@ -317,3 +417,29 @@ def load_model_for_inference(
     model = create_hybrid_vit(config)
     load_model_weights(checkpoint_path, model)
     return model.to(device).eval(), config
+
+
+def enhance_audio(
+    noisy_audio: np.ndarray,
+    checkpoint_path: str | Path,
+    config: Optional[Dict] = None,
+    *,
+    device: str | torch.device,
+) -> np.ndarray:
+    """Enhance one waveform with the checkpoint's model on ``device``."""
+    model, config = load_model_for_inference(checkpoint_path, config, device=device)
+    return AudioEnhancer(model, config, device=device).enhance(noisy_audio)
+
+
+def enhance_file(
+    input_path: str | Path,
+    output_path: str | Path,
+    checkpoint_path: str | Path,
+    config: Optional[Dict] = None,
+    *,
+    device: str | torch.device,
+) -> np.ndarray:
+    """Enhance a WAV file into another (PCM16) with the checkpoint's model
+    on ``device``."""
+    model, config = load_model_for_inference(checkpoint_path, config, device=device)
+    return AudioEnhancer(model, config, device=device).enhance_file(input_path, output_path)

@@ -50,19 +50,25 @@ class BatchNorm(nn.BatchNorm2d):
 
 class ConvBlock(nn.Module):
     """Conv3x3 -> BatchNorm -> ReLU -> channel dropout -> MaxPool (floor).
-    The conv has no bias under BatchNorm."""
+    The conv has no bias under BatchNorm; with ``use_batchnorm=False`` (a
+    model whose BatchNorm was folded into its convs) the conv has a bias
+    and no BatchNorm follows."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3,
-                 pool_size: Optional[int] = 2, dropout: float = 0.0):
+                 pool_size: Optional[int] = 2, dropout: float = 0.0,
+                 use_batchnorm: bool = True):
         super().__init__()
         self.conv = nn.Conv2d(in_ch, out_ch, kernel_size,
-                              padding=kernel_size // 2, bias=False)
-        self.bn = BatchNorm(out_ch)
+                              padding=kernel_size // 2, bias=not use_batchnorm)
+        self.bn = BatchNorm(out_ch) if use_batchnorm else None
         self.pool_size = pool_size if pool_size and pool_size > 1 else None
         self.dropout = dropout
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = F.relu(self.bn(self.conv(x)))
+        x = self.conv(x)
+        if self.bn is not None:
+            x = self.bn(x)
+        x = F.relu(x)
         if self.dropout > 0:
             x = F.dropout2d(x, self.dropout, self.training)
         if self.pool_size:
@@ -73,24 +79,28 @@ class ConvBlock(nn.Module):
 class TransposeConvBlock(nn.Module):
     """Decoder block: nearest upsample -> Conv3x3 -> BN -> ReLU -> channel
     dropout. The final layer has no BN or dropout and applies Tanh, and its
-    conv keeps no bias (the reference's no-bias final-conv quirk)."""
+    conv keeps no bias (the reference's no-bias final-conv quirk), with or
+    without ``use_batchnorm``. Other blocks with ``use_batchnorm=False``
+    have a conv bias and no BN, as ``ConvBlock``."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3,
                  upsample_factor: Optional[int] = 2, final_layer: bool = False,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, use_batchnorm: bool = True):
         super().__init__()
         self.upsample_factor = upsample_factor if upsample_factor and upsample_factor > 1 else 1
-        self.conv = nn.Conv2d(in_ch, out_ch, kernel_size,
-                              padding=kernel_size // 2, bias=False)
+        self.conv = nn.Conv2d(in_ch, out_ch, kernel_size, padding=kernel_size // 2,
+                              bias=not (use_batchnorm or final_layer))
         self.final_layer = final_layer
-        self.bn = None if final_layer else BatchNorm(out_ch)
+        self.bn = BatchNorm(out_ch) if use_batchnorm and not final_layer else None
         self.dropout = 0.0 if final_layer else dropout
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.conv(upsample_nearest(x, self.upsample_factor))
         if self.final_layer:
             return torch.tanh(x)
-        x = F.relu(self.bn(x))
+        if self.bn is not None:
+            x = self.bn(x)
+        x = F.relu(x)
         if self.dropout > 0:
             x = F.dropout2d(x, self.dropout, self.training)
         return x

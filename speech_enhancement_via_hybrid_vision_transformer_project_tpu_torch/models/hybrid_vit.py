@@ -37,7 +37,9 @@ class HybridViT(nn.Module):
     Keyword arguments are the JAX ``HybridViT``'s. ``dropout``,
     ``attn_dropout`` and ``drop_path_rate`` act in training only.
     ``use_pallas_attention`` is a TPU dispatch knob, accepted and ignored:
-    attention here dispatches on the device (kernel K2 on CUDA). ``remat``
+    attention here dispatches on the device (kernel K2 on CUDA).
+    ``fold_bn=True`` builds the inference form whose BatchNorm is folded
+    into the convs (``models/fold.py``): biased convs, no BatchNorm. ``remat``
     and a ``compute_dtype`` other than float32 are not ported yet and raise.
     """
 
@@ -72,6 +74,7 @@ class HybridViT(nn.Module):
         head_time_up: int = 4,
         remat: bool = False,
         compute_dtype: torch.dtype = torch.float32,
+        fold_bn: bool = False,
     ):
         super().__init__()
         if remat:
@@ -82,7 +85,7 @@ class HybridViT(nn.Module):
         if compute_dtype != torch.float32:
             raise NotImplementedError(
                 f"compute_dtype {compute_dtype} is not ported yet: the port computes in "
-                "float32 (bf16 is ROADMAP queue 1 item 9)"
+                "float32 (bf16 is ROADMAP queue 1 item 5)"
             )
         if attention_type != "standard":
             raise NotImplementedError(
@@ -105,13 +108,15 @@ class HybridViT(nn.Module):
         self.head_type = head_type
         self.head_channels = head_channels
         self.head_freq_up, self.head_time_up = head_freq_up, head_time_up
+        self.fold_bn = fold_bn
 
         # 1. CNN encoder
         self.encoder = nn.ModuleList()
         ch_in = input_channels
         enc_out = []
         for ch, k, p in zip(encoder_channels, encoder_kernel_sizes, encoder_pool_sizes):
-            self.encoder.append(ConvBlock(ch_in, ch, k, p if p > 1 else None, dropout=dropout))
+            self.encoder.append(ConvBlock(ch_in, ch, k, p if p > 1 else None, dropout=dropout,
+                                          use_batchnorm=not fold_bn))
             enc_out.append(ch)
             ch_in = ch
 
@@ -151,7 +156,8 @@ class HybridViT(nn.Module):
                 block_in += ch
             self.decoder.append(
                 TransposeConvBlock(block_in, ch, k, up if up > 1 else None,
-                                   final_layer=is_final, dropout=dropout)
+                                   final_layer=is_final, dropout=dropout,
+                                   use_batchnorm=not fold_bn)
             )
             cur = ch
 

@@ -358,3 +358,60 @@ def test_enhancer_cuda_matches_cpu(dev, gen):
     for a, b in zip(out, ref):
         assert a.shape == b.shape
         assert float(np.abs(a - b).max()) < 2e-4
+
+
+def _small_enhancer_model(gen, perturb_bn: bool = False):
+    model = init_weights(HybridViT(embed_dim=64, num_heads=4, num_layers=2, mlp_ratio=2.0,
+                                   encoder_channels=(16, 32, 64), decoder_channels=(32, 16, 8, 1),
+                                   pos_embed_type="factored_2d", head_type="fullres_mask",
+                                   head_channels=8), gen)
+    if perturb_bn:  # non-trivial statistics, or the fold is nearly the identity
+        rng = np.random.default_rng(1)
+        with torch.no_grad():
+            for mod in model.modules():
+                if isinstance(mod, torch.nn.BatchNorm2d):
+                    n = mod.num_features
+                    mod.weight.copy_(torch.from_numpy(rng.uniform(0.5, 1.5, n)))
+                    mod.bias.copy_(torch.from_numpy(rng.normal(0.0, 0.3, n)))
+                    mod.running_mean.copy_(torch.from_numpy(rng.normal(0.0, 0.5, n)))
+                    mod.running_var.copy_(torch.from_numpy(rng.uniform(0.2, 3.0, n)))
+    return model
+
+
+@pytest.mark.parametrize("io_dtype", ["float32", "int16"])
+def test_enhance_batch_async_two_in_flight_matches_blocking(io_dtype, dev, gen):
+    """Batches dispatched two ahead of the one being read (pinned staging,
+    non-blocking copies, an event per batch) come back equal to the blocking
+    path's, each row trimmed to its clip."""
+    model = _small_enhancer_model(gen)
+    enh = AudioEnhancer(model, {"model": {"output_mode": "mask"}}, device=dev,
+                        buckets=(128, 256), mask_padding=True, io_dtype=io_dtype)
+    rng = np.random.default_rng(2)
+    batches = [[(0.3 * rng.standard_normal(n)).astype(np.float32) for n in (16000, 9000, 30000)]
+               for _ in range(5)]
+    blocking = [enh.enhance_batch(b) for b in batches]
+    pending, got = [], []
+    for b in batches:
+        pending.append(enh.enhance_batch_async(b))
+        if len(pending) > 2:
+            got.append(pending.pop(0).result())
+    got += [p.result() for p in pending]
+    for out, ref, wavs in zip(got, blocking, batches):
+        for row, r, w in zip(out, ref, wavs):
+            np.testing.assert_array_equal(row[: len(w)], r)
+
+
+def test_fold_bn_enhancer_matches_unfolded_on_cuda(dev, gen):
+    """Folded and unfolded on the card agree within the 2e-4 waveform limit
+    (cuDNN may pick another algorithm for a conv with a bias)."""
+    model = _small_enhancer_model(gen, perturb_bn=True)
+    rng = np.random.default_rng(3)
+    wavs = [(0.3 * rng.standard_normal(n)).astype(np.float32) for n in (16000, 9000, 40000)]
+    cfg = {"model": {"output_mode": "mask"}}
+    plain = AudioEnhancer(model, cfg, device=dev, buckets=(128, 256), mask_padding=True)
+    folded = AudioEnhancer(model, cfg, device=dev, buckets=(128, 256), mask_padding=True,
+                           fold_bn=True)
+    assert folded.model.fold_bn and not any(
+        isinstance(m, torch.nn.BatchNorm2d) for m in folded.model.modules())
+    for a, b in zip(folded.enhance_batch(wavs), plain.enhance_batch(wavs)):
+        assert a.shape == b.shape and float(np.abs(a - b).max()) < 2e-4

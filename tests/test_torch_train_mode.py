@@ -81,7 +81,7 @@ def test_batchnorm_uses_the_biased_variance():
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="remat"):
         HybridViT(remat=True)
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="item 5"):
         HybridViT(compute_dtype=torch.bfloat16)
 
 
