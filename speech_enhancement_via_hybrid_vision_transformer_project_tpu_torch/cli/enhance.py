@@ -42,7 +42,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "output to fp32 rounding)")
     p.add_argument("--dft-precision", default="highest",
                    choices=["highest", "high", "default"],
-                   help="iDFT precision (not ported yet: highest only)")
+                   help="iDFT precision the JAX package's reconstruction matmul may "
+                        "use; 'high' and 'default' permit less precision and do not "
+                        "demand it: here the reconstruction (K3 on the card, a float32 "
+                        "matmul on the CPU) is float32 whatever is set")
     add_blend_args(p)
     p.add_argument("--mask-padding", action="store_true",
                    help="exclude bucket-padding patches from attention via "
@@ -55,9 +58,6 @@ def main(argv=None) -> int:
     if args.data_parallel > 1:
         raise SystemExit("--data-parallel is not ported yet (ROADMAP queue 1 item 10): "
                          "enhance on one device")
-    if args.dft_precision != "highest":
-        raise SystemExit("--dft-precision other than highest is not ported yet (ROADMAP "
-                         "queue 1 item 5)")
     inp, out = Path(args.input), Path(args.output)
     if not inp.exists():
         raise SystemExit(f"input not found: {inp}")
@@ -72,7 +72,8 @@ def main(argv=None) -> int:
                                              device=args.device)
     enhancer = AudioEnhancer(
         model, config, device=args.device, io_dtype=args.io_dtype,
-        mask_padding=args.mask_padding, fold_bn=args.fold_bn, **blend_kwargs(args),
+        mask_padding=args.mask_padding, fold_bn=args.fold_bn, dft_precision=args.dft_precision,
+        **blend_kwargs(args),
     )
     sr = enhancer.sample_rate
     if inp.is_dir():

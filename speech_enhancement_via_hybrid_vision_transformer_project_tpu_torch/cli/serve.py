@@ -33,9 +33,17 @@ def build_parser() -> argparse.ArgumentParser:
                    help="max time a request waits for batch peers")
     p.add_argument("--io-dtype", default="int16", choices=["float32", "int16"],
                    help="host<->device transfer width (int16 halves it)")
+    p.add_argument("--data-parallel", type=int, default=1,
+                   help="devices to shard batches over (not ported yet: 1 only)")
     p.add_argument("--fold-bn", action="store_true",
                    help="fold eval-mode BatchNorm into the conv weights (equal "
                         "output to fp32 rounding)")
+    p.add_argument("--dft-precision", default="highest",
+                   choices=["highest", "high", "default"],
+                   help="iDFT precision the JAX package's reconstruction matmul may "
+                        "use; 'high' and 'default' permit less precision and do not "
+                        "demand it: here the reconstruction (K3 on the card, a float32 "
+                        "matmul on the CPU) is float32 whatever is set")
     add_blend_args(p)
     p.add_argument("--warmup", action="store_true",
                    help="build the kernels and run each common bucket once "
@@ -45,6 +53,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    if args.data_parallel > 1:
+        raise SystemExit("--data-parallel is not ported yet (ROADMAP queue 1 item 10): "
+                         "serve on one device")
     use_device(args.device)
 
     import numpy as np
@@ -55,7 +66,7 @@ def main(argv=None) -> int:
                                              device=args.device)
     enhancer = AudioEnhancer(
         model, config, device=args.device, io_dtype=args.io_dtype, fold_bn=args.fold_bn,
-        **blend_kwargs(args),
+        dft_precision=args.dft_precision, **blend_kwargs(args),
     )
     if args.warmup:
         for seconds in (1.0, 2.0, 4.0):

@@ -1,13 +1,19 @@
 """Training CLI (the JAX ``cli/train.py``'s flags), on a CUDA card or the CPU.
 
     python -m speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.cli.train \\
-        --config-dir config_fp32 --data-root data/voicebank_demand --device cuda
+        --config-dir config --data-root data/voicebank_demand --device cuda
 
-The config directory holds the three YAML files of ``config/``. The port
-trains in float32: a config that asks for bf16 (``training.use_amp: true``
-with ``tpu.compute_dtype: bfloat16``, as the shipped one does) is refused;
-set ``use_amp: false``. Data and model parallelism and multi-host training
-are not ported yet and are refused too.
+The config directory holds the three YAML files of ``config/``; the shipped
+ones train as they are. ``compute_dtype`` is chosen as the JAX CLI chooses
+it: bf16 when ``training.use_amp`` and ``tpu.compute_dtype: bfloat16`` (the
+shipped config), else float32. bf16 means what it means in the JAX package:
+the model's input is rounded to bf16 once and every layer computes in
+float32 (``models/hybrid_vit.py``). ``tpu.remat`` (or
+``model.transformer.remat``) rematerializes the transformer blocks.
+``tpu.use_pallas_attention`` is ignored: on the card attention is always
+kernel K2. ``--profile-dir`` writes a ``torch.profiler`` trace of steps 1-5
+of the first epoch. Data and model parallelism and multi-host training are
+not ported yet and are refused (ROADMAP queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -34,6 +40,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-files", type=int, default=None, help="truncate the dataset (smoke runs)")
     p.add_argument("--data-parallel", type=int, default=None)
     p.add_argument("--model-parallel", type=int, default=None)
+    p.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler trace of training steps 1-5 here")
     p.add_argument("--mask-padding", action="store_true",
                    help="exclude bucket-padding patches from attention")
     p.add_argument("--pos-embed", default=None, choices=["learned_1d", "factored_2d", "sinusoidal"])
@@ -80,10 +88,8 @@ def main(argv=None) -> int:
     if problems:
         raise SystemExit("Invalid config:\n  " + "\n  ".join(problems))
     tc = config.get("training", {})
-    if tc.get("use_amp", True) and config.get("tpu", {}).get("compute_dtype", "bfloat16") == "bfloat16":
-        raise SystemExit("the config asks for bf16 (training.use_amp with tpu.compute_dtype "
-                         "bfloat16), which is not ported yet (ROADMAP queue 1 item 5): set "
-                         "training.use_amp: false to train in float32")
+    compute_dtype = (torch.bfloat16 if tc.get("use_amp", True) and config.get("tpu", {}).get(
+        "compute_dtype", "bfloat16") == "bfloat16" else torch.float32)
 
     seed = tc.get("seed", 42)
     random.seed(seed)
@@ -108,11 +114,14 @@ def main(argv=None) -> int:
     train_loader = DataLoader(train_ds, seed=seed, **loader_kw)
     val_loader = DataLoader(val_ds, shuffle=False, **loader_kw) if len(val_ds) else None
 
-    model = init_weights(create_hybrid_vit(config), torch.Generator().manual_seed(seed))
+    model = init_weights(create_hybrid_vit(config, compute_dtype=compute_dtype),
+                         torch.Generator().manual_seed(seed))
+    print(f"compute dtype: {compute_dtype} (the input rounded to it; layers in float32)")
     trainer = Trainer(model, config, train_loader, val_loader, device=args.device,
                       checkpoint_dir=args.checkpoint_dir, log_dir=args.log_dir,
-                      resume_from=args.resume)
+                      resume_from=args.resume, profile_dir=args.profile_dir)
     trainer.train()
+    trainer.logger.close()
     print(f"done: best val loss {trainer.best_val_loss:.5f} after {trainer.current_epoch} epochs")
     return 0
 

@@ -10,16 +10,20 @@ The random draws (``draw_spec_augment``, from an explicit
 ``torch.Generator``) are apart from their application
 (``apply_spec_augment``), so that a test can feed the JAX function's own
 draws to the port: ``jax.random`` and ``torch.Generator`` give different
-numbers from one seed. The waveform-domain ``AudioAugmenter`` (off in the
-shipped config) is not ported yet.
+numbers from one seed. ``AudioAugmenter`` is the waveform-domain
+augmenter (host numpy; off in the shipped config, and not on the train
+step's path).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
+
+from ..ops.audio import resample
 
 
 @dataclass(frozen=True)
@@ -110,3 +114,34 @@ def spec_augment_batch(specs: torch.Tensor, cfg: SpecAugmentConfig,
     """Draw and apply SpecAugment over ``[B, F, T]``."""
     b, f, t = specs.shape
     return apply_spec_augment(specs, draw_spec_augment(b, f, t, cfg, generator), cfg)
+
+
+class AudioAugmenter:
+    """Waveform augmentations on the host (JAX ``AudioAugmenter``): a
+    resample-based time stretch (duration and pitch change together), a
+    pitch shift back to the input's length, and a comb-filter reverb.
+    ``rng``: the explicit ``np.random.Generator`` of the caller's draws."""
+
+    def __init__(self, sample_rate: int = 16000, rng: Optional[np.random.Generator] = None):
+        self.sample_rate = sample_rate
+        self.rng = rng or np.random.default_rng()
+
+    def time_stretch(self, x: np.ndarray, rate: float) -> np.ndarray:
+        return resample(x, int(self.sample_rate * rate), self.sample_rate).astype(np.float32)
+
+    def pitch_shift(self, x: np.ndarray, n_steps: float) -> np.ndarray:
+        factor = 2.0 ** (n_steps / 12.0)
+        shifted = resample(x, int(self.sample_rate * factor), self.sample_rate)
+        if len(shifted) >= len(x):
+            return shifted[: len(x)].astype(np.float32)
+        return np.pad(shifted, (0, len(x) - len(shifted))).astype(np.float32)
+
+    def add_reverb(self, x: np.ndarray, delay_ms: float = 50.0, decay: float = 0.3) -> np.ndarray:
+        d = int(self.sample_rate * delay_ms / 1000.0)
+        out = x.copy().astype(np.float32)
+        if d < len(x):
+            out[d:] += decay * x[:-d]
+        peak = np.max(np.abs(out))
+        if peak > 1.0:
+            out /= peak
+        return out

@@ -273,3 +273,11 @@ class DataLoader:
                     "this epoch and were truncated for training (raise "
                     "data.bucketing.frame_buckets to keep full length)"
                 )
+
+
+def get_data_loader(dataset: VoiceBankDataset, batch_size: int = 16, shuffle: bool = True,
+                    num_workers: int = 4, **kw) -> DataLoader:
+    """``DataLoader(dataset, batch_size, shuffle, num_workers, **kw)`` (the
+    JAX package's factory)."""
+    return DataLoader(dataset, batch_size=batch_size, shuffle=shuffle, num_workers=num_workers,
+                      **kw)

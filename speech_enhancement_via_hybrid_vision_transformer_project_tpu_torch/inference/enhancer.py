@@ -76,6 +76,13 @@ class AudioEnhancer:
     models, else 1.0. ``fold_bn=True`` enhances with a copy of the model
     whose eval-mode BatchNorm is folded into its convs (``models/fold.py``;
     equal to the unfolded output to fp32 rounding).
+
+    ``dft_precision`` (``"highest"``, ``"high"`` or ``"default"``) is the JAX
+    enhancer's precision of its reconstruction matmul: ``high`` and
+    ``default`` permit less precision and do not demand it. The
+    reconstruction here computes in float32 whatever is set: kernel K3 is an
+    fp32 FFT on the card, and the plain matmul path on the CPU is float32,
+    as the JAX package's matmuls are on the CPU.
     """
 
     def __init__(
@@ -92,7 +99,13 @@ class AudioEnhancer:
         blend_pivot_db: float = 18.0,
         blend_width_db: float = 4.0,
         fold_bn: bool = False,
+        dft_precision: str = "highest",
     ):
+        if dft_precision not in ("highest", "high", "default"):
+            raise ValueError(
+                f"dft_precision must be highest|high|default, got {dft_precision!r}"
+            )
+        self.dft_precision = dft_precision
         self.device = torch.device(device)
         if fold_bn:
             model = fold_batchnorm(model)

@@ -6,6 +6,11 @@ Two cases take the explicit-weights path instead, as in the JAX package:
 ``return_attention=True``, which returns the softmax weights, and training
 with ``attn_dropout > 0``, which drops weights. Each block's drop-path rate
 is ``np.linspace(0, drop_path_rate, num_layers)[i]``.
+
+``remat=True`` recomputes each transformer block's activations in the
+backward (``torch.utils.checkpoint``, the JAX ``nn.remat``) in training.
+``attention_type="linear"`` swaps in the JAX package's O(N)
+``EfficientAttention`` blocks, which take no mask and no drop-path.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.cuda_attention import NEG_INF, attention
 from .components import LN_EPS, DropPath, FeedForward
@@ -95,28 +101,87 @@ class TransformerEncoderBlock(nn.Module):
         return x
 
 
+class EfficientAttention(nn.Module):
+    """O(N) linear attention (JAX ``EfficientAttention``): ``softmax(K)``
+    over tokens, ``softmax(V)`` over features, ``Q (K^T V)``, then the
+    output projection and dropout. No mask."""
+
+    def __init__(self, embed_dim: int, num_heads: int = 8, qkv_bias: bool = True,
+                 dropout: float = 0.0):
+        super().__init__()
+        self.embed_dim = embed_dim
+        self.num_heads = num_heads
+        self.qkv = nn.Linear(embed_dim, 3 * embed_dim, bias=qkv_bias)
+        self.proj = nn.Linear(embed_dim, embed_dim)
+        self.dropout = dropout
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, n, _ = x.shape
+        h = self.num_heads
+        d = self.embed_dim // h
+        q, k, v = self.qkv(x).reshape(b, n, 3, h, d).permute(2, 0, 3, 1, 4)
+        k = torch.softmax(k, dim=-2)
+        v = torch.softmax(v, dim=-1)
+        out = torch.matmul(q, torch.matmul(k.transpose(-1, -2), v))  # [B, H, N, D]
+        out = self.proj(out.transpose(1, 2).reshape(b, n, self.embed_dim))
+        return F.dropout(out, self.dropout, self.training)
+
+
 class VisionTransformer(nn.Module):
-    """Stack of pre-norm blocks and a final LayerNorm (standard attention;
-    the JAX package's linear ``EfficientAttention`` is not ported yet)."""
+    """Stack of pre-norm blocks and a final LayerNorm. ``attention_type``
+    ``"linear"`` builds the JAX package's linear branch instead: residual
+    blocks ``lin_norm1_i``/``lin_attn_i``/``lin_norm2_i``/``lin_mlp_i``
+    (no drop-path, no mask)."""
 
     def __init__(self, embed_dim: int, num_layers: int = 6, num_heads: int = 8,
                  mlp_ratio: float = 4.0, qkv_bias: bool = True, dropout: float = 0.0,
-                 attn_dropout: float = 0.0, drop_path_rate: float = 0.0):
+                 attn_dropout: float = 0.0, drop_path_rate: float = 0.0,
+                 attention_type: str = "standard", remat: bool = False):
         super().__init__()
-        dpr = np.linspace(0.0, drop_path_rate, num_layers)
-        self.blocks = nn.ModuleList(
-            TransformerEncoderBlock(embed_dim, num_heads, mlp_ratio, qkv_bias, dropout,
-                                    attn_dropout, drop_path=float(dpr[i]))
-            for i in range(num_layers)
-        )
+        if attention_type not in ("standard", "linear"):
+            raise ValueError(
+                f"unknown attention_type {attention_type!r} (expected 'standard' or 'linear')"
+            )
+        self.linear = attention_type == "linear"
+        self.num_layers = num_layers
+        self.remat = remat
+        hidden = int(embed_dim * mlp_ratio)
+        if self.linear:
+            for i in range(num_layers):
+                self.add_module(f"lin_norm1_{i}", nn.LayerNorm(embed_dim, eps=LN_EPS))
+                self.add_module(f"lin_attn_{i}",
+                                EfficientAttention(embed_dim, num_heads, qkv_bias, dropout))
+                self.add_module(f"lin_norm2_{i}", nn.LayerNorm(embed_dim, eps=LN_EPS))
+                self.add_module(f"lin_mlp_{i}", FeedForward(embed_dim, hidden, dropout))
+        else:
+            dpr = np.linspace(0.0, drop_path_rate, num_layers)
+            self.blocks = nn.ModuleList(
+                TransformerEncoderBlock(embed_dim, num_heads, mlp_ratio, qkv_bias, dropout,
+                                        attn_dropout, drop_path=float(dpr[i]))
+                for i in range(num_layers)
+            )
         self.norm = nn.LayerNorm(embed_dim, eps=LN_EPS)
 
+    def _linear_forward(self, x):
+        for i in range(self.num_layers):
+            x = x + getattr(self, f"lin_attn_{i}")(getattr(self, f"lin_norm1_{i}")(x))
+            x = x + getattr(self, f"lin_mlp_{i}")(getattr(self, f"lin_norm2_{i}")(x))
+        return x
+
     def forward(self, x, mask=None, return_all_attentions: bool = False):
+        if self.linear:  # the JAX linear branch ignores the mask
+            x = self.norm(self._linear_forward(x))
+            return (x, []) if return_all_attentions else x
+        # as the JAX nn.remat: rematerialized blocks unless weights are asked
+        # for; the recompute replays the global generators' dropout draws
+        remat = self.remat and self.training and not return_all_attentions
         attentions = []
         for block in self.blocks:
             if return_all_attentions:
                 x, w = block(x, mask=mask, return_attention=True)
                 attentions.append(w)
+            elif remat:
+                x = checkpoint(block, x, mask, use_reentrant=False)
             else:
                 x = block(x, mask=mask)
         x = self.norm(x)

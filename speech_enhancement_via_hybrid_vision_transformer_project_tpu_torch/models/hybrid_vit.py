@@ -39,8 +39,15 @@ class HybridViT(nn.Module):
     ``use_pallas_attention`` is a TPU dispatch knob, accepted and ignored:
     attention here dispatches on the device (kernel K2 on CUDA).
     ``fold_bn=True`` builds the inference form whose BatchNorm is folded
-    into the convs (``models/fold.py``): biased convs, no BatchNorm. ``remat``
-    and a ``compute_dtype`` other than float32 are not ported yet and raise.
+    into the convs (``models/fold.py``): biased convs, no BatchNorm.
+    ``remat`` recomputes the transformer blocks' activations in the backward
+    (training only). ``attention_type`` is ``"standard"`` or ``"linear"``.
+
+    ``compute_dtype`` is what the JAX package's ``compute_dtype`` computes:
+    ``torch.bfloat16`` rounds the input to bf16 once, and every layer after
+    it runs in float32 (flax's convs and dense layers, built without a
+    ``dtype``, promote a bf16 input against their float32 parameters back to
+    float32). ``torch.float32`` changes nothing; any other dtype raises.
     """
 
     def __init__(
@@ -77,19 +84,9 @@ class HybridViT(nn.Module):
         fold_bn: bool = False,
     ):
         super().__init__()
-        if remat:
-            raise NotImplementedError(
-                "remat (activation rematerialization) is not ported yet (ROADMAP queue 1: "
-                "training remnants)"
-            )
-        if compute_dtype != torch.float32:
-            raise NotImplementedError(
-                f"compute_dtype {compute_dtype} is not ported yet: the port computes in "
-                "float32 (bf16 is ROADMAP queue 1 item 5)"
-            )
-        if attention_type != "standard":
-            raise NotImplementedError(
-                f"attention_type {attention_type!r} is not ported (standard only)"
+        if compute_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(
+                f"compute_dtype must be torch.float32 or torch.bfloat16, got {compute_dtype}"
             )
         if head_type not in ("resize", "fullres_mask"):
             raise ValueError(
@@ -109,6 +106,7 @@ class HybridViT(nn.Module):
         self.head_channels = head_channels
         self.head_freq_up, self.head_time_up = head_freq_up, head_time_up
         self.fold_bn = fold_bn
+        self.compute_dtype = compute_dtype
 
         # 1. CNN encoder
         self.encoder = nn.ModuleList()
@@ -134,7 +132,8 @@ class HybridViT(nn.Module):
         )
         self.transformer = VisionTransformer(embed_dim, num_layers, num_heads, mlp_ratio,
                                              dropout=dropout, attn_dropout=attn_dropout,
-                                             drop_path_rate=drop_path_rate)
+                                             drop_path_rate=drop_path_rate,
+                                             attention_type=attention_type, remat=remat)
         self.to_feature_map = nn.Linear(embed_dim, encoder_channels[-1])
 
         # 5. CNN decoder with U-Net skips (deep to shallow)
@@ -189,7 +188,7 @@ class HybridViT(nn.Module):
         """
         nhwc = lambda t: t.permute(0, 2, 3, 1)  # noqa: E731
         in_f, in_t = x.shape[1], x.shape[2]
-        x = x.float().permute(0, 3, 1, 2).contiguous()  # NCHW
+        x = x.to(self.compute_dtype).float().permute(0, 3, 1, 2).contiguous()  # NCHW
         x_in = x
 
         skips = []
@@ -310,7 +309,8 @@ def _derive_max_freq_patches(config: Dict) -> int:
 
 def create_hybrid_vit(config: Optional[Dict] = None, **overrides) -> HybridViT:
     """Build a HybridViT, in eval mode, from the merged config dict (the JAX
-    ``create_hybrid_vit``'s keys; of ``tpu.*`` only ``remat`` is read)."""
+    ``create_hybrid_vit``'s keys; of ``tpu.*`` only ``remat`` is read: the
+    train CLI picks ``compute_dtype`` and passes it as an override)."""
     config = config or {}
     mc = config.get("model", {})
     enc = mc.get("encoder", {})

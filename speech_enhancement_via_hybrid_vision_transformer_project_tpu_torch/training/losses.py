@@ -3,16 +3,19 @@
 ``combined_loss`` returns ``(total, components)`` with the components as
 0-d tensors, so nothing syncs with the host inside a step. ``sample_valid``
 excludes the loader's padding rows; ``frame_mask`` (with
-``use_frame_mask``) excludes padded frames. ``multi_resolution_stft_loss``,
-which the trainer never calls, is not ported yet.
+``use_frame_mask``) excludes padded frames. ``spectrogram_loss`` and the
+waveform ``multi_resolution_stft_loss`` are the JAX package's standalone
+losses, which the trainer does not call.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import torch
+
+from ..ops.stft import STFTConfig, stft
 
 
 def log_compress(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
@@ -27,6 +30,46 @@ def masked_mean(err: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor
         return err.mean()
     m = mask[:, None, :, None].expand(err.shape).to(err.dtype)
     return (err * m).sum() / torch.clamp(m.sum(), min=1.0)
+
+
+def spectrogram_loss(pred: torch.Tensor, target: torch.Tensor, loss_type: str = "l1",
+                     use_log_compression: bool = False,
+                     frame_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """L1, MSE or L1+MSE of ``[B, F, T, C]`` spectrograms, optionally
+    log-compressed and over the frames of ``frame_mask [B, T]`` only."""
+    if use_log_compression:
+        pred, target = log_compress(pred), log_compress(target)
+    if loss_type == "l1":
+        return masked_mean(torch.abs(pred - target), frame_mask)
+    if loss_type == "mse":
+        return masked_mean((pred - target) ** 2, frame_mask)
+    if loss_type == "l1+mse":
+        return (masked_mean(torch.abs(pred - target), frame_mask)
+                + masked_mean((pred - target) ** 2, frame_mask))
+    raise ValueError(f"Unknown loss type: {loss_type}")
+
+
+def multi_resolution_stft_loss(pred_wav: torch.Tensor, target_wav: torch.Tensor,
+                               fft_sizes: Sequence[int] = (512, 1024, 2048),
+                               hop_sizes: Sequence[int] = (128, 256, 512),
+                               win_sizes: Sequence[int] = (512, 1024, 2048)) -> torch.Tensor:
+    """Spectral convergence plus log-magnitude L1 of ``[..., L]`` waveforms,
+    averaged over the resolutions (periodic Hann, reflect centre padding,
+    magnitudes ``sqrt(re^2 + im^2 + 1e-12)``). Through the plain
+    differentiable STFT, not kernel K1, which has no backward: the JAX
+    package takes its matmul STFT here for the same reason."""
+    total = torch.zeros((), device=pred_wav.device)
+    for n_fft, hop, win in zip(fft_sizes, hop_sizes, win_sizes):
+        cfg = STFTConfig(n_fft=n_fft, hop_length=hop, win_length=win)
+        re_p, im_p = stft(pred_wav, cfg)
+        re_t, im_t = stft(target_wav, cfg)
+        mp = torch.sqrt(re_p**2 + im_p**2 + 1e-12)
+        mt = torch.sqrt(re_t**2 + im_t**2 + 1e-12)
+        sc = torch.linalg.vector_norm(mt - mp) / torch.clamp(torch.linalg.vector_norm(mt),
+                                                              min=1e-12)
+        log_l1 = torch.abs(torch.log(mp + 1e-5) - torch.log(mt + 1e-5)).mean()
+        total = total + sc + log_l1
+    return total / len(fft_sizes)
 
 
 def stoi_proxy_loss(pred: torch.Tensor, target: torch.Tensor,

@@ -17,6 +17,7 @@
 The learning rate is a field (``lr``) that the trainer sets once per epoch.
 Schedules map epoch -> lr; ``cosine`` ignores ``warmup_epochs`` as the
 reference does (only ``warmup_cosine`` warms up).
+``warmup_cosine_step_schedule`` maps a step to an lr, for step-driven runs.
 """
 
 from __future__ import annotations
@@ -224,6 +225,27 @@ def create_scheduler(config: dict, num_epochs: Optional[int] = None) -> EpochSch
         return PlateauScheduler(base_lr, patience=sc.get("patience", 5),
                                 factor=sc.get("factor", 0.5), min_lr=min_lr)
     raise ValueError(f"Unknown scheduler: {name}")
+
+
+def warmup_cosine_step_schedule(base_lr: float, warmup_steps: int, total_steps: int,
+                                min_lr: float = 0.0) -> Callable[[int], float]:
+    """step -> lr, as ``optax.warmup_cosine_decay_schedule(0, base_lr,
+    warmup_steps, total_steps, min_lr)``: linear from 0 to ``base_lr`` over
+    ``warmup_steps`` (none at 0), then a cosine from ``base_lr`` to
+    ``min_lr`` over the remaining ``total_steps - warmup_steps``, then
+    ``min_lr``."""
+    decay = total_steps - warmup_steps
+    if decay <= 0:
+        raise ValueError(f"total_steps ({total_steps}) must exceed warmup_steps ({warmup_steps})")
+    alpha = 0.0 if base_lr == 0.0 else min_lr / base_lr
+
+    def schedule(step: int) -> float:
+        if step < warmup_steps or step < 0:
+            return base_lr * max(step, 0) / max(warmup_steps, 1)
+        t = min(step - warmup_steps, decay)
+        return base_lr * ((1 - alpha) * 0.5 * (1 + math.cos(math.pi * t / decay)) + alpha)
+
+    return schedule
 
 
 def parameters(model: torch.nn.Module) -> List[torch.Tensor]:

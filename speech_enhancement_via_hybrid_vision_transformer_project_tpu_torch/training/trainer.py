@@ -11,9 +11,12 @@ BatchNorm statistics kept from before the step, its metrics zeroed).
 The epoch loop keeps the JAX trainer's contract: the learning rate set once
 per epoch from the schedule (``scheduler(0)`` at start), metrics averaged
 over accepted steps, best / periodic / final checkpoints, early stopping,
-best-on-train without a validation loader, resume with epoch + 1. Not
-ported: the device mesh and multi-host training (ROADMAP queue 1 item 10),
-the profiler hook, TensorBoard and audio-sample logging.
+best-on-train without a validation loader, resume with epoch + 1 (from the
+port's checkpoints and from the JAX trainer's, optax state included),
+TensorBoard scalars and audio samples when the config asks for them, and a
+``torch.profiler`` trace of steps 1-5 of the first epoch with
+``profile_dir``. Not ported: the device mesh and multi-host training
+(ROADMAP queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -182,8 +185,10 @@ class Trainer:
         checkpoint_dir: Optional[str | Path] = None,
         log_dir: Optional[str | Path] = None,
         resume_from: Optional[str | Path] = None,
+        profile_dir: Optional[str | Path] = None,
     ):
         self.device = torch.device(device)
+        self.profile_dir = profile_dir
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Trainer: device cuda asked for, but no CUDA device is available")
         self.config = config
@@ -215,12 +220,12 @@ class Trainer:
 
         lc = tc.get("logging", {})
         self.logger = MetricsLogger(log_dir or lc.get("log_dir", "logs"),
-                                    tc.get("experiment_name", "experiment"))
-        for key, what in (("use_tensorboard", "TensorBoard"),
-                          ("save_audio_samples", "audio-sample logging")):
-            if lc.get(key, False):
-                print(f"note: training.logging.{key} is set, but {what} is not ported: "
-                      f"scalars go to {self.logger.jsonl_path} only")
+                                    tc.get("experiment_name", "experiment"),
+                                    use_tensorboard=lc.get("use_tensorboard", True))
+        # as the JAX trainer: audio samples only where a TensorBoard writer is
+        self.log_audio_samples = lc.get("save_audio_samples", False) and (
+            self.logger.tb is not None)
+        self.num_audio_samples = lc.get("num_audio_samples", 5)
 
         self.step = 0
         self.current_epoch = 0
@@ -245,17 +250,29 @@ class Trainer:
         steps, ``nonfinite_skipped`` over all of them."""
         totals: Dict[str, torch.Tensor] = {}
         count = 0
+        prof = None
         for batch in self.train_loader:
+            if self.profile_dir and epoch == 0 and count == 1:
+                prof = self._start_profiler()  # steps 1-5: batch 0 builds the kernels
             audio_sec = float(batch["length"].sum()) / self.sample_rate
-            metrics = self.train_step(batch_to_device(batch, self.device))
+            if prof is not None:
+                with torch.profiler.record_function(f"train_step_{count}"):
+                    metrics = self.train_step(batch_to_device(batch, self.device))
+            else:
+                metrics = self.train_step(batch_to_device(batch, self.device))
             self.step += 1
             count += 1
+            if prof is not None and count >= 6:
+                self._stop_profiler(prof)
+                prof = None
             for k, v in metrics.items():
                 totals[k] = v if k not in totals else totals[k] + v
             if count % self.log_every == 0:
                 self.logger.log_scalars(count, {k: float(v) for k, v in metrics.items()},
                                         prefix="train/batch_")
             self.stopwatch.tick(audio_sec)
+        if prof is not None:  # fewer than 6 batches in the epoch
+            self._stop_profiler(prof)
         host = {k: float(v) for k, v in totals.items()}
         skipped = host.get("nonfinite_skipped", 0.0)
         accepted = count - skipped
@@ -264,6 +281,43 @@ class Trainer:
             return {k: (1.0 if k == "nonfinite_skipped" else float("nan")) for k in host}
         return {k: v / (max(count, 1) if k == "nonfinite_skipped" else max(accepted, 1.0))
                 for k, v in host.items()}
+
+    def _start_profiler(self):
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=acts)
+        prof.start()
+        return prof
+
+    def _stop_profiler(self, prof) -> None:
+        """Stop ``prof`` once the device has finished, and write its Chrome
+        trace into ``profile_dir``."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.stop()
+        out = Path(self.profile_dir)
+        out.mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(out / "train_steps.pt.trace.json"))
+
+    def _log_audio_samples(self, epoch: int) -> None:
+        """Enhance ``num_audio_samples`` validation clips with the current
+        weights and log the noisy (first epoch) and enhanced audio."""
+        if not self.log_audio_samples or self.val_loader is None:
+            return
+        try:
+            from ..inference.enhancer import AudioEnhancer
+
+            enhancer = AudioEnhancer(self.model, self.config, device=self.device,
+                                     buckets=tuple(self.train_loader.buckets))
+            ds = self.val_loader.dataset
+            wavs = [ds.load_pair(i)[0] for i in range(min(self.num_audio_samples, len(ds)))]
+            for i, (noisy, enh) in enumerate(zip(wavs, enhancer.enhance_batch(wavs))):
+                if epoch == 0:
+                    self.logger.log_audio(self.step, f"audio/noisy_{i}", noisy, self.sample_rate)
+                self.logger.log_audio(self.step, f"audio/enhanced_{i}", enh, self.sample_rate)
+        except Exception as e:  # never stop training over logging
+            print(f"warning: audio sample logging failed: {e}")
 
     def validate(self) -> Dict[str, float]:
         if self.val_loader is None:
@@ -301,6 +355,8 @@ class Trainer:
             self.logger.log_scalars(self.step, scalars, prefix="epoch/")
             history["train_loss"].append(train_metrics.get("total", 0.0))
             history["val_loss"].append(val_loss)
+            self._log_audio_samples(epoch)
+            self.logger.flush()
 
             # best-model and patience bookkeeping only on validated epochs
             # (or on the train loss when there is no validation loader)
@@ -327,14 +383,12 @@ class Trainer:
                                config=self.config)
 
     def load(self, path: str | Path) -> None:
-        """Resume: weights, BatchNorm statistics, optimizer state, step and
-        the loop position (the saved epoch + 1)."""
-        step, opt_state, meta = load_checkpoint(path, self.model)
+        """Resume: weights, BatchNorm statistics, optimizer state (the port's,
+        or a JAX checkpoint's optax state), step and the loop position (the
+        saved epoch + 1)."""
+        step, opt_state, meta = load_checkpoint(path, self.model, self.optimizer.name)
         if opt_state is None:
-            raise ValueError(
-                f"{path} holds no port optimizer state (a JAX checkpoint?): resuming from a "
-                "JAX optimizer state is not ported"
-            )
+            raise ValueError(f"{path} holds no optimizer state to resume from")
         self.optimizer.load_state_dict(opt_state)
         self.step = step
         self.current_epoch = int(meta.get("epoch", -1)) + 1

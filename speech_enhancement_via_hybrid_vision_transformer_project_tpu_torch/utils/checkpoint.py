@@ -14,7 +14,9 @@ needed.
 * BatchNorm ``scale``/``bias`` and ``batch_stats`` ``mean``/``var`` ->
   ``weight``/``bias``/``running_mean``/``running_var``;
 * ``attn/Dense_0`` -> ``attn.qkv``, ``attn/Dense_1`` -> ``attn.proj``,
-  ``mlp/Dense_0|1`` -> ``mlp.fc1|fc2``, ``block_i`` -> ``blocks.i``.
+  ``mlp/Dense_0|1`` -> ``mlp.fc1|fc2``, ``block_i`` -> ``blocks.i``; the
+  linear-attention branch keeps its names (``lin_attn_i``, ``lin_mlp_i``,
+  ``lin_norm1_i``, ``lin_norm2_i``), with the same ``Dense`` renames.
 
 ``state_dict_to_flax`` is its inverse. ``save_checkpoint`` writes the
 port's training state: ``params`` and ``batch_stats`` in the flax tree, so
@@ -22,6 +24,8 @@ that the JAX package's ``load_model_weights`` and this module's reader both
 load them, plus ``step`` and ``port_opt_state`` (the port's optimizer, which
 only the port resumes from); ``meta.json`` carries the JAX keys (``epoch``,
 ``global_step``, ``best_val_loss``, ``config``, ``format``).
+``optax_state_to_port`` reads the optax state of a checkpoint that the JAX
+``Trainer`` wrote (``opt_state``) into the port optimizer's state.
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ import json
 import re
 import struct
 from pathlib import Path
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -154,13 +158,18 @@ _MODULE_RENAMES = (
 _LEAF_RENAMES = {"scale": "weight", "mean": "running_mean", "var": "running_var"}
 
 
+def _is(parent: Optional[str], kind: str) -> bool:
+    """``parent`` is an ``attn``/``mlp`` module, standard or linear-branch."""
+    return parent is not None and (parent == kind or parent.startswith(f"lin_{kind}_"))
+
+
 def _torch_name(path: tuple) -> str:
     parts = []
     for i, p in enumerate(path[:-1]):
         parent = path[i - 1] if i else None
-        if parent == "attn" and p in ("Dense_0", "Dense_1"):
+        if _is(parent, "attn") and p in ("Dense_0", "Dense_1"):
             p = {"Dense_0": "qkv", "Dense_1": "proj"}[p]
-        elif parent == "mlp" and p in ("Dense_0", "Dense_1"):
+        elif _is(parent, "mlp") and p in ("Dense_0", "Dense_1"):
             p = {"Dense_0": "fc1", "Dense_1": "fc2"}[p]
         elif parent == "patch_embed" and p == "Conv_0":
             p = "proj"
@@ -271,7 +280,7 @@ def _flax_path(name: str, ndim: int) -> tuple[str, tuple]:
             i += 2
             continue
         if p == "proj":
-            p = "Dense_1" if path and path[-1] == "attn" else "Conv_0"
+            p = "Dense_1" if path and _is(path[-1], "attn") else "Conv_0"
         path.append(_FLAX_MODULES.get(p, p))
         i += 1
     leaf = parts[-1]
@@ -301,6 +310,55 @@ def state_dict_to_flax(sd: Dict[str, torch.Tensor]) -> Dict:
     return out
 
 
+def optax_state_to_port(opt_state: Dict, names: Sequence[str], name: str = "adamw") -> Dict:
+    """The JAX trainer's optax state, as a checkpoint stores it, in the form
+    of the port ``Optimizer.load_state_dict``. ``names``: the port
+    parameters' ``state_dict`` names in the optimizer's order.
+
+    Layout (flax state dicts: tuple members under ``"0"``, ``"1"``, ...,
+    NamedTuple fields by name): optional ``MultiSteps`` (``mini_step``,
+    ``gradient_step``, ``inner_opt_state``, ``acc_grads``) around an
+    optional ``chain(clip_by_global_norm, ...)`` tuple whose last member is
+    the ``inject_hyperparams`` state (``count``, ``hyperparams`` with
+    ``learning_rate``, ``inner_state``); ``inner_state["0"]`` is Adam's
+    ``(count, mu, nu)`` or SGD's ``trace``. Moments and accumulated
+    gradients are parameter trees, transposed as the weights are."""
+    state: Dict = {"name": name, "mini_step": 0}
+    node = opt_state
+    if "inner_opt_state" in node:  # MultiSteps
+        state["mini_step"] = int(np.asarray(node["mini_step"]))
+        state["acc"] = _param_list(node["acc_grads"], names)
+        node = node["inner_opt_state"]
+    if "hyperparams" not in node and str(len(node) - 1) in node:
+        node = node[str(len(node) - 1)]  # chain(clip, optimizer): the optimizer is last
+    if "hyperparams" not in node:
+        raise ValueError("no inject_hyperparams state in the optax state")
+    state["lr"] = float(np.asarray(node["hyperparams"]["learning_rate"]))
+    inner = node["inner_state"].get("0", {})
+    if name in ("adam", "adamw"):
+        if "mu" not in inner:
+            raise ValueError(f"optax state holds no Adam moments for optimizer {name!r}")
+        state["count"] = int(np.asarray(inner["count"]))
+        state["mu"] = _param_list(inner["mu"], names)
+        state["nu"] = _param_list(inner["nu"], names)
+    else:
+        # SGD counts no steps (the port's count matters only to Adam)
+        state["count"] = int(np.asarray(node["count"]))
+        if "trace" in inner:
+            state["trace"] = _param_list(inner["trace"], names)
+    return state
+
+
+def _param_list(tree: Dict, names: Sequence[str]) -> list:
+    """A flax parameter tree as tensors in the order of ``names``."""
+    sd = flax_to_state_dict({"params": tree})
+    missing = [n for n in names if n not in sd]
+    if missing or len(sd) != len(names):
+        raise KeyError(f"optax state does not match the parameters: missing {missing}, "
+                       f"unexpected {sorted(set(sd) - set(names))}")
+    return [sd[n] for n in names]
+
+
 def save_checkpoint(path: str | Path, model: torch.nn.Module, *, step: int = 0,
                     optimizer_state: Optional[Dict] = None, epoch: int = 0,
                     global_step: int = 0, best_val_loss: float = float("inf"),
@@ -325,16 +383,22 @@ def save_checkpoint(path: str | Path, model: torch.nn.Module, *, step: int = 0,
     return path
 
 
-def load_checkpoint(path: str | Path, model: torch.nn.Module) -> tuple[int, Optional[Dict], Dict]:
+def load_checkpoint(path: str | Path, model: torch.nn.Module,
+                    optimizer_name: str = "adamw") -> tuple[int, Optional[Dict], Dict]:
     """Load a checkpoint's weights into ``model`` (strict, as
     ``load_model_weights``); returns ``(step, optimizer state or None,
-    meta)``."""
+    meta)``. The optimizer state is the port's own, or, from a checkpoint
+    of the JAX trainer, its optax state read by ``optax_state_to_port`` for
+    the port optimizer ``optimizer_name`` over ``model``'s parameters."""
     tree = msgpack_restore((Path(path) / "state.msgpack").read_bytes())
     load_model_weights(path, model, tree=tree)
     opt = tree.get("port_opt_state")
     if opt is not None:
         opt = {k: ([v[str(i)] for i in range(len(v))] if isinstance(v, dict) else v)
                for k, v in opt.items()}
+    elif isinstance(tree.get("opt_state"), dict):
+        names = [n for n, p in model.named_parameters() if p.requires_grad]
+        opt = optax_state_to_port(tree["opt_state"], names, optimizer_name)
     step = tree.get("step", 0)
     return int(np.asarray(step)), opt, read_meta(path)
 

@@ -415,3 +415,86 @@ def test_fold_bn_enhancer_matches_unfolded_on_cuda(dev, gen):
         isinstance(m, torch.nn.BatchNorm2d) for m in folded.model.modules())
     for a, b in zip(folded.enhance_batch(wavs), plain.enhance_batch(wavs)):
         assert a.shape == b.shape and float(np.abs(a - b).max()) < 2e-4
+
+
+@pytest.mark.parametrize("attn_dropout", [0.0, 0.1], ids=["k2", "explicit_weights"])
+def test_remat_gradients_equal_no_remat_on_cuda(attn_dropout, dev):
+    """A train step with dropout and drop-path 0.1 gives the same gradients
+    with ``remat`` as without, from the same seed (the recompute replays the
+    CUDA generator's draws). cuDNN is held deterministic for the comparison,
+    but the bilinear resize's backward adds with atomics, so two runs of
+    the same step differ at rounding level: each leaf's gradient with remat
+    is held within 1e-5 of its largest, or within 10 times the largest such
+    difference between two runs without remat (other dropout masks would
+    put it off by the gradient's own size). With K2 on the path its forward
+    runs twice a block under remat (the recompute), its backward once."""
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.data.augmentation import (
+        SpecAugmentConfig,
+    )
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.training.losses import (
+        LossConfig,
+    )
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.training.trainer import (
+        make_step_fns,
+    )
+
+    n = 63 * 128
+    rng = np.random.default_rng(1)
+    lengths = np.array([n, 6000, 3000], np.int32)
+    noisy = np.zeros((3, n), np.float32)
+    clean = np.zeros((3, n), np.float32)
+    for i, m in enumerate(lengths):
+        clean[i, :m] = 0.3 * np.sin(np.arange(m) * 0.04 * (i + 1))
+        noisy[i, :m] = clean[i, :m] + 0.1 * rng.standard_normal(m)
+    batch = {"noisy_audio": torch.from_numpy(noisy).to(dev),
+             "clean_audio": torch.from_numpy(clean).to(dev),
+             "length": torch.from_numpy(lengths).to(dev),
+             "valid": torch.ones(3, dtype=torch.bool, device=dev)}
+    kw = dict(embed_dim=64, num_heads=4, num_layers=2, mlp_ratio=2.0,
+              encoder_channels=(16, 32, 64), decoder_channels=(32, 16, 8, 1), dropout=0.1,
+              attn_dropout=attn_dropout, drop_path_rate=0.1)
+    state = init_weights(HybridViT(**kw), torch.Generator().manual_seed(0)).state_dict()
+    grads, launches = {}, {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for key, remat in (("a", False), ("b", False), (True, True)):
+            model = HybridViT(**kw, remat=remat)
+            model.load_state_dict(state)
+            model.to(dev)
+            cap = _Capture(list(model.parameters()))
+            step, _ = make_step_fns(model, cap, LossConfig(), STFTConfig(), SpecAugmentConfig(),
+                                    augment=False, use_attention_mask=True)
+            torch.manual_seed(5)
+            kernels.reset_launch_counts()
+            step(batch)
+            torch.cuda.synchronize()
+            launches[remat] = {k: r.launches for k, r in kernels.KERNELS.items()}
+            grads[key] = cap.grads
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+    def rel(x, y):
+        return max(float((a - b).abs().max()) / float(a.abs().max()) for a, b in zip(x, y))
+
+    assert rel(grads["a"], grads[True]) <= max(1e-5, 10 * rel(grads["a"], grads["b"]))
+    k2 = 2 if attn_dropout == 0 else 0
+    assert launches[False]["attention_fwd"] == k2 and launches[True]["attention_fwd"] == 2 * k2
+    assert launches[False]["attention_bwd"] == launches[True]["attention_bwd"] == k2
+
+
+def test_linear_attention_cuda_matches_cpu(dev, gen):
+    """A small model with ``attention_type="linear"`` (no K2: its einsums are
+    cuBLAS matmuls) gives the cpu's output on cuda within the model-output
+    tolerance, 1e-4."""
+    kw = dict(embed_dim=64, num_heads=4, num_layers=2, mlp_ratio=2.0,
+              encoder_channels=(16, 32, 64), decoder_channels=(32, 16, 8, 1),
+              attention_type="linear")
+    model = init_weights(HybridViT(**kw), gen).eval()
+    x = torch.rand(2, 257, 64, 1, generator=gen)
+    with torch.no_grad():
+        ref = model(x)
+        kernels.reset_launch_counts()
+        got = model.to(dev)(x.to(dev)).cpu()
+    assert kernels.KERNELS["attention_fwd"].launches == 0
+    assert float((got - ref).abs().max()) <= 1e-4

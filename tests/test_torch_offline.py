@@ -251,13 +251,13 @@ def test_enhance_cli_file_streaming_and_directory(checkpoint, port_model, tmp_pa
 
 def test_enhance_cli_errors(checkpoint, tmp_path, monkeypatch):
     """As JAX ``tests/test_cli.py::test_enhance_cli_errors``, plus the
-    options not ported yet and the card refused where there is none."""
+    option not ported yet (``--data-parallel``) and the card refused where
+    there is none."""
     save_wav(tmp_path / "dir" / "a.wav", _tone(0.3, 0), SR)
     cases = [
         ((tmp_path / "missing.wav", tmp_path / "x.wav"), (), "input not found"),
         ((tmp_path / "dir", tmp_path / "file.wav"), (), "directory output"),
         ((tmp_path / "dir", tmp_path / "o"), ("--data-parallel", "2"), "item 10"),
-        ((tmp_path / "dir", tmp_path / "o"), ("--dft-precision", "high"), "item 5"),
     ]
     for (inp, out), extra, msg in cases:
         with pytest.raises(SystemExit, match=msg):

@@ -5,8 +5,9 @@ BatchNorm in train mode as flax computes it: the batch mean and the biased
 variance normalize, and the running statistics move by 0.1 towards them
 (torch's own ``BatchNorm2d`` would keep the unbiased variance, n/(n-1) off).
 A ``ConvBlock`` and a ``TransposeConvBlock`` in train mode (dropout 0) give
-the JAX block's output and new ``batch_stats`` within 1e-5 (float32). The
-options that are not ported raise.
+the JAX block's output and new ``batch_stats`` within 1e-5 (float32). A
+compute dtype other than float32 and bfloat16, and an attention type other
+than standard and linear, raise.
 """
 
 import jax
@@ -79,10 +80,10 @@ def test_batchnorm_uses_the_biased_variance():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="remat"):
-        HybridViT(remat=True)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        HybridViT(compute_dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="compute_dtype"):
+        HybridViT(compute_dtype=torch.float16)
+    with pytest.raises(ValueError, match="attention_type"):
+        HybridViT(attention_type="performer")
 
 
 def test_drop_path_rates_rise_linearly():

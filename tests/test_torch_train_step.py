@@ -28,6 +28,9 @@ gradient near 0 into a step of lr either way. The fullres head's cases are in
 ``test_torch_train_step_fullres.py``.
 """
 
+import contextlib
+from unittest import mock
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -37,6 +40,9 @@ import torch
 
 from speech_enhancement_via_hybrid_vision_transformer_project_tpu.data.augmentation import (
     SpecAugmentConfig as JSpecAugmentConfig,
+)
+from speech_enhancement_via_hybrid_vision_transformer_project_tpu.data.pipeline import (
+    featurize_batch as j_featurize_batch,
 )
 from speech_enhancement_via_hybrid_vision_transformer_project_tpu.models import HybridViT as JHybridViT
 from speech_enhancement_via_hybrid_vision_transformer_project_tpu.ops.stft import STFTConfig as JSTFTConfig
@@ -50,7 +56,13 @@ from speech_enhancement_via_hybrid_vision_transformer_project_tpu.training.train
 from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.data.augmentation import (
     SpecAugmentConfig,
 )
+from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.data.pipeline import (
+    featurize_batch as port_featurize,
+)
 from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.models import HybridViT
+from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.training import (
+    trainer as trainer_module,
+)
 from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.ops.stft import STFTConfig
 from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.training.losses import LossConfig
 from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.training.optimizer import Optimizer
@@ -114,9 +126,31 @@ def _jax_step(jm, variables, batch, loss_kw, **kw):
         return flax_to_state_dict(tree), {k: float(v) for k, v in metrics.items()}
 
 
-def check_train_step(head, mode, mask_padding, pos, fused, int16, rng):
+@contextlib.contextmanager
+def _model_input_from_jax(batch):
+    """The port's train step with the JAX featurizer's noisy spectrogram
+    (float32 in both steps, also under ``jax.enable_x64``) as the model's
+    input; every other featurized tensor stays the port's own."""
+    with jax.enable_x64(True):
+        spec = torch.from_numpy(np.array(j_featurize_batch(
+            *(jnp.asarray(batch[k]) for k in ("noisy_audio", "clean_audio", "length")),
+            JSTFTConfig()).noisy_spec))
+
+    def featurize(*args, **kwargs):
+        return port_featurize(*args, **kwargs)._replace(noisy_spec=spec)
+
+    with mock.patch.object(trainer_module, "featurize_batch", featurize):
+        yield
+
+
+def check_train_step(head, mode, mask_padding, pos, fused, int16, rng, jax_kw=None,
+                     port_kw=None, same_model_input=False):
+    """``jax_kw``/``port_kw``: more keyword arguments of the JAX and the
+    port model (compute dtype, remat, attention type). With
+    ``same_model_input`` the port's step feeds the model the JAX
+    featurizer's noisy spectrogram (see ``test_torch_bf16.py``)."""
     kw = dict(SMALL, head_type=head, head_channels=8, pos_embed_type=pos)
-    jm = JHybridViT(**kw, use_pallas_attention=fused)
+    jm = JHybridViT(**kw, use_pallas_attention=fused, **(jax_kw or {}))
     variables = _jax_variables(jm, np.zeros((1, 257, 64, 1), np.float32), rng)
     batch = make_batch(rng, int16)
     # the SI-SDR term in mask mode (its magnitude-mode use warns, ROADMAP section 3)
@@ -124,13 +158,14 @@ def check_train_step(head, mode, mask_padding, pos, fused, int16, rng):
     ref, ref_metrics = _jax_step(jm, variables, batch, loss_kw, use_attention_mask=mask_padding,
                                  output_mode=mode)
 
-    model = HybridViT(**kw)
+    model = HybridViT(**kw, **(port_kw or {}))
     model.load_state_dict(flax_to_state_dict(variables))
     names = [n for n, _ in model.named_parameters()]
     cap = _Capture(list(model.parameters()))
     step, _ = make_step_fns(model, cap, LossConfig(**loss_kw), STFTConfig(), SpecAugmentConfig(),
                             augment=False, use_attention_mask=mask_padding, output_mode=mode)
-    metrics = step({k: torch.from_numpy(v) for k, v in batch.items()})
+    with _model_input_from_jax(batch) if same_model_input else contextlib.nullcontext():
+        metrics = step({k: torch.from_numpy(v) for k, v in batch.items()})
 
     assert set(metrics) == set(ref_metrics)
     for k, v in metrics.items():

@@ -8,7 +8,7 @@ Resume continues at the saved epoch + 1 with the saved state. The epoch
 loop averages loss metrics over accepted steps only, keeps best / periodic /
 final checkpoints, tracks the train loss without a validation loader and
 stops early. The CLI trains one tiny epoch on the CPU and refuses what is
-not ported (bf16, parallelism).
+not ported (parallelism).
 """
 
 import json
@@ -227,11 +227,10 @@ def test_cli_trains_one_epoch_on_cpu(data_root, tmp_path):
 
 
 @pytest.mark.parametrize("args,match", [
-    ([], "bf16"), (["--data-parallel", "2"], "item 10"), (["--num-processes", "2"], "item 10")])
+    (["--model-parallel", "2"], "item 10"), (["--data-parallel", "2"], "item 10"),
+    (["--num-processes", "2"], "item 10")])
 def test_cli_refuses_what_is_not_ported(args, match, data_root, tmp_path):
     config = small_config()
-    if not args:
-        set_config_value(config, "training.use_amp", True)  # with tpu.compute_dtype bfloat16
     cfg_dir = _write_config(tmp_path / "config", config)
     with pytest.raises(SystemExit, match=match):
         main(["--config-dir", str(cfg_dir), "--data-root", str(data_root), "--device", "cpu",
