@@ -109,12 +109,57 @@ which raises on failure:
    c. linear attention: the 28M serving recipe with ``attention_type:
       linear`` enhances one clip on cuda and on cpu, within ``TOL_WAVE``.
 
+11. mesh (its wall time printed; ranks are processes started by the port's
+    launcher, each with a timeout, a failing rank failing the phase):
+   a. NCCL at world size 1 (``initialize_distributed(backend="nccl")``): an
+      all-reduce of a known tensor comes back unchanged; the 28M recipe's
+      step at batch 16 through the mesh code against the plain step (cuDNN
+      deterministic): loss terms and BatchNorm statistics bit for bit; the
+      update within max(1e-5, 10 x) two plain runs' difference, as phase 10b
+      holds remat (F.interpolate's bilinear backward adds with atomics). At
+      one device the mesh code runs no collective (``parallelize`` leaves
+      the model as it is, the step has no data group): this proves the NCCL
+      group and that a mesh of one is the one-process path, nothing more.
+   b. two data ranks on this card (gloo, CUDA tensors): the depth-1 step
+      (dropouts 0) on 2 x 8 rows against one device's step on the same 16
+      rows, and again with the second rank's 8 rows a padding batch (every
+      row invalid; BatchNorm normalizes over every row, as the JAX step over
+      its global batch): loss and BatchNorm statistics within 1e-5, the
+      all-reduced gradients within phase 9's limits. Then 3 full-width
+      recipe steps at 2 x 8: losses finite and equal on both ranks, K1 2, K2
+      6 and K2's backward 6 a step on each rank.
+   c. tensor parallelism over 2 ranks of this card (gloo) at 12L/1024d/16h
+      (dropouts 0): the eval output against TP = 1 within 2e-5 or TP = 1's
+      own cuda-vs-cpu difference, whichever is larger, one step at
+      batch 4 in the 384-frame bucket against TP = 1 at phase 9's limits, K2
+      on 8 of the 16 heads on each rank.
+   d. the 28M serving recipe on two replicas of this card (a mesh over
+      [cuda:0, cuda:0]), 32 x 3 s PCM16: waveforms within ``TOL_WAVE`` of
+      phase 5's, K1 1, K2 6 and K3 1 a replica; the enhance CLI asking for
+      one card more than visible exits non-zero naming both counts.
+   e. times: the gradients' all-reduce (gloo at 2 ranks, NCCL at world size
+      1), the 2-rank step beside the one-process step, and the 2-replica
+      batch beside one device's. Two ranks on one card measure the mesh's
+      overhead, not its scaling.
+
+``python3 chip_smoke.py --cards N`` (a machine with N >= 2 cards) builds the
+kernels and runs phase 11 alone over NCCL, one rank a card: N data ranks,
+TP = 2 x DP = N / 2 and N inference replicas, with the same checks and
+times (no 11a); then the train CLI itself at ``--data-parallel N`` and at 1
+on the shipped ``config/`` (two epochs of synthetic files, a third resumed
+on N cards): every rank's final loss equal, rank 0 alone writing the
+metrics and the checkpoints, which read back, and the epoch's wall per
+batch; and prints the launches and the result JSON.
+
+Before its last three lines it prints its own wall time, start to result.
 Prints, on its last three lines: the card's ``nvidia-smi`` name and power
 limit, a JSON line of per-kernel results (``launches`` in the phase 5
 batch, ``offline_launches`` in the phase 8 evaluate run,
 ``train_launches`` in the phase 9 train steps, ``shipped_launches`` in the
-phase 10 CLI epoch, ``remat_train_launches`` in one 28M remat step), and
-the result JSON.
+phase 10 CLI epoch, ``remat_train_launches`` in one 28M remat step,
+``mesh_train_launches`` per rank in one 2-rank step, ``tp_train_launches``
+per rank in one TP step, ``mesh_serve_launches`` per replica in one mesh
+batch), and the result JSON.
 """
 
 from __future__ import annotations
@@ -135,6 +180,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+STARTED = time.perf_counter()  # the script's own wall time runs from here
 ROOT = Path(__file__).resolve().parent
 SR = 16000
 BATCH, SECONDS = 32, 3.0
@@ -1192,10 +1238,658 @@ def shipped(dev: torch.device, smi: str, rng: np.random.Generator) -> dict:
     return {"launches": shipped_launches, "remat_launches": remat["28M"][True]["launches"]}
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the mesh
+# ---------------------------------------------------------------------------
+
+MESH_TIMEOUT = 600  # seconds for a spawned mesh job, build and all
+# TP = 2 vs TP = 1 eval output: tests/test_torch_mesh_train.py's limit at its
+# small width; at 12L/1024d/16h the larger of it and TP = 1's own cuda-vs-cpu
+# difference (the row-parallel sums over half the inputs, then the all-reduce,
+# add in another order; measured 2.78e-5 on an H100 at 700 W)
+TOL_TP_FORWARD = 2e-5
+SCALED = {"embed_dim": 1024, "num_heads": 16, "num_layers": 12}  # bench_train.py --scaled
+
+
+def depth1(config: dict) -> dict:
+    """``config``'s model at depth 1 with every dropout 0."""
+    mc = config["model"]
+    return {**config, "model": {**mc, "encoder": {**mc.get("encoder", {}), "dropout": 0.0},
+                                "transformer": {**mc.get("transformer", {}), "num_layers": 1,
+                                                "drop_path_rate": 0.0, "attention_dropout": 0.0,
+                                                "dropout": 0.0}}}
+
+
+def recipe_step_fns(model, opt, mesh=None, augment: bool = False, generator=None):
+    """Phase 9's step functions of the training recipe (mask output, fullres
+    head, log-L1 0.05, the patch mask), on ``mesh`` when given."""
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.data.augmentation import (
+        SpecAugmentConfig,
+    )
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.ops.stft import STFTConfig
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.training.losses import (
+        LossConfig,
+    )
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.training.trainer import (
+        make_step_fns,
+    )
+
+    return make_step_fns(model, opt, LossConfig(log_l1_weight=0.05), STFTConfig(),
+                         SpecAugmentConfig(), augment=augment, use_attention_mask=True,
+                         output_mode="mask", generator=generator, mesh=mesh)
+
+
+def seeded_model(config: dict, dev: torch.device):
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.models import (
+        create_hybrid_vit, init_weights,
+    )
+
+    return init_weights(create_hybrid_vit(config), torch.Generator().manual_seed(0)).to(dev)
+
+
+def rank_rows(batch: dict, mesh, dev: torch.device) -> dict:
+    """This data rank's contiguous rows of a numpy loader batch, on ``dev``."""
+    n = len(batch["valid"]) // mesh.data
+    lo = mesh.data_rank * n
+    return {k: torch.from_numpy(np.ascontiguousarray(v[lo:lo + n])).to(dev)
+            for k, v in batch.items()}
+
+
+def launch_counts() -> dict:
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.ops import kernels
+
+    torch.cuda.synchronize()
+    return {name: k.launches for name, k in kernels.KERNELS.items()}
+
+
+def mesh_check_task(mesh, job: dict) -> dict:
+    """11b: the depth-1 step (dropouts 0, SpecAugment off) on this rank's 8
+    rows of each of ``job["check"]``'s batches: metrics, the gradients the
+    optimizer is handed (all-reduced), the new BatchNorm statistics."""
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.training.trainer import (
+        parallelize,
+    )
+
+    out = {}
+    for name, batch in job["check"].items():
+        model = parallelize(seeded_model(depth1(RECIPE), mesh.device), mesh)
+        cap = GradCapture(model.parameters())
+        step = recipe_step_fns(model, cap, mesh)[0]
+        metrics = step(rank_rows(batch, mesh, mesh.device))
+        out[name] = ({k: float(v) for k, v in metrics.items()}, [g.cpu() for g in cap.grads],
+                     {k: v.cpu() for k, v in model.state_dict().items() if "running" in k})
+    return out
+
+
+def mesh_train_task(mesh, job: dict) -> dict:
+    """11b: the full-width training recipe (dropouts 0.1, SpecAugment on,
+    AdamW) on this rank's 8 rows: a first step, then ``TRAIN_MESH_STEPS``
+    steps whose losses, launches and walls it returns; and the wall of an
+    all-reduce of the gradients' bytes over the data group."""
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.ops import kernels
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.parallel import rank_seed
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.parallel.collectives import (
+        all_reduce_,
+    )
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.training.optimizer import (
+        Optimizer, parameters,
+    )
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.training.trainer import (
+        parallelize,
+    )
+
+    dev = mesh.device
+    torch.manual_seed(rank_seed(0, mesh.data_rank))
+    aug = torch.Generator(device=dev).manual_seed(rank_seed(1, mesh.data_rank))
+    model = parallelize(seeded_model(RECIPE, dev), mesh)
+    opt = Optimizer(parameters(model), "adamw", lr=TRAIN_LR, weight_decay=0.01, max_norm=1.0)
+    step = recipe_step_fns(model, opt, mesh, augment=True, generator=aug)[0]
+    batch = rank_rows(job["train"], mesh, dev)
+    step(batch)  # first call
+    kernels.reset_launch_counts()
+    losses, walls = [], []
+    for _ in range(TRAIN_MESH_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = step(batch)
+        losses.append(float(metrics["total"]))  # waits for the step
+        walls.append((time.perf_counter() - t0) * 1e3)
+    launches = launch_counts()
+    flat = torch.zeros(sum(p.numel() for p in model.parameters()), device=dev)
+    reduce_ms = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        all_reduce_(flat, mesh.data_group)
+        torch.cuda.synchronize()
+        reduce_ms.append((time.perf_counter() - t0) * 1e3)
+    return {"losses": losses, "walls": walls, "launches": launches, "bytes": flat.numel() * 4,
+            "reduce_ms": statistics.median(reduce_ms[1:])}
+
+
+def mesh_tp_task(mesh, job: dict) -> dict:
+    """11c: the 12L/1024d/16h recipe at depth 12, dropouts 0, tensor-parallel
+    over the model group: its eval output on ``job["tp_spec"]``, then one
+    step on ``job["tp_batch"]`` (gradients gathered, saved by rank 0), with
+    the heads each K2 call got and the step's launches."""
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.models import (
+        attention as attention_module,
+    )
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.ops import kernels
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.parallel.sharding import (
+        tp_gather,
+    )
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.training.trainer import (
+        parallelize,
+    )
+
+    dev = mesh.device
+    heads, plain_attention = [], attention_module.attention
+
+    def recording(q, k, v, **kw):
+        heads.append(int(q.shape[1]))
+        return plain_attention(q, k, v, **kw)
+
+    attention_module.attention = recording
+    model = parallelize(seeded_model(scaled_config(), dev), mesh)
+    with torch.no_grad():
+        forward = model.eval()(torch.from_numpy(job["tp_spec"]).to(dev)).cpu()
+    cap = GradCapture(model.parameters())
+    step = recipe_step_fns(model, cap, mesh)[0]
+    kernels.reset_launch_counts()
+    metrics = {k: float(v) for k, v in step(rank_rows(job["tp_batch"], mesh, dev)).items()}
+    launches = launch_counts()
+    names = [n for n, _ in model.named_parameters()]
+    grads = [tp_gather(n, g, mesh).cpu() for n, g in zip(names, cap.grads)]
+    return {"forward": forward, "metrics": metrics, "heads": sorted(set(heads)),
+            "launches": launches, "grads": grads if mesh.rank == 0 else None,
+            "stats": {k: v.cpu() for k, v in model.state_dict().items() if "running" in k}}
+
+
+MESH_TASKS = {"check": mesh_check_task, "train": mesh_train_task, "tp": mesh_tp_task}
+TRAIN_MESH_STEPS = 3
+
+
+def scaled_config() -> dict:
+    """The 12L/1024d/16h recipe with dropouts 0 (so that TP = 2 and TP = 1
+    take the same step)."""
+    over = {**RECIPE["model"]["transformer"], **SCALED, "drop_path_rate": 0.0, "dropout": 0.0}
+    return {"model": {**RECIPE["model"], "encoder": {"dropout": 0.0}, "transformer": over}}
+
+
+def mesh_rank(rank: int, data: int, model: int, init_method: str, tmp: str) -> None:
+    """One spawned rank of a phase 11 job: joins the group over
+    ``job["backend"]`` on card ``rank % job["cards"]`` (gloo on CUDA tensors
+    where ranks share a card), runs ``job["tasks"]`` and saves what they
+    return to ``<tmp>/rank<r>.pt``."""
+    import torch.distributed as dist
+
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.parallel import (
+        initialize_distributed, make_mesh,
+    )
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    job = torch.load(Path(tmp) / "job.pt", weights_only=False)
+    devices = [torch.device("cuda", r % job["cards"]) for r in range(data * model)]
+    mesh = initialize_distributed(make_mesh(data, model, devices), rank, backend=job["backend"],
+                                  init_method=init_method, timeout=MESH_TIMEOUT)
+    try:
+        out = {name: MESH_TASKS[name](mesh, job) for name in job["tasks"]}
+        torch.save(out, Path(tmp) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def run_mesh_job(job: dict, data: int, model: int) -> list:
+    """Spawn a ``data x model`` mesh of ranks for ``job`` (``job["cards"]``,
+    ``job["backend"]``); returns each rank's results (a failing or late rank
+    raises)."""
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.parallel import launch
+
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save(job, Path(tmp) / "job.pt")
+        launch(mesh_rank, (data, model, f"file://{tmp}/store", tmp), nprocs=data * model,
+               timeout=MESH_TIMEOUT)
+        return [torch.load(Path(tmp) / f"rank{r}.pt", weights_only=False)
+                for r in range(data * model)]
+
+
+def grad_errs(got: list, ref: list, names: list) -> tuple[float, float]:
+    """Max abs error of each gradient relative to its own largest |ref|: the
+    worst in the transformer block and the worst elsewhere."""
+    block = other = 0.0
+    for n, a, b in zip(names, got, ref):
+        e = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+        if n.startswith("transformer.blocks."):
+            block = max(block, e)
+        else:
+            other = max(other, e)
+    return block, other
+
+
+def check_mesh_step(what: str, got: tuple, ref: tuple, names: list) -> None:
+    """A mesh step's (metrics, gradients, statistics) against one device's,
+    at phase 9's limits."""
+    (gm, gg, gs), (rm, rg, rs) = got, ref
+    loss = max(abs(gm[k] - rm[k]) for k in rm if k != "grad_norm")
+    stats = max(float((gs[k] - rs[k]).abs().max()) for k in rs)
+    block, other = grad_errs(gg, rg, names)
+    print(f"{what}: loss components {loss:.2e} (tolerance {TOL_STEP_LOSS}), BatchNorm statistics "
+          f"{stats:.2e} (tolerance {TOL_STEP_STATS}); gradients relative to each leaf's largest: "
+          f"the transformer block's {block:.2e} (tolerance {TOL_STEP_GRAD_BLOCK}), every other "
+          f"{other:.2e} (tolerance {TOL_STEP_GRAD})", flush=True)
+    if (loss > TOL_STEP_LOSS or stats > TOL_STEP_STATS or block > TOL_STEP_GRAD_BLOCK
+            or other > TOL_STEP_GRAD):
+        raise AssertionError(f"{what}: the mesh step differs from one device's")
+
+
+def one_device_step(config: dict, batch: dict, dev: torch.device) -> tuple:
+    """(metrics, gradients, new BatchNorm statistics) of one device's step of
+    ``config`` on the numpy ``batch`` (SpecAugment off)."""
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.training.trainer import (
+        batch_to_device,
+    )
+
+    model = seeded_model(config, dev)
+    cap = GradCapture(model.parameters())
+    metrics = recipe_step_fns(model, cap)[0](batch_to_device(batch, dev))
+    return ({k: float(v) for k, v in metrics.items()}, [g.cpu() for g in cap.grads],
+            {k: v.cpu() for k, v in model.state_dict().items() if "running" in k})
+
+
+def nccl_world_one(dev: torch.device, train_batch: dict) -> list:
+    """11a: NCCL at world size 1: an all-reduce of a known tensor, and the
+    recipe's step through the mesh code against the plain step. Returns the
+    walls (ms) of all-reduces of the gradients' bytes."""
+    import torch.distributed as dist
+
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.parallel import (
+        initialize_distributed, make_mesh,
+    )
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.parallel.collectives import (
+        all_reduce_,
+    )
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.training.optimizer import (
+        Optimizer, parameters,
+    )
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.training.trainer import (
+        batch_to_device, parallelize,
+    )
+
+    with tempfile.TemporaryDirectory() as tmp:
+        one = initialize_distributed(make_mesh(1, 1, [dev]), 0, backend="nccl",
+                                     init_method=f"file://{tmp}/store", timeout=MESH_TIMEOUT)
+        try:
+            known = torch.arange(1024, dtype=torch.float32, device=dev)
+            back = all_reduce_(known.clone(), one.data_group)
+            if not torch.equal(back, known):
+                raise AssertionError("NCCL all-reduce at world size 1 changed its input")
+            runs = {}
+            torch.backends.cudnn.deterministic = True
+            try:
+                for key, m in (("plain", None), ("plain again", None), ("mesh", one)):
+                    model = seeded_model(RECIPE, dev)
+                    if m is not None:
+                        model = parallelize(model, m)
+                    opt = Optimizer(parameters(model), "adamw", lr=TRAIN_LR, weight_decay=0.01,
+                                    max_norm=1.0)
+                    aug = torch.Generator(device=dev).manual_seed(1)
+                    step = recipe_step_fns(model, opt, m, augment=True, generator=aug)[0]
+                    torch.manual_seed(0)
+                    metrics = step(batch_to_device(train_batch, dev))
+                    runs[key] = ({k: float(v) for k, v in metrics.items()},
+                                 [p.detach().cpu() for p in model.parameters()],
+                                 [t.cpu() for n, t in model.state_dict().items() if "running" in n])
+                    del model, opt, step
+            finally:
+                torch.backends.cudnn.deterministic = False
+            flat = torch.zeros(sum(p.numel() for p in runs["plain"][1]), device=dev)
+            nccl_ms = []
+            for _ in range(6):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                all_reduce_(flat, one.data_group)
+                torch.cuda.synchronize()
+                nccl_ms.append((time.perf_counter() - t0) * 1e3)
+        finally:
+            dist.destroy_process_group()
+    # the forward is deterministic (cuDNN deterministic), so the loss terms
+    # and the new BatchNorm statistics must agree bit for bit; the backward is
+    # not (F.interpolate's bilinear backward adds with atomics), so grad_norm
+    # and the parameters after AdamW are held as phase 10b holds remat: within
+    # max(1e-5, 10 x) two plain runs' difference
+    (pm, pp, ps), (am, ap, _), (mm, mp_, ms_) = runs["plain"], runs["plain again"], runs["mesh"]
+    forward_same = all(mm[k] == pm[k] for k in pm if k != "grad_norm") and all(
+        torch.equal(a, b) for a, b in zip(ps, ms_))
+    drift = max(float((a - b).abs().max()) for a, b in zip(pp, mp_))
+    floor = max(float((a - b).abs().max()) for a, b in zip(pp, ap))
+    gn_drift = abs(mm["grad_norm"] - pm["grad_norm"])
+    gn_floor = abs(am["grad_norm"] - pm["grad_norm"])
+    print(f"NCCL world size 1: all-reduce of a known tensor unchanged; the 28M recipe's step "
+          f"(batch {TRAIN_BATCH}, cuDNN deterministic) through the mesh code (at one device the "
+          f"one-process path: no collective) vs plain: loss terms and "
+          f"BatchNorm statistics {'bit for bit' if forward_same else 'DIFFER'}; grad_norm "
+          f"{gn_drift:.3g} apart, parameters after AdamW {drift:.3g} (two plain runs: {gn_floor:.3g}, "
+          f"{floor:.3g}; tolerance max(1e-5, 10 x that))", flush=True)
+    if not forward_same or drift > max(1e-5, 10 * floor) or gn_drift > max(
+            1e-5 * pm["grad_norm"], 10 * gn_floor):
+        raise AssertionError("the step through the mesh code at world size 1 is not the plain step")
+    del runs
+    return nccl_ms
+
+
+def mesh(dev: torch.device, smi: str, rng: np.random.Generator, enhancer, wavs: list,
+         out: list, cards: int = 1) -> dict:
+    """Phase 11. ``enhancer``, ``wavs`` and ``out``: phase 5's single-device
+    enhancer of the 28M serving recipe, its 32 x 3 s batch and its output.
+    On one card (``cards`` 1): 11a-11e as the module docstring says. On
+    ``cards`` cards: the same checks and times over NCCL, one rank a card:
+    ``cards`` data ranks, TP = 2 x DP = ``cards // 2``, a replica a card (no
+    11a). Returns the launches per rank of the data-parallel train steps, of
+    the TP step, and per replica of the mesh enhancer's batch."""
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.inference import (
+        AudioEnhancer,
+    )
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.ops import kernels
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.parallel import make_mesh
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.training.optimizer import (
+        Optimizer, parameters,
+    )
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.training.trainer import (
+        batch_to_device,
+    )
+
+    one_card = cards == 1
+    backend = "gloo" if one_card else "nccl"  # NCCL refuses two ranks on one card
+    ranks_b, (data_c, model_c) = (2, (1, 2)) if one_card else (cards, (cards // 2, 2))
+    where = "on this card" if one_card else f"on {cards} cards"
+    phase(f"mesh: NCCL at world size 1, two gloo ranks and TP = 2 on this card, two replicas"
+          if one_card else f"mesh over NCCL on {cards} cards: {cards} data ranks, TP = 2 x DP = "
+          f"{data_c}, {cards} replicas")
+    t_phase = time.perf_counter()
+    wav_len = (384 - 1) * 128
+    train_batch = loader_batch(TRAIN_BATCH, 1.5 * SR, wav_len, rng)
+    nccl_ms = nccl_world_one(dev, train_batch) if one_card else None
+
+    # b. data ranks (two on this card over gloo, CUDA tensors; or one a card
+    # over NCCL): the depth-1 check on a full batch and on one whose last
+    # rank's rows are a padding batch, then the full-width recipe
+    rows = TRAIN_BATCH // ranks_b
+    check = {"full": train_batch,
+             "padding": {**train_batch, "valid": np.arange(TRAIN_BATCH) < TRAIN_BATCH - rows}}
+    job = {"cards": cards, "backend": backend}
+    t0 = time.perf_counter()
+    ranks = run_mesh_job({**job, "tasks": ["check", "train"], "check": check,
+                          "train": train_batch}, ranks_b, 1)
+    spawn_s = time.perf_counter() - t0
+    names = [n for n, p in seeded_model(depth1(RECIPE), "cpu").named_parameters()]
+    for case, batch in check.items():
+        # BatchNorm normalizes over every row, valid or not, as the JAX step
+        # does over its global batch: so the reference is one device's step
+        # on the same 16 rows with the same rows invalid
+        ref = one_device_step(depth1(RECIPE), batch, dev)
+        for rank, r in enumerate(ranks):
+            check_mesh_step(f"depth 1, rank {rank} of {ranks_b} x {rows} rows vs one device x "
+                            f"{TRAIN_BATCH} ({case})", r["check"][case], ref, names)
+    train = [r["train"] for r in ranks]
+    per_step = {k: v // TRAIN_MESH_STEPS for k, v in train[0]["launches"].items()}
+    rank_steps = [{k: v // TRAIN_MESH_STEPS for k, v in t["launches"].items()} for t in train]
+    print(f"{ranks_b} ranks, full width: losses {[[f'{x:.6f}' for x in t['losses']] for t in train]}; "
+          f"launches per rank per step {rank_steps}", flush=True)
+    want = {"stft_mag": 2, "attention_fwd": 6, "attention_bwd": 6, "istft_polar": 0}
+    if (any(t["losses"] != train[0]["losses"] for t in train)
+            or not np.isfinite(train[0]["losses"]).all()
+            or any(t["launches"] != {k: TRAIN_MESH_STEPS * c for k, c in want.items()}
+                   for t in train)):
+        raise AssertionError(f"the {ranks_b}-rank full-width steps are not finite, equal and "
+                             "through every kernel")
+
+    # the one-device step of the same recipe at batch 16, for the walls
+    torch.manual_seed(0)
+    model = seeded_model(RECIPE, dev)
+    opt = Optimizer(parameters(model), "adamw", lr=TRAIN_LR, weight_decay=0.01, max_norm=1.0)
+    step = recipe_step_fns(model, opt, augment=True,
+                           generator=torch.Generator(device=dev).manual_seed(1))[0]
+    batch = batch_to_device(train_batch, dev)
+    step(batch)
+    walls = []
+    for _ in range(TRAIN_MESH_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        float(step(batch)["total"])
+        walls.append((time.perf_counter() - t0) * 1e3)
+    del model, opt, step
+    step_ms = [statistics.median(t["walls"]) for t in train]
+    print(f"times ({smi}): gradient all-reduce of {train[0]['bytes'] / 1e6:.1f} MB: {backend}, "
+          f"{ranks_b} ranks {where}, {train[0]['reduce_ms']:.2f} ms (median of 3)"
+          + (f"; NCCL, world size 1, {statistics.median(nccl_ms[1:]):.2f} ms (median of 5)"
+             if one_card else "")
+          + f". Train step, 28M recipe: {ranks_b} ranks x {rows} rows {step_ms[0]:.1f} ms (rank 0; "
+          f"others {[round(x, 1) for x in step_ms[1:]]}) against one process x {TRAIN_BATCH} rows "
+          f"{statistics.median(walls):.1f} ms (medians of {TRAIN_MESH_STEPS})"
+          + (". Two ranks sharing one card measure the mesh's overhead (gloo through the host, two "
+             "processes on one device), not its scaling: NCCL across cards cannot be measured on "
+             "a one-card machine" if one_card else "")
+          + f". The job's spawn, build and run took {spawn_s:.1f} s", flush=True)
+
+    # c. tensor parallelism over 2 ranks (of this card; or TP = 2 x DP = cards
+    # / 2 over NCCL) at 12L/1024d/16h
+    tp_batch = loader_batch(4, 1.5 * SR, wav_len, rng)
+    tp_spec = rng.random((2, 257, 384, 1)).astype(np.float32)
+    t0 = time.perf_counter()
+    tp = [r["tp"] for r in run_mesh_job({**job, "tasks": ["tp"], "tp_batch": tp_batch,
+                                         "tp_spec": tp_spec}, data_c, model_c)]
+    tp_s = time.perf_counter() - t0
+    model = seeded_model(scaled_config(), dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    with torch.no_grad():
+        forward = model.eval()(torch.from_numpy(tp_spec).to(dev)).cpu()
+        # TP = 1 in float32 on the cpu (the plain versions, other summation
+        # orders throughout): how far fp32 arithmetic alone moves this output
+        on_cpu = model.cpu()(torch.from_numpy(tp_spec))
+    del model
+    spread = float((on_cpu - forward).abs().max())
+    tol_forward = max(TOL_TP_FORWARD, spread)
+    ref = one_device_step(scaled_config(), tp_batch, dev)
+    names = [n for n, p in seeded_model(scaled_config(), "cpu").named_parameters()]
+    fwd_err = max(float((t["forward"] - forward).abs().max()) for t in tp)
+    print(f"TP = 2 x DP = {data_c} {where}, 12L/1024d/16h ({n_params / 1e6:.2f}M), eval output "
+          f"(batch 2 x 384 frames) vs "
+          f"TP = 1 max abs err {fwd_err:.3g} (tolerance {tol_forward:.3g}: the larger of the CPU "
+          f"test's {TOL_TP_FORWARD} and TP = 1 cuda vs cpu, {spread:.3g}); K2 heads per call "
+          f"{[t['heads'] for t in tp]}; step (batch 4, 384-frame bucket) launches per rank "
+          f"{[t['launches'] for t in tp]}; spawn, build and run {tp_s:.1f} s", flush=True)
+    check_mesh_step(f"TP = 2 x DP = {data_c} step vs one device",
+                    (tp[0]["metrics"], tp[0]["grads"], tp[0]["stats"]), ref, names)
+    want_tp = {"stft_mag": 2, "attention_fwd": 12, "attention_bwd": 12, "istft_polar": 0}
+    if fwd_err > tol_forward or any(t["heads"] != [SCALED["num_heads"] // 2] for t in tp) or any(
+            t["launches"] != want_tp for t in tp):
+        raise AssertionError("tensor parallelism: output, heads or launches wrong")
+    tp_launches = tp[0]["launches"]
+    del ref, tp
+
+    # d. inference on replicas (two of this card, or one a card): the 28M
+    # serving recipe, against phase 5's one-device enhancer
+    replica_devices = [dev, dev] if one_card else [torch.device("cuda", i) for i in range(cards)]
+    many = AudioEnhancer(enhancer.model, enhancer.config, device="cuda", io_dtype="int16",
+                         mask_padding=True, mesh=make_mesh(len(replica_devices), 1,
+                                                           replica_devices))
+    many.enhance_batch(wavs[:len(replica_devices)])  # first call
+    kernels.reset_launch_counts()
+    got = many.enhance_batch(wavs)
+    serve_launches = {k: v // len(replica_devices) for k, v in launch_counts().items()}
+    wave_err = max(float(np.abs(a - b).max()) for a, b in zip(got, out))
+    serve_ms = {}
+    for name, enh in (("one device", enhancer), ("replicas", many), ("replicas again", many),
+                      ("one device again", enhancer)):
+        walls = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            enh.enhance_batch(wavs)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        serve_ms[name] = statistics.median(walls)
+    visible = torch.cuda.device_count()
+    with tempfile.TemporaryDirectory() as tmp:
+        from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.data.wavio import (
+            save_wav,
+        )
+
+        save_wav(Path(tmp) / "in.wav", wavs[0], SR)
+        cli = subprocess.run(
+            [sys.executable, "-m",
+             "speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.cli.enhance",
+             "--checkpoint", str(ROOT / "tests" / "fixtures" / "tiny_denoiser_mask"),
+             "--input", str(Path(tmp) / "in.wav"), "--output", str(Path(tmp) / "out.wav"),
+             "--device", "cuda", "--data-parallel", str(visible + 1)],
+            capture_output=True, text=True, timeout=300, cwd=ROOT)
+    refused = f"{visible + 1} CUDA devices asked for, but {visible} visible"
+    print(f"{len(replica_devices)} replicas {where}, {BATCH} x {SECONDS:g} s PCM16: waveforms vs one "
+          f"device max abs err {wave_err:.3g} (tolerance {TOL_WAVE}); launches per replica "
+          f"{serve_launches}; enhance_batch wall: one device "
+          f"{min(serve_ms['one device'], serve_ms['one device again']):.1f} ms, replicas "
+          f"{min(serve_ms['replicas'], serve_ms['replicas again']):.1f} ms (in turns, each one's "
+          f"better median of 5; {smi}); enhance CLI --data-parallel {visible + 1}: exit "
+          f"{cli.returncode}, {cli.stderr.strip().splitlines()[-1:]}", flush=True)
+    if (wave_err > TOL_WAVE or len(got) != len(out)
+            or serve_launches != {"stft_mag": 1, "attention_fwd": 6, "attention_bwd": 0,
+                                  "istft_polar": 1}):
+        raise AssertionError("the mesh enhancer differs from one device or skipped a kernel")
+    if cli.returncode == 0 or refused not in cli.stderr:
+        raise AssertionError(f"enhance --data-parallel {visible + 1} was not refused: {cli.stderr}")
+    print(f"mesh phase: {time.perf_counter() - t_phase:.1f} s; {smi}", flush=True)
+    return {"train": per_step, "tp": tp_launches, "serve": serve_launches}
+
+
+def train_cli_across_cards(smi: str, cards: int, rng: np.random.Generator) -> None:
+    """``--cards N``: the train CLI itself, the shipped ``config/`` over 108 +
+    12 synthetic files (7 train batches of 16 an epoch, the last with 12
+    rows, and one validation batch of 12): two epochs at ``--data-parallel
+    N`` (spawned ranks over NCCL), the same at ``--data-parallel 1``, then a
+    third epoch on N cards resumed from the first run's ``final_model``. Each
+    N-card run: every rank's final loss equal, one ``metrics.jsonl`` (rank 0
+    alone writes) with an epoch line an epoch, checkpoints that read back.
+    Prints the second epoch's wall per train batch (loader, step and the
+    validation batch included: the CLI's own clock)."""
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.data.wavio import save_wav
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.models import (
+        create_hybrid_vit,
+    )
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.utils.checkpoint import (
+        load_model_weights, read_meta,
+    )
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.utils.config import (
+        load_all_configs,
+    )
+
+    phase(f"the train CLI on {cards} cards and on one: the shipped config/, two epochs, a resume")
+    t_phase = time.perf_counter()
+    exp_name = load_all_configs(ROOT / "config")["training"]["experiment_name"]
+    steps = 7  # ceil(108 / 16)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        for i, length in enumerate(rng.uniform(1.5 * SR, 3.06 * SR, 120).astype(int)):
+            clean = speechlike(int(length), rng)
+            save_wav(tmp / "data" / "clean_trainset_28spk_wav" / f"p{i:03d}.wav", clean, SR)
+            save_wav(tmp / "data" / "noisy_trainset_28spk_wav" / f"p{i:03d}.wav",
+                     np.clip(clean + 0.1 * rng.standard_normal(length), -1, 1), SR)
+        runs = {}
+        for name, dp, epochs, resume in ((f"{cards} cards", cards, 2, None), ("one card", 1, 2, None),
+                                         ("resumed", cards, 3, f"{cards} cards")):
+            out = tmp / name.replace(" ", "_")
+            cmd = [sys.executable, "-m",
+                   "speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.cli.train",
+                   "--config-dir", str(ROOT / "config"), "--data-root", str(tmp / "data"),
+                   "--device", "cuda", "--data-parallel", str(dp), "--epochs", str(epochs),
+                   "--checkpoint-dir", str(out / "ckpt"), "--log-dir", str(out / "logs")]
+            if resume:
+                cmd += ["--resume", str(runs[resume]["ckpt"] / "final_model")]
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, capture_output=True, text=True, timeout=MESH_TIMEOUT,
+                                  cwd=ROOT)
+            wall = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise AssertionError(f"train CLI, {name}: exit {proc.returncode}\n"
+                                     f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+            done = re.findall(r"^(?:rank (\d+): )?done: best val loss ([0-9.eE+-]+|nan) after "
+                              r"(\d+) epochs", proc.stdout, re.M)
+            logs = sorted((out / "logs").rglob("metrics.jsonl"))
+            epoch_lines = [json.loads(line) for line in logs[0].read_text().splitlines()
+                           if "epoch/train_total" in line] if logs else []
+            read_back = {}
+            # (a resumed epoch that does not beat the restored best writes no best_model)
+            for ck in ("final_model",) + (() if resume else ("best_model",)):
+                m = load_model_weights(out / "ckpt" / ck,
+                                       create_hybrid_vit(read_meta(out / "ckpt" / ck)["config"]))
+                read_back[ck] = all(bool(torch.isfinite(t).all()) for t in m.state_dict().values()
+                                    if t.is_floating_point())
+            runs[name] = {"ckpt": out / "ckpt", "done": done, "epochs": epoch_lines, "wall": wall}
+            ran = epochs - (2 if resume else 0)
+            print(f"train CLI, {name} (--data-parallel {dp}, --epochs {epochs}"
+                  f"{', resumed' if resume else ''}): exit 0 in {wall:.1f} s; ranks' final lines "
+                  f"{done}; metrics.jsonl files {[str(p.relative_to(out)) for p in logs]}, epoch "
+                  f"lines {len(epoch_lines)}, train losses "
+                  f"{[round(e['epoch/train_total'], 5) for e in epoch_lines]}, val losses "
+                  f"{[round(e.get('epoch/val_total', float('nan')), 5) for e in epoch_lines]}, "
+                  f"epoch walls {[round(e['epoch/epoch_time_s'], 2) for e in epoch_lines]} s; "
+                  f"checkpoints read back {read_back}", flush=True)
+            if (sorted(int(r or 0) for r, _, _ in done) != list(range(dp))
+                    or len({(v, e) for _, v, e in done}) != 1 or int(done[0][2]) != epochs
+                    or len(logs) != 1 or len(epoch_lines) != ran or not all(read_back.values())
+                    or not np.isfinite([e["epoch/train_total"] for e in epoch_lines]).all()):
+                raise AssertionError(f"train CLI, {name}: ranks disagree, a rank other than 0 "
+                                     "wrote, or a checkpoint does not read back")
+    per_step = {k: runs[k]["epochs"][1]["epoch/epoch_time_s"] / steps * 1e3
+                for k in (f"{cards} cards", "one card")}
+    print(f"train CLI, the shipped config, epoch 2 wall per train batch of 16 (the CLI's "
+          f"epoch_time_s / {steps}: loader, step and the validation batch): {cards} cards x "
+          f"{16 // cards} rows {per_step[f'{cards} cards']:.1f} ms, one card x 16 rows "
+          f"{per_step['one card']:.1f} ms; the phase {time.perf_counter() - t_phase:.1f} s; {smi}",
+          flush=True)
+
+
+def across_cards(dev: torch.device, smi: str, cards: int) -> int:
+    """``--cards N``: phase 11 alone over NCCL on N cards, against phase 5's
+    one-device enhancer of the 28M serving recipe (built here), then the
+    train CLI on N cards (``train_cli_across_cards``)."""
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.inference import (
+        AudioEnhancer,
+    )
+
+    rng = np.random.default_rng(7)
+    config = {"model": {"output_mode": "mask", "head": "fullres_mask",
+                        "transformer": {"pos_embed": "factored_2d"}}}
+    enhancer = AudioEnhancer(seeded_model(config, dev), config, device=dev, io_dtype="int16",
+                             mask_padding=True)
+    wavs = [speechlike(int(SECONDS * SR), rng) for _ in range(BATCH)]
+    out = enhancer.enhance_batch(wavs)
+    launches = mesh(dev, smi, rng, enhancer, wavs, out, cards)
+    del enhancer
+    torch.cuda.empty_cache()
+    train_cli_across_cards(smi, cards, rng)
+    print(f"chip_smoke.py --cards {cards}: {time.perf_counter() - STARTED:.1f} s from start to "
+          f"result; {smi}", flush=True)
+    print(smi)
+    print(json.dumps({"mesh_across_cards": cards, **launches}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main() -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--cards", type=int, default=1,
+                    help="N > 1: run phase 11 alone, over NCCL across N cards")
+    args = ap.parse_args()
     phase("device")
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: chip_smoke.py needs one CUDA card")
+    if args.cards > torch.cuda.device_count():
+        raise RuntimeError(f"--cards {args.cards}: {torch.cuda.device_count()} CUDA devices visible")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -1247,6 +1941,8 @@ def main() -> int:
             print(f"{fn} SASS: {len(found)} TF32 tensor-core instructions over its head-dim "
                   f"instances ({sorted(set(i.split()[0] for i in found))}, e.g. {found[0]!r})",
                   flush=True)
+    if args.cards > 1:
+        return across_cards(dev, smi, args.cards)
 
     phase("kernels vs plain")
     cfg = STFTConfig()
@@ -1467,10 +2163,13 @@ def main() -> int:
     offline_run = offline(dev, smi, rng)
     train = training(dev, smi, rng, g)
     shipped_run = shipped(dev, smi, rng)
+    mesh_run = mesh(dev, smi, rng, enhancer, wavs, out)
     errs["attention_bwd"] = train["errs"]
     ms["attention_bwd"] = train["ms"]
     launches["attention_bwd"] = train["launches"]["attention_bwd"]
 
+    print(f"chip_smoke.py: {time.perf_counter() - STARTED:.1f} s from start to result (the "
+          f"kernels' build included); {smi}", flush=True)
     print(smi)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": str(Path(
@@ -1480,6 +2179,9 @@ def main() -> int:
          "train_launches": train["launches"][name],
          "shipped_launches": shipped_run["launches"][name],
          "remat_train_launches": shipped_run["remat_launches"][name],
+         "mesh_train_launches": mesh_run["train"][name],
+         "tp_train_launches": mesh_run["tp"][name],
+         "mesh_serve_launches": mesh_run["serve"][name],
          "max_abs_err": max(errs[name]),
          **ms[name]}
         for name, k in kernels.KERNELS.items()

@@ -1,5 +1,5 @@
 """Set-up shared by the serve, enhance and evaluate CLIs: the device they
-run on and the caller's config directory."""
+run on, their data-parallel mesh and the caller's config directory."""
 
 from __future__ import annotations
 
@@ -15,6 +15,18 @@ def use_device(device: str) -> None:
         raise SystemExit("--device cuda: no CUDA device available")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def data_parallel_mesh(n: int, device: str):
+    """``--data-parallel n``: a mesh of n replicas (``cuda:0`` .. ``cuda:n-1``,
+    or n times the CPU), None for n <= 1; ``SystemExit`` naming both counts
+    where fewer cards are visible."""
+    from ..parallel import mesh_for_data_parallel
+
+    try:
+        return mesh_for_data_parallel(n, device)
+    except ValueError as e:
+        raise SystemExit(f"--data-parallel {n}: {e}") from None
 
 
 def caller_config(config_dir: str) -> Dict:

@@ -16,7 +16,7 @@ import argparse
 from pathlib import Path
 
 from ._blendargs import add_blend_args, blend_kwargs
-from ._runtime import caller_config, use_device
+from ._runtime import caller_config, data_parallel_mesh, use_device
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -36,7 +36,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--io-dtype", default="float32", choices=["float32", "int16"],
                    help="host<->device transfer width (int16 halves it)")
     p.add_argument("--data-parallel", type=int, default=1,
-                   help="devices to shard batches over (not ported yet: 1 only)")
+                   help="replicas to split each batch's rows over: cuda:0..N-1, "
+                        "or N on the CPU")
     p.add_argument("--fold-bn", action="store_true",
                    help="fold eval-mode BatchNorm into the conv weights (equal "
                         "output to fp32 rounding)")
@@ -55,15 +56,13 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.data_parallel > 1:
-        raise SystemExit("--data-parallel is not ported yet (ROADMAP queue 1 item 10): "
-                         "enhance on one device")
     inp, out = Path(args.input), Path(args.output)
     if not inp.exists():
         raise SystemExit(f"input not found: {inp}")
     if inp.is_dir() and out.suffix:
         raise SystemExit("directory input requires a directory output")
     use_device(args.device)
+    mesh = data_parallel_mesh(args.data_parallel, args.device)
 
     from ..data.wavio import load_audio, save_wav
     from ..inference import AudioEnhancer, load_model_for_inference
@@ -73,7 +72,7 @@ def main(argv=None) -> int:
     enhancer = AudioEnhancer(
         model, config, device=args.device, io_dtype=args.io_dtype,
         mask_padding=args.mask_padding, fold_bn=args.fold_bn, dft_precision=args.dft_precision,
-        **blend_kwargs(args),
+        mesh=mesh, **blend_kwargs(args),
     )
     sr = enhancer.sample_rate
     if inp.is_dir():

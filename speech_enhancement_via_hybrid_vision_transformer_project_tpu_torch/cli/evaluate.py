@@ -16,7 +16,7 @@ import argparse
 from pathlib import Path
 
 from ._blendargs import add_blend_args, blend_kwargs
-from ._runtime import caller_config, use_device
+from ._runtime import caller_config, data_parallel_mesh, use_device
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -40,7 +40,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--exact", action="store_true",
                    help="reference-exact per-file enhancement (no bucket padding; slower)")
     p.add_argument("--data-parallel", type=int, default=1,
-                   help="devices to shard batches over (not ported yet: 1 only)")
+                   help="replicas to split each batch's rows over: cuda:0..N-1, "
+                        "or N on the CPU")
     add_blend_args(p)
     p.add_argument("--mask-padding", action="store_true",
                    help="exclude bucket-padding patches from attention via "
@@ -50,10 +51,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.data_parallel > 1:
-        raise SystemExit("--data-parallel is not ported yet (ROADMAP queue 1 item 10): "
-                         "evaluate on one device")
     use_device(args.device)
+    mesh = data_parallel_mesh(args.data_parallel, args.device)
 
     from ..evaluation.evaluator import Evaluator
     from ..inference import AudioEnhancer, load_model_for_inference
@@ -61,7 +60,7 @@ def main(argv=None) -> int:
     model, config = load_model_for_inference(args.checkpoint, caller_config(args.config_dir),
                                              device=args.device)
     enhancer = AudioEnhancer(model, config, device=args.device,
-                             mask_padding=args.mask_padding, **blend_kwargs(args))
+                             mask_padding=args.mask_padding, mesh=mesh, **blend_kwargs(args))
     dcfg = config.get("data", {})
     data_root = Path(args.data_root or dcfg.get("data_root", "data/voicebank_demand"))
     noisy_dir = Path(args.noisy_dir or data_root / dcfg.get("noisy_test_dir", "noisy_testset_wav"))

@@ -16,7 +16,7 @@ from __future__ import annotations
 import argparse
 
 from ._blendargs import add_blend_args, blend_kwargs
-from ._runtime import caller_config, use_device
+from ._runtime import caller_config, data_parallel_mesh, use_device
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -34,7 +34,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--io-dtype", default="int16", choices=["float32", "int16"],
                    help="host<->device transfer width (int16 halves it)")
     p.add_argument("--data-parallel", type=int, default=1,
-                   help="devices to shard batches over (not ported yet: 1 only)")
+                   help="replicas to split each batch's rows over: cuda:0..N-1, "
+                        "or N on the CPU")
     p.add_argument("--fold-bn", action="store_true",
                    help="fold eval-mode BatchNorm into the conv weights (equal "
                         "output to fp32 rounding)")
@@ -53,10 +54,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.data_parallel > 1:
-        raise SystemExit("--data-parallel is not ported yet (ROADMAP queue 1 item 10): "
-                         "serve on one device")
     use_device(args.device)
+    mesh = data_parallel_mesh(args.data_parallel, args.device)
 
     import numpy as np
 
@@ -66,7 +65,7 @@ def main(argv=None) -> int:
                                              device=args.device)
     enhancer = AudioEnhancer(
         model, config, device=args.device, io_dtype=args.io_dtype, fold_bn=args.fold_bn,
-        dft_precision=args.dft_precision, **blend_kwargs(args),
+        dft_precision=args.dft_precision, mesh=mesh, **blend_kwargs(args),
     )
     if args.warmup:
         for seconds in (1.0, 2.0, 4.0):

@@ -6,13 +6,22 @@ same-named clean files, train = the first ``train_val_split`` of the sorted
 list, val = the tail. The loader yields padded numpy waveform batches and
 their true lengths; the STFT, normalization and SpecAugment run on the
 device inside the train step (``data/pipeline.py``). Given the same files
-and seed it yields the JAX loader's batches. The multi-host lockstep knobs
-(``fixed_bucket``, ``max_batches``, ``shard``) wait for the data-parallel
-port.
+and seed it yields the JAX loader's batches.
+
+On a data-parallel mesh every rank runs its host's loader, the one the JAX
+CLI runs on that host, and keeps its own block of each batch's rows
+(``part``): the bucket is the whole batch's, so the ranks' blocks together
+are the JAX global batch. Several hosts run the loader's lockstep mode (as
+the JAX loader on every host): ``VoiceBankDataset.shard`` keeps the host's
+stride of the file list, ``fixed_bucket`` pads every batch to one frame
+count, and ``max_batches`` yields exactly that many batches, ending an
+exhausted shard with padding batches whose rows are all invalid, so every
+host takes the same steps on the same shapes.
 """
 
 from __future__ import annotations
 
+import copy
 import queue
 import threading
 from pathlib import Path
@@ -126,6 +135,14 @@ class VoiceBankDataset:
         noisy, clean = self.load_pair(idx)
         return {"noisy_audio": noisy, "clean_audio": clean, "length": np.int32(len(noisy))}
 
+    def shard(self, host_id: int, num_hosts: int) -> "VoiceBankDataset":
+        """A copy holding every ``num_hosts``-th pair from ``host_id`` on (a
+        data rank's share of the sorted list)."""
+        ds = copy.copy(self)
+        ds.file_pairs = self.file_pairs[host_id::num_hosts]
+        ds._cache = {}
+        return ds
+
 
 def collate_waveforms(
     items: List[Dict[str, np.ndarray]],
@@ -133,15 +150,20 @@ def collate_waveforms(
     buckets: Sequence[int] = DEFAULT_BUCKETS,
     batch_size: Optional[int] = None,
     transfer_dtype: str = "float32",
+    fixed_bucket: Optional[int] = None,
 ) -> Dict[str, np.ndarray]:
-    """Right-pad waveforms to the batch's bucket (zeros); with
-    ``batch_size`` also pad with empty rows to that size, ``valid`` marking
-    the real rows. ``transfer_dtype='int16'`` ships PCM16 (the sources are
-    PCM16 WAVs: at most 1 LSB of requantization), rescaled on the device by
+    """Right-pad waveforms to the batch's bucket (zeros), or to
+    ``fixed_bucket`` frames; with ``batch_size`` also pad with empty rows to
+    that size, ``valid`` marking the real rows. ``transfer_dtype='int16'``
+    ships PCM16 (the sources are PCM16 WAVs: at most 1 LSB of
+    requantization), rescaled on the device by
     ``data.pipeline.int16_to_float``."""
     hop = stft_config.hop_length
-    frames = [frames_needed(len(it["noisy_audio"]), hop) for it in items]
-    bucket = bucket_for_frames(max(frames), buckets)
+    if fixed_bucket is not None:
+        bucket = fixed_bucket
+    else:
+        frames = [frames_needed(len(it["noisy_audio"]), hop) for it in items]
+        bucket = bucket_for_frames(max(frames), buckets)
     wav_len = (bucket - 1) * hop  # num_frames(wav_len) == bucket (center)
     b = batch_size or len(items)
     noisy = np.zeros((b, wav_len), np.float32)
@@ -165,7 +187,12 @@ def collate_waveforms(
 class DataLoader:
     """Thread-pool prefetching loader of collated numpy batches, in order:
     items shuffled by ``numpy.random.default_rng(seed + epoch)``, cut into
-    batches, each padded to its bucket (and to ``batch_size`` rows)."""
+    batches, each padded to its bucket (and to ``batch_size`` rows).
+    ``fixed_bucket`` and ``max_batches``: the lockstep mode (module
+    docstring); a padding batch is collated from item 0 with every row
+    invalid. ``part=(i, n)`` yields the ``i``-th of ``n`` equal blocks of
+    each batch's rows, padded to the whole batch's bucket (a data rank's
+    rows; every rank reads the whole batch's files to find that bucket)."""
 
     def __init__(
         self,
@@ -178,7 +205,13 @@ class DataLoader:
         drop_last: bool = False,
         pad_to_batch: bool = True,
         transfer_dtype: str = "float32",
+        fixed_bucket: Optional[int] = None,
+        max_batches: Optional[int] = None,
+        part: Optional[Tuple[int, int]] = None,
     ):
+        if part is not None and (batch_size % part[1] or not pad_to_batch):
+            raise ValueError(f"part {part} needs rows padded to a batch ({batch_size}) "
+                             f"that {part[1]} divides")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -188,21 +221,29 @@ class DataLoader:
         self.drop_last = drop_last
         self.pad_to_batch = pad_to_batch
         self.transfer_dtype = transfer_dtype
+        self.fixed_bucket = fixed_bucket
+        self.max_batches = max_batches
+        self.part = part
         self.epoch = 0
 
     def __len__(self) -> int:
+        if self.max_batches is not None:
+            return self.max_batches
         n = len(self.dataset)
         if self.drop_last:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
 
-    def _batch_indices(self) -> List[List[int]]:
+    def _batch_indices(self) -> List[Optional[List[int]]]:
         idx = np.arange(len(self.dataset))
         if self.shuffle:
             np.random.default_rng(self.seed + self.epoch).shuffle(idx)
         batches = [list(idx[i : i + self.batch_size]) for i in range(0, len(idx), self.batch_size)]
         if self.drop_last and batches and len(batches[-1]) < self.batch_size:
             batches.pop()
+        if self.max_batches is not None:  # None: a padding batch
+            batches = batches[: self.max_batches]
+            batches.extend([None] * (self.max_batches - len(batches)))
         return batches
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
@@ -213,7 +254,8 @@ class DataLoader:
         stop = threading.Event()
         trunc_lock = threading.Lock()
         trunc_count = 0
-        max_wav = (self.buckets[-1] - 1) * cfg.hop_length
+        cap_bucket = self.fixed_bucket or self.buckets[-1]
+        max_wav = (cap_bucket - 1) * cfg.hop_length
 
         def producer(worker_id: int):
             nonlocal trunc_count
@@ -222,16 +264,25 @@ class DataLoader:
                 for bi in range(worker_id, len(batches), self.num_workers):
                     if stop.is_set():
                         return
-                    items = [self.dataset[i] for i in batches[bi]]
-                    over = sum(1 for it in items if len(it["noisy_audio"]) > max_wav)
+                    padding = batches[bi] is None
+                    items = [self.dataset[i] for i in ([0] if padding else batches[bi])]
+                    over = 0 if padding else sum(
+                        1 for it in items if len(it["noisy_audio"]) > max_wav)
                     if over:
                         with trunc_lock:
                             trunc_count += over
-                    out_q.put((bi, collate_waveforms(
+                    batch = collate_waveforms(
                         items, cfg, self.buckets,
                         self.batch_size if self.pad_to_batch else None,
-                        transfer_dtype=self.transfer_dtype,
-                    )))
+                        transfer_dtype=self.transfer_dtype, fixed_bucket=self.fixed_bucket,
+                    )
+                    if padding:
+                        batch["valid"][:] = False
+                    if self.part is not None:
+                        i, n = self.part
+                        rows = self.batch_size // n
+                        batch = {k: v[i * rows:(i + 1) * rows] for k, v in batch.items()}
+                    out_q.put((bi, batch))
             except Exception as e:  # handed to the consumer, which raises it
                 error = e
             finally:
@@ -269,7 +320,7 @@ class DataLoader:
             if trunc_count:
                 print(
                     f"warning: {trunc_count} utterance(s) exceeded the largest bucket "
-                    f"({self.buckets[-1]} frames ≈ {max_wav / self.dataset.sample_rate:.1f}s) "
+                    f"({cap_bucket} frames ≈ {max_wav / self.dataset.sample_rate:.1f}s) "
                     "this epoch and were truncated for training (raise "
                     "data.bucketing.frame_buckets to keep full length)"
                 )

@@ -14,10 +14,17 @@ stream), and its output is copied into pinned host memory right after its
 own kernels, followed by a CUDA event. ``enhance_batch_async`` returns that
 ``PendingBatch``, so a caller can dispatch the next batch before it reads
 this one; the blocking paths read theirs at once.
+
+With a ``mesh`` (``parallel.mesh_for_data_parallel``; JAX ``mesh=``) the
+enhancer keeps one replica of the model on each device of the data axis.
+A batch's rows are padded to a multiple of the replicas and split into
+contiguous parts, one a replica, each run on its device's own stream; every
+part is dispatched before any is waited on, and the rows come back in order.
 """
 
 from __future__ import annotations
 
+import copy
 import warnings
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence
@@ -40,22 +47,27 @@ class PendingBatch:
     for this batch alone and returns its rows ``[B, padded_len]`` float32
     on the host; the caller trims each row to its clip's length.
 
-    On CUDA, ``host`` is the pinned host tensor that the device-to-host copy
-    fills and ``event`` the CUDA event recorded after that copy, which
-    ``result()`` waits on. On the CPU, ``host`` is the finished output and
-    ``event`` is None. ``host`` stays referenced here until the batch is
-    read, so its pinned buffer is not reused while the copy into it is in
-    flight (the pinned input buffer is held the same way by PyTorch's
-    caching host allocator, which records the copy's stream)."""
+    ``hosts`` are the parts of the output, one a replica, in row order, and
+    ``rows`` the batch's own rows (the rest pad the replicas' parts). On
+    CUDA each part is the pinned host tensor that its device-to-host copy
+    fills, and ``events`` the CUDA events recorded after those copies, which
+    ``result()`` waits on; on the CPU the parts are finished and ``events``
+    is empty. The parts stay referenced here until the batch is read, so a
+    pinned buffer is not reused while the copy into it is in flight (the
+    pinned input buffers are held the same way by PyTorch's caching host
+    allocator, which records the copy's stream)."""
 
-    def __init__(self, host: torch.Tensor, event: Optional[torch.cuda.Event]):
-        self.host = host
-        self.event = event
+    def __init__(self, hosts: List[torch.Tensor], events: List[torch.cuda.Event], rows: int):
+        self.hosts = hosts
+        self.events = events
+        self.rows = rows
 
     def result(self) -> np.ndarray:
-        if self.event is not None:
-            self.event.synchronize()
-        out = self.host.numpy()
+        for event in self.events:
+            event.synchronize()
+        out = self.hosts[0].numpy() if len(self.hosts) == 1 else np.concatenate(
+            [h.numpy() for h in self.hosts])
+        out = out[: self.rows]
         if out.dtype == np.int16:
             out = out.astype(np.float32) / 32767.0
         return out
@@ -76,6 +88,9 @@ class AudioEnhancer:
     models, else 1.0. ``fold_bn=True`` enhances with a copy of the model
     whose eval-mode BatchNorm is folded into its convs (``models/fold.py``;
     equal to the unfolded output to fp32 rounding).
+
+    ``mesh``: one replica of the model on each of ``mesh.replicas`` (the
+    module docstring); ``device`` is then the replicas' device type.
 
     ``dft_precision`` (``"highest"``, ``"high"`` or ``"default"``) is the JAX
     enhancer's precision of its reconstruction matmul: ``high`` and
@@ -100,6 +115,7 @@ class AudioEnhancer:
         blend_width_db: float = 4.0,
         fold_bn: bool = False,
         dft_precision: str = "highest",
+        mesh=None,
     ):
         if dft_precision not in ("highest", "high", "default"):
             raise ValueError(
@@ -109,6 +125,18 @@ class AudioEnhancer:
         self.device = torch.device(device)
         if fold_bn:
             model = fold_batchnorm(model)
+        self.replicas = None
+        if mesh is not None:
+            devices = [torch.device(d) for d in mesh.replicas]
+            if any(d.type != self.device.type for d in devices):
+                raise ValueError(f"mesh devices {devices} are not of device {self.device}")
+            self.device = devices[0]
+            models = [model] + [copy.deepcopy(model) for _ in devices[1:]]
+            self.replicas = [
+                (d, m.to(d).eval(),
+                 torch.cuda.Stream(device=d) if d.type == "cuda" else None)
+                for d, m in zip(devices, models)
+            ]
         self.model = model.to(self.device).eval()
         self.config = config or {}
         audio_cfg = self.config.get("audio", {})
@@ -199,12 +227,12 @@ class AudioEnhancer:
         return enhanced_mag
 
     def _denoise(self, mag: torch.Tensor, phase: torch.Tensor, wav_len: int,
-                 mask: Optional[torch.Tensor]) -> torch.Tensor:
+                 mask: Optional[torch.Tensor], model: torch.nn.Module) -> torch.Tensor:
         """Spectrogram -> waveform: max-normalize, model, denorm, blend,
         noisy-phase iSTFT."""
         mag_max = torch.amax(mag, dim=(-2, -1), keepdim=True)
         mag_max = torch.where(mag_max > 1e-8, mag_max, torch.ones_like(mag_max))
-        out = self.model((mag / mag_max)[..., None], mask=mask)[..., 0]
+        out = model((mag / mag_max)[..., None], mask=mask)[..., 0]
         if self.output_mode == "mask":
             enhanced_mag = torch.clamp((out + 1.0) * 0.5, 0.0, 1.0) * mag
         else:
@@ -212,8 +240,9 @@ class AudioEnhancer:
         enhanced_mag = self._apply_blend(enhanced_mag, mag)
         return istft_polar(enhanced_mag.contiguous(), phase, self.stft_cfg, length=wav_len)
 
-    def _core(self, noisy: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
-        """The enhancement core on one padded batch on ``self.device``:
+    def _core(self, noisy: torch.Tensor, lengths: torch.Tensor,
+              model: torch.nn.Module) -> torch.Tensor:
+        """The enhancement core on one padded batch on ``model``'s device:
         ``noisy [B, wav_len]`` (int16 PCM when ``io_dtype='int16'``),
         ``lengths [B]`` true sample counts."""
         io16 = self.io_dtype == "int16"
@@ -224,14 +253,14 @@ class AudioEnhancer:
         re, im, mag = stft_mag((noisy / scale).contiguous(), self.stft_cfg)
         phase = torch.atan2(im, re)
         mask = self._patch_mask(mag.shape, lengths) if self.mask_padding else None
-        y = self._denoise(mag, phase, noisy.shape[-1], mask) * scale
+        y = self._denoise(mag, phase, noisy.shape[-1], mask, model) * scale
         if io16:
             return (torch.clamp(y, -1.0, 1.0) * 32767.0).to(torch.int16)
         return y
 
-    def _enhance_nonorm(self, batch: torch.Tensor) -> torch.Tensor:
+    def _enhance_nonorm(self, batch: torch.Tensor, model: torch.nn.Module) -> torch.Tensor:
         re, im, mag = stft_mag(batch, self.stft_cfg)
-        return self._denoise(mag, torch.atan2(im, re), batch.shape[-1], None)
+        return self._denoise(mag, torch.atan2(im, re), batch.shape[-1], None, model)
 
     def _padded_len(self, n_samples: int) -> int:
         frames = frames_needed(max(n_samples, 1), self.stft_cfg.hop_length)
@@ -244,30 +273,61 @@ class AudioEnhancer:
         truncation; longer clips go to ``enhance_streaming``."""
         return (self.buckets[-1] - 1) * self.stft_cfg.hop_length
 
-    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+    @staticmethod
+    def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
         t = torch.from_numpy(a)
-        if self.device.type != "cuda":
+        if device.type != "cuda":
             return t
         staged = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
         staged.copy_(t)
-        return staged.to(self.device, non_blocking=True)
+        return staged.to(device, non_blocking=True)
+
+    def _launch(self, batch: np.ndarray, lens: np.ndarray, normalize: bool,
+                model: torch.nn.Module, device: torch.device):
+        """Enqueue ``batch`` on ``device``'s current stream: ``(host output,
+        CUDA event after its copy, or None on the CPU)``."""
+        x = self._to_device(batch, device)
+        if normalize:
+            out = self._core(x, self._to_device(lens, device), model)
+        else:
+            out = self._enhance_nonorm(x, model)
+        if device.type != "cuda":
+            return out, None
+        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+        host.copy_(out, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return host, event
 
     @torch.inference_mode()
     def _dispatch(self, batch: np.ndarray, lens: np.ndarray, normalize: bool) -> PendingBatch:
         """Enqueue one padded batch (see the module docstring) and return
         without waiting for the device."""
-        x = self._to_device(batch)
-        if normalize:
-            out = self._core(x, self._to_device(lens))
-        else:
-            out = self._enhance_nonorm(x)
-        if self.device.type != "cuda":
-            return PendingBatch(out, None)
-        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-        host.copy_(out, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record()
-        return PendingBatch(host, event)
+        rows = batch.shape[0]
+        if self.replicas is None:
+            host, event = self._launch(batch, lens, normalize, self.model, self.device)
+            return PendingBatch([host], [event] if event is not None else [], rows)
+        n = len(self.replicas)
+        part = -(-rows // n)
+        if part * n > rows:  # zero rows of length 1 pad the last replica's part
+            batch = np.concatenate([batch, np.zeros((part * n - rows,) + batch.shape[1:],
+                                                    batch.dtype)])
+            lens = np.concatenate([lens, np.ones(part * n - rows, lens.dtype)])
+        hosts, events = [], []
+        for i, (device, model, stream) in enumerate(self.replicas):
+            rows_i = slice(i * part, (i + 1) * part)
+            if stream is None:
+                host, _ = self._launch(batch[rows_i], lens[rows_i], normalize, model, device)
+            else:
+                # the replica's own stream, after what its device's stream has
+                # queued (its weights' copy among it)
+                stream.wait_stream(torch.cuda.current_stream(device))
+                with torch.cuda.device(device), torch.cuda.stream(stream):
+                    host, event = self._launch(batch[rows_i], lens[rows_i], normalize, model,
+                                               device)
+                events.append(event)
+            hosts.append(host)
+        return PendingBatch(hosts, events, rows)
 
     # ------------------------------------------------------------------
     def enhance(self, noisy_audio: np.ndarray, normalize: bool = True,

@@ -11,10 +11,21 @@ is ``np.linspace(0, drop_path_rate, num_layers)[i]``.
 backward (``torch.utils.checkpoint``, the JAX ``nn.remat``) in training.
 ``attention_type="linear"`` swaps in the JAX package's O(N)
 ``EfficientAttention`` blocks, which take no mask and no drop-path.
+
+Tensor parallelism (``parallel/sharding.py`` sets ``tp``): a standard
+block's attention runs this rank's whole heads (its share of q, of k and of
+v from its rows of the qkv projection) and its rows of the output
+projection's input; the MLP its columns of ``fc1`` and rows of ``fc2``. The
+layers' input passes through ``copy_to_group`` and their output through
+``reduce_from_group``, and the row-parallel bias is added once, after the
+reduce. Dropout on the rank's own heads or hidden units draws from the
+group's generator; dropout after the reduce and drop-path from the default
+one, which the model ranks of one data shard seed alike.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import numpy as np
@@ -24,7 +35,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.cuda_attention import NEG_INF, attention
-from .components import LN_EPS, DropPath, FeedForward
+from ..parallel.collectives import copy_to_group, reduce_from_group
+from .components import LN_EPS, DropPath, FeedForward, dropout_from
 
 
 class MultiHeadSelfAttention(nn.Module):
@@ -44,6 +56,7 @@ class MultiHeadSelfAttention(nn.Module):
         self.proj = nn.Linear(embed_dim, embed_dim)
         self.attn_dropout = attn_dropout
         self.proj_dropout = proj_dropout
+        self.tp = None  # a TPGroup: this rank's heads only
 
     def forward(
         self,
@@ -52,9 +65,12 @@ class MultiHeadSelfAttention(nn.Module):
         return_attention: bool = False,
     ):
         b, n, _ = x.shape
-        h = self.num_heads
-        d = self.embed_dim // h
+        tp = self.tp
+        h = self.num_heads if tp is None else self.num_heads // tp.size
+        d = self.embed_dim // self.num_heads
         scale = d**-0.5
+        if tp is not None:
+            x = copy_to_group(x, tp.group)
         # [B, N, 3, H, D] -> [3, B, H, N, D]: one copy, q/k/v contiguous views
         qkv = self.qkv(x).reshape(b, n, 3, h, d).permute(2, 0, 3, 1, 4).contiguous()
         q, k, v = qkv[0], qkv[1], qkv[2]
@@ -64,11 +80,16 @@ class MultiHeadSelfAttention(nn.Module):
             if mask is not None:
                 logits = logits.masked_fill(~mask[:, None, None, :], NEG_INF)
             weights = torch.softmax(logits, dim=-1)
-            w = F.dropout(weights, self.attn_dropout, self.training)
+            w = dropout_from(weights, self.attn_dropout, self.training,
+                             None if tp is None else tp.generator)
             out = torch.matmul(w, v)
         else:
             out = attention(q, k, v, scale=scale, mask=mask)
-        out = self.proj(out.transpose(1, 2).reshape(b, n, self.embed_dim))
+        out = out.transpose(1, 2).reshape(b, n, h * d)
+        if tp is None:
+            out = self.proj(out)
+        else:
+            out = reduce_from_group(F.linear(out, self.proj.weight), tp.group) + self.proj.bias
         out = F.dropout(out, self.proj_dropout, self.training)
         if return_attention:
             return out, weights
@@ -181,10 +202,37 @@ class VisionTransformer(nn.Module):
                 x, w = block(x, mask=mask, return_attention=True)
                 attentions.append(w)
             elif remat:
-                x = checkpoint(block, x, mask, use_reentrant=False)
+                x = checkpoint(block, x, mask, use_reentrant=False, **_replaying(block))
             else:
                 x = block(x, mask=mask)
         x = self.norm(x)
         if return_all_attentions:
             return x, attentions
         return x
+
+
+def _replaying(block: TransformerEncoderBlock) -> dict:
+    """``checkpoint``'s keyword arguments for ``block``: under tensor
+    parallelism, a ``context_fn`` that has the recompute draw from the
+    tensor-parallel generator what the forward drew (``checkpoint`` itself
+    replays only the default generators)."""
+    tp = block.attn.tp
+    if tp is None or tp.generator is None:
+        return {}
+    gen, saved = tp.generator, []
+
+    @contextlib.contextmanager
+    def forward():
+        saved.append(gen.get_state())
+        yield
+
+    @contextlib.contextmanager
+    def recompute():
+        now = gen.get_state()
+        gen.set_state(saved[0])
+        try:
+            yield
+        finally:
+            gen.set_state(now)
+
+    return {"context_fn": lambda: (forward(), recompute())}

@@ -8,6 +8,11 @@ per (sample, channel), ``F.dropout2d``; elementwise in the MLP and after
 the positional embedding), and ``DropPath`` drops a whole residual branch
 per sample, scaling kept ones by 1/keep. In eval all of them are identity
 but BatchNorm, which uses its running statistics.
+
+Data parallelism (``parallel/``): a BatchNorm whose ``group`` is set (by
+``sync_batchnorm``) takes its train-mode statistics over the whole global
+batch, as the JAX package's SPMD step does; ``dropout_from`` draws from a given
+generator where tensor parallelism needs its own random stream.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.resize import upsample_nearest
+from ..parallel.collectives import all_reduce_sum, copy_to_group, reduce_from_group
 
 BN_EPS = 1e-5
 LN_EPS = 1e-5
@@ -34,18 +40,49 @@ class BatchNorm(nn.BatchNorm2d):
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=BN_EPS, momentum=0.1)
+        self.group = None  # the data-parallel group whose batches it normalizes over
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
-        mean = x.mean(dim=(0, 2, 3))
-        var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        if self.group is None:
+            mean = x.mean(dim=(0, 2, 3))
+            var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        else:
+            # the global batch's statistics: one all-reduce of [sum x, sum x^2,
+            # count], whose backward all-reduces the statistics' gradients
+            c = x.shape[1]
+            sums = torch.cat([x.sum(dim=(0, 2, 3)), (x * x).sum(dim=(0, 2, 3)),
+                              x.new_full((1,), x.numel() // c)])
+            sums = all_reduce_sum(sums, self.group)
+            mean = sums[:c] / sums[2 * c]
+            var = torch.clamp(sums[c:2 * c] / sums[2 * c] - mean * mean, min=0.0)
         with torch.no_grad():
             self.running_mean.mul_(1 - self.momentum).add_(self.momentum * mean)
             self.running_var.mul_(1 - self.momentum).add_(self.momentum * var)
             self.num_batches_tracked.add_(1)
         mul = torch.rsqrt(var + self.eps) * self.weight
         return (x - mean[None, :, None, None]) * mul[None, :, None, None] + self.bias[None, :, None, None]
+
+
+def sync_batchnorm(model: nn.Module, group) -> nn.Module:
+    """Set every ``BatchNorm`` of ``model`` to take its train-mode statistics
+    over ``group``'s batches (None: its own batch)."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.group = group
+    return model
+
+
+def dropout_from(x: torch.Tensor, p: float, training: bool,
+                 generator: Optional[torch.Generator]) -> torch.Tensor:
+    """``F.dropout``, drawing the mask from ``generator`` when one is given."""
+    if generator is None:
+        return F.dropout(x, p, training)
+    if not training or p == 0.0:
+        return x
+    keep = torch.empty_like(x).bernoulli_(1.0 - p, generator=generator)
+    return x * keep / (1.0 - p)
 
 
 class ConvBlock(nn.Module):
@@ -115,10 +152,17 @@ class FeedForward(nn.Module):
         self.fc1 = nn.Linear(dim, hidden)
         self.fc2 = nn.Linear(hidden, dim)
         self.dropout = dropout
+        self.tp = None  # a TPGroup: fc1 split by column, fc2 by row (parallel/sharding.py)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = F.dropout(F.gelu(self.fc1(x), approximate="none"), self.dropout, self.training)
-        return F.dropout(self.fc2(x), self.dropout, self.training)
+        if self.tp is None:
+            x = F.dropout(F.gelu(self.fc1(x), approximate="none"), self.dropout, self.training)
+            return F.dropout(self.fc2(x), self.dropout, self.training)
+        tp = self.tp
+        x = F.gelu(self.fc1(copy_to_group(x, tp.group)), approximate="none")
+        x = dropout_from(x, self.dropout, self.training, tp.generator)  # this rank's hidden units
+        x = reduce_from_group(F.linear(x, self.fc2.weight), tp.group) + self.fc2.bias
+        return F.dropout(x, self.dropout, self.training)  # the same mask on every model rank
 
 
 class PatchEmbedding(nn.Module):

@@ -88,7 +88,10 @@ def kernel_tile(cfg: STFTConfig, *, inverse: bool) -> int:
 @functools.lru_cache(maxsize=64)
 def _device_const(kind: str, cfg: STFTConfig, device: torch.device, n_frames: int = 0):
     a = fft_plan(cfg) if kind == "plan" else window_sumsquare_denominator(cfg, n_frames)
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    t = torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    if t.is_cuda:  # other streams may read it next (the enhancer's replicas run on their own)
+        torch.cuda.current_stream(t.device).synchronize()
+    return t
 
 
 # ---------------------------------------------------------------------------

@@ -6,12 +6,19 @@ excludes the loader's padding rows; ``frame_mask`` (with
 ``use_frame_mask``) excludes padded frames. ``spectrogram_loss`` and the
 waveform ``multi_resolution_stft_loss`` are the JAX package's standalone
 losses, which the trainer does not call.
+
+Data parallelism: the masked means take ``count_sum``, which sums a count
+over the data-parallel ranks. Each rank's term is then its own sum over the
+global count, so the ranks' terms add up to the global batch's mean, as the
+JAX package's SPMD step computes it; a mean per rank, averaged over ranks,
+would not equal it once the ranks hold different numbers of valid rows (a
+lockstep padding batch, a short last batch). None: this rank's count.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional, Sequence
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
 
@@ -23,13 +30,23 @@ def log_compress(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
     return torch.log(torch.abs(x) + eps)
 
 
-def masked_mean(err: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+CountSum = Optional[Callable[[torch.Tensor], torch.Tensor]]
+
+
+def _count(c: torch.Tensor, count_sum: CountSum) -> torch.Tensor:
+    return c if count_sum is None else count_sum(c)
+
+
+def masked_mean(err: torch.Tensor, mask: Optional[torch.Tensor],
+                count_sum: CountSum = None) -> torch.Tensor:
     """Mean of ``err [B, F, T, C]``, optionally over the frames of ``mask
     [B, T]`` only."""
     if mask is None:
-        return err.mean()
+        if count_sum is None:
+            return err.mean()
+        return err.sum() / count_sum(err.new_full((), err.numel()))
     m = mask[:, None, :, None].expand(err.shape).to(err.dtype)
-    return (err * m).sum() / torch.clamp(m.sum(), min=1.0)
+    return (err * m).sum() / torch.clamp(_count(m.sum(), count_sum), min=1.0)
 
 
 def spectrogram_loss(pred: torch.Tensor, target: torch.Tensor, loss_type: str = "l1",
@@ -74,7 +91,8 @@ def multi_resolution_stft_loss(pred_wav: torch.Tensor, target_wav: torch.Tensor,
 
 def stoi_proxy_loss(pred: torch.Tensor, target: torch.Tensor,
                     frame_mask: Optional[torch.Tensor] = None,
-                    sample_weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    sample_weight: Optional[torch.Tensor] = None,
+                    count_sum: CountSum = None) -> torch.Tensor:
     """1 - cosine similarity of the flattened spectrograms, per sample,
     averaged (weighted by ``sample_weight``): the reference's
     differentiable "STOI" proxy."""
@@ -90,9 +108,12 @@ def stoi_proxy_loss(pred: torch.Tensor, target: torch.Tensor,
     tn = t / torch.clamp(torch.linalg.vector_norm(t, dim=1, keepdim=True), min=1e-12)
     per_sample = 1.0 - (pn * tn).sum(dim=1)
     if sample_weight is None:
-        return per_sample.mean()
-    w = sample_weight.float()
-    return (per_sample * w).sum() / torch.clamp(w.sum(), min=1.0)
+        w = torch.ones_like(per_sample) if count_sum is not None else None
+        if w is None:
+            return per_sample.mean()
+    else:
+        w = sample_weight.float()
+    return (per_sample * w).sum() / torch.clamp(_count(w.sum(), count_sum), min=1.0)
 
 
 def perceptual_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -129,7 +150,8 @@ class LossConfig:
 
 
 def batch_si_sdr_db(ref: torch.Tensor, est: torch.Tensor,
-                    valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    valid: Optional[torch.Tensor] = None,
+                    count_sum: CountSum = None) -> torch.Tensor:
     """Differentiable mean SI-SDR (dB) over the valid rows of ``[B, L]``
     waveforms, with eps floors so a silent row gives a large negative finite
     value rather than NaN."""
@@ -143,10 +165,10 @@ def batch_si_sdr_db(ref: torch.Tensor, est: torch.Tensor,
     noise = est - proj
     ratio = (proj * proj).sum(dim=-1) / torch.clamp((noise * noise).sum(dim=-1), min=1e-8)
     si = 10.0 * torch.log10(torch.clamp(ratio, min=1e-8))
-    if valid is None:
+    if valid is None and count_sum is None:
         return si.mean()
-    w = valid.float()
-    return (si * w).sum() / torch.clamp(w.sum(), min=1.0)
+    w = torch.ones_like(si) if valid is None else valid.float()
+    return (si * w).sum() / torch.clamp(_count(w.sum(), count_sum), min=1.0)
 
 
 def combined_loss(
@@ -155,9 +177,10 @@ def combined_loss(
     cfg: LossConfig = LossConfig(),
     frame_mask: Optional[torch.Tensor] = None,
     sample_valid: Optional[torch.Tensor] = None,
+    count_sum: CountSum = None,
 ) -> tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Weighted sum of the enabled losses over ``[B, F, T, C]`` and its
-    components."""
+    components (``count_sum``: see the module docstring)."""
     mask = frame_mask if cfg.use_frame_mask else None
     if sample_valid is not None:
         row = sample_valid[:, None]
@@ -171,20 +194,22 @@ def combined_loss(
     components: Dict[str, torch.Tensor] = {}
     total = torch.zeros((), device=pred.device)
     if cfg.l1_weight > 0:
-        components["l1"] = masked_mean(torch.abs(pred_in - target_in), mask)
+        components["l1"] = masked_mean(torch.abs(pred_in - target_in), mask, count_sum)
         total = total + cfg.l1_weight * components["l1"]
     if cfg.mse_weight > 0:
-        components["mse"] = masked_mean((pred_in - target_in) ** 2, mask)
+        components["mse"] = masked_mean((pred_in - target_in) ** 2, mask, count_sum)
         total = total + cfg.mse_weight * components["mse"]
     if cfg.log_l1_weight > 0:
         components["log_l1"] = masked_mean(
-            torch.abs(log_compress(pred, cfg.log_eps) - log_compress(target, cfg.log_eps)), mask)
+            torch.abs(log_compress(pred, cfg.log_eps) - log_compress(target, cfg.log_eps)), mask,
+            count_sum)
         total = total + cfg.log_l1_weight * components["log_l1"]
     if cfg.stoi_weight > 0:
-        components["stoi"] = stoi_proxy_loss(pred, target, mask, sample_weight=sample_valid)
+        components["stoi"] = stoi_proxy_loss(pred, target, mask, sample_weight=sample_valid,
+                                             count_sum=count_sum)
         total = total + cfg.stoi_weight * components["stoi"]
     if cfg.perceptual_weight > 0:
-        components["perceptual"] = perceptual_loss(pred, target)
+        components["perceptual"] = masked_mean(torch.abs(pred - target), None, count_sum)
         total = total + cfg.perceptual_weight * components["perceptual"]
     components["total"] = total
     return total, components

@@ -5,7 +5,8 @@
 -> ``adam`` | ``adamw`` | ``sgd``, optionally inside ``MultiSteps(k)``:
 
 - clip: with ``g_norm = sqrt(sum g^2)``, ``g / g_norm * max_norm`` when
-  ``g_norm >= max_norm`` (no epsilon; ``clip_grad_norm_`` differs);
+  ``g_norm >= max_norm`` (no epsilon; ``clip_grad_norm_`` differs; under
+  tensor parallelism the norm of the full gradient, ``global_norm``);
 - Adam: ``m = (1 - b1) g + b1 m``, ``v = (1 - b2) g^2 + b2 v``, count + 1,
   ``u = (m / (1 - b1^count)) / (sqrt(v / (1 - b2^count)) + eps)``;
   AdamW adds ``wd * p`` to ``u``; ``p += -lr * u``;
@@ -29,10 +30,24 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..parallel.collectives import all_reduce_
 
-def global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every element, as ``optax.global_norm``."""
-    return torch.sqrt(sum(torch.sum(g * g) for g in grads))
+
+def global_norm(grads: Sequence[torch.Tensor],
+                params: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+    """sqrt of the sum of squares of every element, as ``optax.global_norm``.
+    Under tensor parallelism (``params`` given, the shards among them marked
+    by ``shard_model`` with their ``tp_group``) it is the norm of the full
+    gradient: the shards' squares summed over the model group, the replicated
+    leaves' counted once. Every model rank then clips by the same factor."""
+    groups = [getattr(p, "tp_group", None) for p in params] if params is not None else []
+    group = next((g for g in groups if g is not None), None)
+    if group is None:
+        return torch.sqrt(sum(torch.sum(g * g) for g in grads))
+    sharded = sum(torch.sum(g * g) for g, s in zip(grads, groups) if s is not None)
+    replicated = sum((torch.sum(g * g) for g, s in zip(grads, groups) if s is None),
+                     torch.zeros_like(sharded))
+    return torch.sqrt(all_reduce_(sharded.clone(), group) + replicated)
 
 
 class Optimizer:
@@ -94,7 +109,7 @@ class Optimizer:
             for a in self.acc:
                 a.zero_()
         if self.max_norm is not None:
-            g_norm = global_norm(grads)
+            g_norm = global_norm(grads, self.params)
             clip = g_norm >= self.max_norm
             grads = [torch.where(clip, g / g_norm * self.max_norm, g) for g in grads]
         self.count += 1

@@ -15,12 +15,24 @@ best-on-train without a validation loader, resume with epoch + 1 (from the
 port's checkpoints and from the JAX trainer's, optax state included),
 TensorBoard scalars and audio samples when the config asks for them, and a
 ``torch.profiler`` trace of steps 1-5 of the first epoch with
-``profile_dir``. Not ported: the device mesh and multi-host training
-(ROADMAP queue 1 item 10).
+``profile_dir``.
+
+On a mesh (``parallel/``; one process per device) the step computes what
+the JAX package's SPMD step computes over the global batch: BatchNorm's
+training statistics over every data rank's rows, each loss term a rank's
+sum over the global count of valid rows (or frames), the gradients and the
+metrics summed over the data group in one ``all_reduce``, the replicated
+parameters' gradients averaged over the model group, the clip's norm over
+the tensor-parallel shards, so every rank takes the same step and skips
+the same non-finite ones. The ``Trainer`` starts every rank from rank
+0's weights, logs the global metrics, and writes checkpoints, logs, audio
+samples and the profiler trace on rank 0 alone, after every rank has taken
+part in gathering the tensor-parallel shards.
 """
 
 from __future__ import annotations
 
+import copy
 import time
 import warnings
 from pathlib import Path
@@ -31,10 +43,13 @@ import torch
 
 from ..data.augmentation import SpecAugmentConfig
 from ..data.pipeline import featurize_batch, int16_to_float
-from ..models.components import BatchNorm, patch_validity_mask
+from ..models.components import BatchNorm, patch_validity_mask, sync_batchnorm
 from ..ops.stft import STFTConfig, reconstruct
+from ..parallel.collectives import all_reduce_
+from ..parallel.mesh import Mesh, rank_seed
+from ..parallel.sharding import gather_state_dict, shard_model, tp_gather, tp_split, unshard_model
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
-from ..utils.logging import MetricsLogger, Stopwatch
+from ..utils.logging import MetricsLogger, NullLogger, Stopwatch
 from .losses import LossConfig, batch_si_sdr_db, combined_loss
 from .optimizer import Optimizer, create_scheduler, global_norm, parameters
 
@@ -50,6 +65,42 @@ def stft_config_from(config: Dict) -> STFTConfig:
                       win_length=a.get("win_length", 512), window=a.get("window", "hann"))
 
 
+@torch.no_grad()
+def parallelize(model: torch.nn.Module, mesh: Optional[Mesh], *, tensor_parallel: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.nn.Module:
+    """Ready ``model``, on this rank's device, for a run on ``mesh`` (in place):
+    rank 0's parameters and buffers broadcast to every rank, then, with
+    ``tensor_parallel`` and a model axis, this rank's shard kept
+    (``shard_model``; ``generator``: dropout on its own shard), and with a
+    data axis every BatchNorm synced over the data group. On no mesh, or a
+    mesh of one device, the model is left as it is."""
+    if mesh is None or mesh.size == 1:
+        return model
+    import torch.distributed as dist
+
+    for t in list(model.parameters()) + list(model.buffers()):
+        dist.broadcast(t.data, src=0)
+    if tensor_parallel and mesh.model > 1:
+        shard_model(model, mesh, generator)
+    if mesh.data > 1:
+        sync_batchnorm(model, mesh.data_group)
+    return model
+
+
+def _sum_over(group, grads, metrics):
+    """``grads`` and the 0-d ``metrics`` summed over ``group`` in one
+    ``all_reduce`` of one flat buffer."""
+    keys = list(metrics)
+    flat = torch.cat([g.reshape(-1) for g in grads]
+                     + ([torch.stack([metrics[k] for k in keys])] if keys else []))
+    all_reduce_(flat, group)
+    out, i = [], 0
+    for g in grads:
+        out.append(flat[i:i + g.numel()].view_as(g))
+        i += g.numel()
+    return out, dict(zip(keys, flat[i:].unbind()))
+
+
 def make_step_fns(
     model: torch.nn.Module,
     optimizer: Optimizer,
@@ -62,12 +113,15 @@ def make_step_fns(
     skip_nonfinite: bool = True,
     output_mode: str = "magnitude",
     generator: Optional[torch.Generator] = None,
+    mesh: Optional[Mesh] = None,
 ):
     """``(train_step, eval_step)``: ``train_step(batch)`` updates ``model``
     through ``optimizer`` and returns its metrics (0-d tensors on the
     device); ``eval_step(batch)`` returns the loss components. ``batch``:
     ``batch_to_device`` of a loader batch. ``generator`` draws SpecAugment
     (``augment``); dropout draws from the device's default generator.
+    ``mesh``: this rank's mesh, with ``model`` already ``parallelize``d for
+    it; the metrics are then the global batch's.
 
     ``use_attention_mask`` keeps bucket-padding patches out of attention;
     ``output_mode`` ``"mask"`` maps the Tanh output to a [0, 1] mask on the
@@ -89,6 +143,15 @@ def make_step_fns(
     params = optimizer.params
     bn_state = [t for m in model.modules() if isinstance(m, BatchNorm)
                 for t in (m.running_mean, m.running_var, m.num_batches_tracked)]
+    data_group = mesh.data_group if mesh is not None and mesh.data > 1 else None
+    count_sum = None if data_group is None else (
+        lambda c: all_reduce_(c.detach().clone(), data_group))
+    # under tensor parallelism the replicated parameters' gradients are
+    # averaged over the model group: a backward that adds with atomics
+    # (F.interpolate's on CUDA) leaves them a few ulp apart on the model
+    # ranks, and the replicas would drift
+    tp = next((m.tp for m in model.modules() if getattr(m, "tp", None) is not None), None)
+    replicated = [i for i, p in enumerate(params) if getattr(p, "tp_group", None) is None]
 
     def _featurize(batch, augmenting: bool):
         return featurize_batch(batch["noisy_audio"], batch["clean_audio"], batch["length"],
@@ -118,13 +181,14 @@ def make_step_fns(
         est_mag = pred[..., 0].float() * torch.clamp(feats.noisy_max, min=1e-8)[:, None, None]
         est = reconstruct(est_mag, feats.noisy_phase, stft_cfg,
                           length=batch["clean_audio"].shape[-1])
-        si = batch_si_sdr_db(int16_to_float(batch["clean_audio"]), est, valid=batch["valid"])
+        si = batch_si_sdr_db(int16_to_float(batch["clean_audio"]), est, valid=batch["valid"],
+                             count_sum=count_sum)
         return -si, si
 
     def _loss(out, feats, batch):
         pred, target = _pred_target(out, feats)
         total, comps = combined_loss(pred, target, loss_cfg, frame_mask=feats.frame_mask,
-                                     sample_valid=batch["valid"])
+                                     sample_valid=batch["valid"], count_sum=count_sum)
         if loss_cfg.si_sdr_weight > 0:
             term, si = _si_sdr_term(pred, feats, batch)
             total = total + loss_cfg.si_sdr_weight * term
@@ -140,8 +204,14 @@ def make_step_fns(
         total, comps = _loss(out, feats, batch)
         grads = torch.autograd.grad(total, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
-        gnorm = global_norm(grads)
         metrics = {k: v.detach() for k, v in comps.items()}
+        if data_group is not None:
+            grads, metrics = _sum_over(data_group, grads, metrics)
+        if tp is not None:
+            summed = _sum_over(tp.group, [grads[i] for i in replicated], {})[0]
+            for i, g in zip(replicated, summed):
+                grads[i] = g / tp.size
+        gnorm = global_norm(grads, params)
         metrics["grad_norm"] = gnorm.detach()
         if not skip_nonfinite:
             optimizer.step(grads)
@@ -149,7 +219,7 @@ def make_step_fns(
         # one non-finite gradient would poison the parameters for good: keep
         # everything from before the step (BatchNorm's running statistics
         # moved in the forward) and zero the step's metrics
-        ok = bool(torch.isfinite(gnorm) & torch.isfinite(total))
+        ok = bool(torch.isfinite(gnorm) & torch.isfinite(metrics["total"]))
         if ok:
             optimizer.step(grads)
         else:
@@ -165,14 +235,21 @@ def make_step_fns(
         feats = _featurize(batch, False)
         model.eval()
         out = model(feats.noisy_spec, mask=_patch_mask(feats, batch))
-        return _loss(out, feats, batch)[1]
+        comps = _loss(out, feats, batch)[1]
+        if data_group is None:
+            return comps
+        return _sum_over(data_group, [], comps)[1]
 
     return train_step, eval_step
 
 
 class Trainer:
     """The epoch loop with the reference's training contract, on one
-    device (``cuda`` unless the caller asks for ``cpu``)."""
+    device (``cuda`` unless the caller asks for ``cpu``): this process's,
+    of ``mesh`` when the caller gives one (its ``torch.distributed`` group
+    joined, ``parallel.initialize_distributed``). Tensor parallelism
+    engages on a model axis unless ``mesh.use_tensor_parallel`` is false in
+    the config, as in the JAX trainer."""
 
     def __init__(
         self,
@@ -182,15 +259,20 @@ class Trainer:
         val_loader=None,
         *,
         device: str | torch.device = "cuda",
+        mesh: Optional[Mesh] = None,
         checkpoint_dir: Optional[str | Path] = None,
         log_dir: Optional[str | Path] = None,
         resume_from: Optional[str | Path] = None,
         profile_dir: Optional[str | Path] = None,
     ):
         self.device = torch.device(device)
-        self.profile_dir = profile_dir
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Trainer: device cuda asked for, but no CUDA device is available")
+        self.mesh = mesh
+        self.is_main = mesh is None or mesh.rank == 0
+        self.profile_dir = profile_dir if self.is_main else None
+        self.use_tp = (mesh is not None and mesh.model > 1
+                       and config.get("mesh", {}).get("use_tensor_parallel", True))
         self.config = config
         self.train_loader = train_loader
         self.val_loader = val_loader
@@ -208,9 +290,18 @@ class Trainer:
         self.patience = es.get("patience", 10)
         self.min_delta = es.get("min_delta", 1e-4)
 
-        torch.manual_seed(self.seed)  # dropout and drop-path masks
-        self.generator = torch.Generator(device=self.device).manual_seed(self.seed)
-        self.model = model.to(self.device)
+        # dropout, drop-path and SpecAugment: one stream per data rank, shared
+        # by the model ranks of its data shard; dropout on a tensor-parallel
+        # shard: one stream per rank
+        data_rank = mesh.data_rank if mesh is not None else 0
+        torch.manual_seed(rank_seed(self.seed, data_rank))
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            rank_seed(self.seed, data_rank))
+        tp_generator = torch.Generator(device=self.device).manual_seed(
+            rank_seed(self.seed, data_rank, mesh.model_rank)) if self.use_tp else None
+        self.model = parallelize(model.to(self.device), mesh, tensor_parallel=self.use_tp,
+                                 generator=tp_generator)
+        self.param_names = [n for n, p in self.model.named_parameters() if p.requires_grad]
         self.stft_cfg = stft_config_from(config)
         self.loss_cfg = LossConfig.from_config(config)
         self.aug_cfg = SpecAugmentConfig.from_config(config)
@@ -221,10 +312,12 @@ class Trainer:
         lc = tc.get("logging", {})
         self.logger = MetricsLogger(log_dir or lc.get("log_dir", "logs"),
                                     tc.get("experiment_name", "experiment"),
-                                    use_tensorboard=lc.get("use_tensorboard", True))
+                                    use_tensorboard=lc.get("use_tensorboard", True)
+                                    ) if self.is_main else NullLogger()
         # as the JAX trainer: audio samples only where a TensorBoard writer is
-        self.log_audio_samples = lc.get("save_audio_samples", False) and (
-            self.logger.tb is not None)
+        # (rank 0's); under tensor parallelism every rank gathers the weights
+        self.audio_samples_asked = lc.get("save_audio_samples", False)
+        self.log_audio_samples = self.audio_samples_asked and self.logger.tb is not None
         self.num_audio_samples = lc.get("num_audio_samples", 5)
 
         self.step = 0
@@ -242,6 +335,7 @@ class Trainer:
             skip_nonfinite=tc.get("skip_nonfinite_updates", True),
             output_mode=config.get("model", {}).get("output_mode", "magnitude"),
             generator=self.generator,
+            mesh=mesh,
         )
         self.stopwatch = Stopwatch()
 
@@ -302,13 +396,20 @@ class Trainer:
 
     def _log_audio_samples(self, epoch: int) -> None:
         """Enhance ``num_audio_samples`` validation clips with the current
-        weights and log the noisy (first epoch) and enhanced audio."""
-        if not self.log_audio_samples or self.val_loader is None:
+        weights and log the noisy (first epoch) and enhanced audio (rank 0)."""
+        if self.val_loader is None:
+            return
+        model = self.model
+        if self.use_tp and self.audio_samples_asked:
+            full = gather_state_dict(self.model.state_dict(), self.mesh)  # every rank
+            if self.log_audio_samples:
+                model = unshard_model(self._detached_copy(), full)
+        if not self.log_audio_samples:
             return
         try:
             from ..inference.enhancer import AudioEnhancer
 
-            enhancer = AudioEnhancer(self.model, self.config, device=self.device,
+            enhancer = AudioEnhancer(model, self.config, device=self.device,
                                      buckets=tuple(self.train_loader.buckets))
             ds = self.val_loader.dataset
             wavs = [ds.load_pair(i)[0] for i in range(min(self.num_audio_samples, len(ds)))]
@@ -318,6 +419,13 @@ class Trainer:
                 self.logger.log_audio(self.step, f"audio/enhanced_{i}", enh, self.sample_rate)
         except Exception as e:  # never stop training over logging
             print(f"warning: audio sample logging failed: {e}")
+
+    def _detached_copy(self) -> torch.nn.Module:
+        """A copy of the model that shares no process group or generator."""
+        shared = [self.mesh.data_group, self.mesh.model_group]
+        shared += [m.tp.generator for m in self.model.modules() if getattr(m, "tp", None)]
+        model = copy.deepcopy(self.model, {id(o): o for o in shared if o is not None})
+        return sync_batchnorm(model, None)
 
     def validate(self) -> Dict[str, float]:
         if self.val_loader is None:
@@ -333,7 +441,7 @@ class Trainer:
     def train(self) -> Dict[str, list]:
         """The full run: epochs, schedule, checkpoints, early stopping."""
         history = {"train_loss": [], "val_loss": []}
-        if self.val_loader is None:
+        if self.val_loader is None and self.is_main:
             print("warning: no validation loader — best_model will track the training loss "
                   "instead of a validation loss")
         for epoch in range(self.current_epoch, self.num_epochs):
@@ -377,16 +485,30 @@ class Trainer:
         return history
 
     def save(self, path: str | Path, epoch: int) -> Path:
-        return save_checkpoint(path, self.model, step=self.step,
-                               optimizer_state=self.optimizer.state_dict(), epoch=epoch,
+        """Write a checkpoint (rank 0), its tensor-parallel shards gathered
+        first (every rank)."""
+        sd, opt = self.model.state_dict(), self.optimizer.state_dict()
+        if self.use_tp:
+            sd = gather_state_dict(sd, self.mesh)
+            opt = {k: ([tp_gather(n, t, self.mesh) for n, t in zip(self.param_names, v)]
+                       if isinstance(v, list) else v) for k, v in opt.items()}
+        if not self.is_main:
+            return Path(path)
+        return save_checkpoint(path, self.model, state_dict=sd, step=self.step,
+                               optimizer_state=opt, epoch=epoch,
                                global_step=self.step, best_val_loss=self.best_val_loss,
                                config=self.config)
 
     def load(self, path: str | Path) -> None:
         """Resume: weights, BatchNorm statistics, optimizer state (the port's,
         or a JAX checkpoint's optax state), step and the loop position (the
-        saved epoch + 1)."""
-        step, opt_state, meta = load_checkpoint(path, self.model, self.optimizer.name)
+        saved epoch + 1). Under tensor parallelism each rank keeps its shard
+        of what it reads."""
+        shard = None
+        if self.use_tp:
+            mp, m = self.mesh.model, self.mesh.model_rank
+            shard = lambda name, t: tp_split(name, t, mp, m)  # noqa: E731
+        step, opt_state, meta = load_checkpoint(path, self.model, self.optimizer.name, shard=shard)
         if opt_state is None:
             raise ValueError(f"{path} holds no optimizer state to resume from")
         self.optimizer.load_state_dict(opt_state)

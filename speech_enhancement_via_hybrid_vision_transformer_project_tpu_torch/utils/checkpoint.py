@@ -34,7 +34,7 @@ import json
 import re
 import struct
 from pathlib import Path
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -362,12 +362,15 @@ def _param_list(tree: Dict, names: Sequence[str]) -> list:
 def save_checkpoint(path: str | Path, model: torch.nn.Module, *, step: int = 0,
                     optimizer_state: Optional[Dict] = None, epoch: int = 0,
                     global_step: int = 0, best_val_loss: float = float("inf"),
-                    config: Optional[Dict] = None) -> Path:
+                    config: Optional[Dict] = None,
+                    state_dict: Optional[Dict[str, torch.Tensor]] = None) -> Path:
     """Write ``<path>/state.msgpack`` and ``<path>/meta.json`` (see the
-    module docstring). ``optimizer_state``: ``Optimizer.state_dict()``."""
+    module docstring). ``optimizer_state``: ``Optimizer.state_dict()``.
+    ``state_dict``: the weights to write in place of ``model``'s (a
+    tensor-parallel model's gathered ones)."""
     path = Path(path)
     path.mkdir(parents=True, exist_ok=True)
-    tree = state_dict_to_flax(model.state_dict())
+    tree = state_dict_to_flax(model.state_dict() if state_dict is None else state_dict)
     tree["step"] = np.asarray(step, np.int32)
     if optimizer_state is not None:
         tree["port_opt_state"] = {
@@ -384,21 +387,28 @@ def save_checkpoint(path: str | Path, model: torch.nn.Module, *, step: int = 0,
 
 
 def load_checkpoint(path: str | Path, model: torch.nn.Module,
-                    optimizer_name: str = "adamw") -> tuple[int, Optional[Dict], Dict]:
+                    optimizer_name: str = "adamw",
+                    shard: Optional[Callable[[str, torch.Tensor], torch.Tensor]] = None,
+                    ) -> tuple[int, Optional[Dict], Dict]:
     """Load a checkpoint's weights into ``model`` (strict, as
     ``load_model_weights``); returns ``(step, optimizer state or None,
     meta)``. The optimizer state is the port's own, or, from a checkpoint
     of the JAX trainer, its optax state read by ``optax_state_to_port`` for
-    the port optimizer ``optimizer_name`` over ``model``'s parameters."""
+    the port optimizer ``optimizer_name`` over ``model``'s parameters.
+    ``shard(name, tensor)``: the part of a weight, or of a parameter's
+    optimizer state, that ``model`` holds (a tensor-parallel rank's)."""
     tree = msgpack_restore((Path(path) / "state.msgpack").read_bytes())
-    load_model_weights(path, model, tree=tree)
+    load_model_weights(path, model, tree=tree, shard=shard)
+    names = [n for n, p in model.named_parameters() if p.requires_grad]
     opt = tree.get("port_opt_state")
     if opt is not None:
         opt = {k: ([v[str(i)] for i in range(len(v))] if isinstance(v, dict) else v)
                for k, v in opt.items()}
     elif isinstance(tree.get("opt_state"), dict):
-        names = [n for n, p in model.named_parameters() if p.requires_grad]
         opt = optax_state_to_port(tree["opt_state"], names, optimizer_name)
+    if opt is not None and shard is not None:
+        opt = {k: ([shard(n, torch.from_numpy(np.array(x))) for n, x in zip(names, v)]
+                   if isinstance(v, list) else v) for k, v in opt.items()}
     step = tree.get("step", 0)
     return int(np.asarray(step)), opt, read_meta(path)
 
@@ -434,11 +444,16 @@ def read_meta(path: str | Path) -> Dict:
 
 
 def load_model_weights(path: str | Path, model: torch.nn.Module,
-                       tree: Optional[Dict] = None) -> torch.nn.Module:
+                       tree: Optional[Dict] = None,
+                       shard: Optional[Callable[[str, torch.Tensor], torch.Tensor]] = None,
+                       ) -> torch.nn.Module:
     """Load a checkpoint's weights into ``model`` (strict: every parameter
     and buffer must be present with the right shape). ``tree``: the
-    checkpoint's decoded ``state.msgpack``, when already read."""
+    checkpoint's decoded ``state.msgpack``, when already read; ``shard``:
+    see ``load_checkpoint``."""
     sd = flax_to_state_dict(read_variables(path) if tree is None else _extract_variables(tree))
+    if shard is not None:
+        sd = {k: shard(k, v) for k, v in sd.items()}
     own = model.state_dict()
     missing = sorted(set(own) - set(sd) - {k for k in own if k.endswith("num_batches_tracked")})
     unexpected = sorted(set(sd) - set(own))

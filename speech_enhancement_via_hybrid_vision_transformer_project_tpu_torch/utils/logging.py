@@ -18,6 +18,25 @@ from typing import Dict
 import numpy as np
 
 
+class NullLogger:
+    """A ``MetricsLogger`` that writes nothing: a data-parallel rank other
+    than 0 logs through it."""
+
+    tb = None
+
+    def log_scalars(self, step: int, scalars: Dict[str, float], prefix: str = ""):
+        pass
+
+    def log_audio(self, step: int, tag: str, audio, sample_rate: int = 16000):
+        pass
+
+    def flush(self):
+        pass
+
+    def close(self):
+        pass
+
+
 class MetricsLogger:
     """Appends ``{"step", "time", <prefix><name>: value, ...}`` lines to
     ``<log_dir>/<experiment_name>/metrics.jsonl``, and the same scalars to

@@ -41,6 +41,10 @@ from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.ops.stft
 
 pytestmark = pytest.mark.cuda
 
+SMALL = dict(embed_dim=64, num_heads=4, num_layers=2, mlp_ratio=2.0,
+             encoder_channels=(16, 32, 64), decoder_channels=(32, 16, 8, 1),
+             dropout=0.0, attn_dropout=0.0, drop_path_rate=0.0)
+
 
 @pytest.fixture
 def dev():
@@ -498,3 +502,80 @@ def test_linear_attention_cuda_matches_cpu(dev, gen):
         got = model.to(dev)(x.to(dev)).cpu()
     assert kernels.KERNELS["attention_fwd"].launches == 0
     assert float((got - ref).abs().max()) <= 1e-4
+
+
+def test_mesh_on_cuda_tensors_over_gloo(dev, tmp_path):
+    """A 2 x 2 mesh (data x model) of gloo processes on this card: synced
+    BatchNorm, the tensor-parallel Functions around K2 on 2 of 4 heads, and
+    the gradient all-reduce, on CUDA tensors; against the same step on one
+    device: eval-mode output 2e-5, loss components and BatchNorm statistics
+    1e-5, each gradient within 3e-2 of its leaf's largest in the transformer
+    block and 5e-2 elsewhere (``chip_smoke.py``'s cuda-vs-cpu step limits:
+    cuDNN picks its algorithms by batch size)."""
+    from torch_mesh_worker import Capture, run_job
+
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.data.augmentation import (
+        SpecAugmentConfig,
+    )
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.training.losses import (
+        LossConfig,
+    )
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.training.trainer import (
+        make_step_fns,
+    )
+
+    rng = np.random.default_rng(0)
+    model = init_weights(HybridViT(**SMALL), torch.Generator().manual_seed(0))
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    length = 63 * 128
+    clean = (0.3 * np.sin(np.arange(length) * 0.04) * np.ones((4, 1))).astype(np.float32)
+    noisy = (clean + 0.1 * rng.standard_normal((4, length))).astype(np.float32)
+    batch = {"noisy_audio": noisy, "clean_audio": clean,
+             "length": np.array([length, 6000, 5000, length], np.int32),
+             "valid": np.array([True, True, True, False])}
+    spec = rng.random((2, 257, 64, 1)).astype(np.float32)
+    loss, step_kw = dict(log_l1_weight=0.05), dict(use_attention_mask=True)
+    case = {"kind": "step", "model": SMALL, "state": state, "loss": loss, "step": step_kw,
+            "batch": batch, "tensor_parallel": True, "spec": spec, "device": "cuda"}
+    ranks = run_job({"cases": [case], "device": "cuda"}, 2, 2, tmp_path)
+
+    model.to(dev)
+    with torch.no_grad():
+        want = model.eval()(torch.from_numpy(spec).to(dev)).cpu()
+    cap = Capture(list(model.parameters()))
+    step, _ = make_step_fns(model, cap, LossConfig(**loss), STFTConfig(), SpecAugmentConfig(),
+                            augment=False, **step_kw)
+    metrics = step({k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+    grads = {n: g.cpu() for (n, _), g in zip(model.named_parameters(), cap.grads)}
+    stats = {k: v.cpu() for k, v in model.state_dict().items() if "running" in k}
+    for (r,) in ranks:
+        assert float((r["forward"] - want).abs().max()) <= 2e-5
+        for k, v in metrics.items():
+            assert abs(r["metrics"][k] - float(v)) <= 1e-5 * max(1.0, abs(float(v))), k
+        for n, g in grads.items():
+            tol = 3e-2 if n.startswith("transformer.blocks.") else 5e-2
+            assert float((r["grads"][n] - g).abs().max()) <= tol * float(g.abs().max()), n
+        for k, v in stats.items():
+            assert float((r["stats"][k] - v).abs().max()) <= 1e-5, k
+
+
+def test_mesh_enhancer_on_two_replicas_of_one_card(dev):
+    """``AudioEnhancer`` with ``mesh`` over [cuda:0, cuda:0] (two replicas,
+    each on its own stream) against one device: waveforms within 2e-4, rows
+    in order, an odd batch (a pad row)."""
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.parallel import (
+        make_mesh,
+    )
+
+    model = init_weights(HybridViT(**SMALL), torch.Generator().manual_seed(1))
+    cfg = {"model": {"output_mode": "mask"}}
+    one = AudioEnhancer(model, cfg, device=dev, mask_padding=True)
+    two = AudioEnhancer(init_weights(HybridViT(**SMALL), torch.Generator().manual_seed(1)), cfg,
+                        device="cuda", mask_padding=True,
+                        mesh=make_mesh(2, 1, [torch.device("cuda", 0)] * 2))
+    assert [d for d, _, s in two.replicas] == [torch.device("cuda", 0)] * 2
+    rng = np.random.default_rng(2)
+    wavs = [(0.3 * rng.standard_normal(n)).astype(np.float32) for n in (16000, 9000, 23000)]
+    for a, b in zip(two.enhance_batch(wavs), one.enhance_batch(wavs)):
+        assert a.shape == b.shape and np.isfinite(a).all()
+        assert float(np.abs(a - b).max()) <= 2e-4

@@ -181,8 +181,20 @@ def test_evaluate_cli_end_to_end(dataset, port_model, tmp_path, monkeypatch, cap
     assert len(results["per_file"]) == 5 and len(list((tmp_path / "enh").glob("*.wav"))) == 5
     assert results["summary"]["si_sdr"]["count"] == 5.0 and "pesq" not in results["summary"]
     assert "audio-s/s" in capsys.readouterr().out
-    with pytest.raises(SystemExit, match="item 10"):
-        evaluate_cli.main(args + ["--data-parallel", "2"])
+    # --data-parallel 2: on the CPU two replicas score each file as one device
+    # does (within the evaluator tests' SNR tolerance); on cuda it is refused
+    # where fewer cards are visible
+    assert evaluate_cli.main(args + ["--data-parallel", "2", "--output",
+                                     str(tmp_path / "r2.json")]) == 0
+    two = json.loads((tmp_path / "r2.json").read_text())
+    assert set(two["per_file"]) == set(results["per_file"])
+    for name, row in results["per_file"].items():
+        assert abs(two["per_file"][name]["si_sdr"] - row["si_sdr"]) <= 1e-4
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "is_available", lambda: True)
+        m.setattr(torch.cuda, "device_count", lambda: 1)
+        with pytest.raises(SystemExit, match="2 CUDA devices asked for, but 1 visible"):
+            evaluate_cli.main(args[:2] + args[4:] + ["--data-parallel", "2"])
     assert "max(1, min(8, cpu_count - 2))" in " ".join(
         evaluate_cli.build_parser().format_help().split())
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

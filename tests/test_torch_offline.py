@@ -250,18 +250,32 @@ def test_enhance_cli_file_streaming_and_directory(checkpoint, port_model, tmp_pa
 
 
 def test_enhance_cli_errors(checkpoint, tmp_path, monkeypatch):
-    """As JAX ``tests/test_cli.py::test_enhance_cli_errors``, plus the
-    option not ported yet (``--data-parallel``) and the card refused where
-    there is none."""
+    """As JAX ``tests/test_cli.py::test_enhance_cli_errors``, plus
+    ``--data-parallel 2``: on the CPU it runs (two replicas, the files equal
+    to one device's), on ``cuda`` it is refused where fewer cards are
+    visible, and the card is refused where there is none."""
     save_wav(tmp_path / "dir" / "a.wav", _tone(0.3, 0), SR)
+    save_wav(tmp_path / "dir" / "b.wav", _tone(0.5, 1), SR)
     cases = [
         ((tmp_path / "missing.wav", tmp_path / "x.wav"), (), "input not found"),
         ((tmp_path / "dir", tmp_path / "file.wav"), (), "directory output"),
-        ((tmp_path / "dir", tmp_path / "o"), ("--data-parallel", "2"), "item 10"),
     ]
     for (inp, out), extra, msg in cases:
         with pytest.raises(SystemExit, match=msg):
             _cli(checkpoint, inp, out, *extra)
+    assert _cli(checkpoint, tmp_path / "dir", tmp_path / "one", "--batch-size", "2") == 0
+    assert _cli(checkpoint, tmp_path / "dir", tmp_path / "two", "--batch-size", "2",
+                "--data-parallel", "2") == 0
+    for name in ("a.wav", "b.wav"):  # PCM16 files: within one LSB
+        np.testing.assert_allclose(load_audio(tmp_path / "two" / name, SR)[0],
+                                   load_audio(tmp_path / "one" / name, SR)[0],
+                                   atol=1.0 / 32767, rtol=0)
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "is_available", lambda: True)
+        m.setattr(torch.cuda, "device_count", lambda: 1)
+        with pytest.raises(SystemExit, match="2 CUDA devices asked for, but 1 visible"):
+            enhance_cli.main(["--checkpoint", str(checkpoint), "--input", str(tmp_path / "dir"),
+                              "--output", str(tmp_path / "o"), "--data-parallel", "2"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="no CUDA device"):
         enhance_cli.main(["--checkpoint", str(checkpoint), "--input", str(tmp_path / "dir"),

@@ -7,8 +7,8 @@ step, optimizer state and ``meta.json``'s JAX keys, and the JAX package's
 Resume continues at the saved epoch + 1 with the saved state. The epoch
 loop averages loss metrics over accepted steps only, keeps best / periodic /
 final checkpoints, tracks the train loss without a validation loader and
-stops early. The CLI trains one tiny epoch on the CPU and refuses what is
-not ported (parallelism).
+stops early. The CLI trains one tiny epoch on the CPU and refuses a mesh it
+cannot run (multi-process training itself: ``test_torch_mesh_cli.py``).
 """
 
 import json
@@ -227,9 +227,21 @@ def test_cli_trains_one_epoch_on_cpu(data_root, tmp_path):
 
 
 @pytest.mark.parametrize("args,match", [
-    (["--model-parallel", "2"], "item 10"), (["--data-parallel", "2"], "item 10"),
-    (["--num-processes", "2"], "item 10")])
-def test_cli_refuses_what_is_not_ported(args, match, data_root, tmp_path):
+    (["--model-parallel", "3"], r"num_heads \(4\) must be divisible by model_parallel \(3\)"),
+    (["--data-parallel", "2", "--batch-size", "3"],
+     r"batch_size \(3\) must be divisible by the data-parallel axis \(2"),
+    (["--num-processes", "2"], "needs --coordinator host:port and --process-id"),
+    (["--process-id", "1"], "needs --num-processes above it"),
+    (["--device", "cuda", "--data-parallel", "2"],
+     "needs 2 CUDA devices on this host, but 1 visible")])
+def test_cli_refuses_what_is_not_ported(args, match, data_root, tmp_path, monkeypatch):
+    """The mesh the CLI refuses before starting a process: heads the model
+    axis does not divide (tensor parallelism splits whole heads, a limit of
+    the port), a batch the data axis does not divide (as the JAX CLI), and
+    several hosts without a rendezvous, or a host index without hosts; and
+    on cuda more cards than are visible (one, here), naming both counts."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     config = small_config()
     cfg_dir = _write_config(tmp_path / "config", config)
     with pytest.raises(SystemExit, match=match):
