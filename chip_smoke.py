@@ -10,7 +10,8 @@ which raises on failure:
 1. device: a CUDA card is required; prints its name and power limit and
    turns TF32 off (float32 end to end).
 2. build: compiles the four kernels (K1, K2 forward and backward, K3)
-   from the port's ``csrc/``, one nvcc per source, all started together;
+   from the port's ``csrc/``, one nvcc per source, all started together,
+   and the native WAV runtime (``native/``) with the host compiler;
    prints K2's registers, shared memory and blocks per SM and its
    backward's registers and spills per pass, and checks that K2's forward
    and both passes of its backward hold TF32 tensor-core instructions
@@ -142,6 +143,23 @@ which raises on failure:
       batch beside one device's. Two ranks on one card measure the mesh's
       overhead, not its scaling.
 
+12. DSP (its wall time printed): a. the native WAV runtime, built in phase
+    2 from the port's ``native/sevit_audio.cpp`` with the host compiler
+    (its build time printed; ``available()`` must be True: this machine has a compiler, so
+    the numpy fallback may not hide a failed build); phase 8's 65 PCM16
+    files decoded by ``native.read_wav`` within 1e-7 of the numpy codec and
+    by ``native.decode_batch`` within 2e-4, with host ms a file for each.
+    b. Griffin-Lim on the magnitude of one 32 x 3 s batch ([32, 257, 384]
+    from K1), 32 rounds: 32 K1 and 33 K3 launches, finite output of 49024
+    samples, against the plain (re, im) rounds on cuda from the same drawn
+    phase (after 1 round within K1's and K3's composed limits, after 32 within
+    ``TOL_GL_ROUNDS`` of the peak), the spectral convergence falling from
+    round 1 to 32; ms a call and a round, audio-s/s. c. ``stft``, ``istft``,
+    ``reconstruct`` and ``spectrogram`` with ``method="auto"`` launch K1 or K3
+    once and equal ``method="matmul"`` within K1's and K3's limits,
+    ``method="fft"`` within 2e-3; a tensor that needs grad is refused. d.
+    ``export_program`` refuses the 28M model on cuda.
+
 ``python3 chip_smoke.py --cards N`` (a machine with N >= 2 cards) builds the
 kernels and runs phase 11 alone over NCCL, one rank a card: N data ranks,
 TP = 2 x DP = N / 2 and N inference replicas, with the same checks and
@@ -159,7 +177,8 @@ batch, ``offline_launches`` in the phase 8 evaluate run,
 phase 10 CLI epoch, ``remat_train_launches`` in one 28M remat step,
 ``mesh_train_launches`` per rank in one 2-rank step, ``tp_train_launches``
 per rank in one TP step, ``mesh_serve_launches`` per replica in one mesh
-batch), and the result JSON.
+batch, ``griffin_lim_launches`` in one phase 12 Griffin-Lim call), and the
+result JSON.
 """
 
 from __future__ import annotations
@@ -551,9 +570,9 @@ def sweep(enhancer, batches, in_flight: int) -> None:
         take(wavs, batch)
 
 
-def offline(dev: torch.device, smi: str, rng: np.random.Generator) -> dict:
+def offline(dev: torch.device, smi: str, rng: np.random.Generator, keep: Path) -> dict:
     """Phase 8. Returns every kernel's launches in the evaluate CLI's cuda
-    run."""
+    run; copies the noisy PCM16 files to ``keep`` (phase 12 decodes them)."""
     from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.cli.enhance import (
         main as enhance_cli,
     )
@@ -612,6 +631,7 @@ def offline(dev: torch.device, smi: str, rng: np.random.Generator) -> dict:
             save_wav(tmp / "clean" / f"p{i:03d}.wav", clean, SR)
             save_wav(tmp / "noisy" / f"p{i:03d}.wav", np.clip(clean + gain * noise, -1, 1), SR)
         names = sorted(p.name for p in (tmp / "noisy").glob("*.wav"))
+        shutil.copytree(tmp / "noisy", keep)
         audio_s = sum(wav_info(tmp / "noisy" / n)[0] for n in names) / SR
         common = ["--checkpoint", str(ckpt), "--config-dir", str(tmp / "no_config")]
 
@@ -1878,6 +1898,193 @@ def across_cards(dev: torch.device, smi: str, cards: int) -> int:
     return 0
 
 
+GL_ITERS = 32
+# Griffin-Lim through K3 and K1 against its plain version on the card, from
+# one drawn phase. After 1 round: the composed K1 and K3 limits. K3's output
+# is within TOL_ISTFT; K1 of it is within TOL_STFT plus the window's sum
+# (256 at n_fft 512) times that; a bin's rescale to ``mag`` carries a
+# spectral error on at mag / |X| (taken as 1: |X| near ``mag``); and the
+# iSTFT's normalized overlap-add turns a per-bin error into at most
+# OLA_GAIN times it a sample (sum w / sum w^2 over a sample's frames, 4/3
+# for a Hann window at hop n_fft/4).
+OLA_GAIN = 4.0 / 3.0
+TOL_GL_ROUND1 = TOL_ISTFT + OLA_GAIN * (TOL_STFT + 256 * TOL_ISTFT)
+# after 32 rounds, relative to the output's peak: the two round in another
+# order, and a bin whose |X| is small turns that into a phase difference
+# that later rounds carry on (measured 1.3e-3 on an H100 80GB HBM3 at 700 W: PERF.md)
+TOL_GL_ROUNDS = 1e-2
+TOL_FFT = 2e-3  # method="fft" (cuFFT) against the matmul STFT and iSTFT
+
+
+def dsp(dev: torch.device, smi: str, rng: np.random.Generator, noisy: Path,
+        built: tuple[Path, float]) -> dict:
+    """Phase 12. ``noisy``: phase 8's PCM16 files; ``built``: the native
+    runtime's library and its build time (phase 2). Returns each kernel's
+    launches in one full-size Griffin-Lim call."""
+    import importlib
+
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch import native
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.data.wavio import (
+        read_wav_raw,
+    )
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.models import (
+        create_hybrid_vit,
+    )
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.ops import (
+        cuda_stft, kernels,
+    )
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.utils.checkpoint import (
+        export_program,
+    )
+
+    S = importlib.import_module(
+        "speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.ops.stft")
+    phase("DSP: the native WAV runtime, Griffin-Lim through K1 and K3, method=, export")
+    t_phase = time.perf_counter()
+
+    def counts() -> dict[str, int]:
+        torch.cuda.synchronize()
+        return {name: k.launches for name, k in kernels.KERNELS.items()}
+
+    # a. the native runtime, built in phase 2 from the port's own source with
+    # the host compiler: on this machine a failed build is a failure, not a
+    # fallback
+    lib, build_s = built
+    if not native.available():
+        raise AssertionError("the native audio runtime did not load")
+    files = sorted(noisy.glob("*.wav"))
+    if len(files) != 65:
+        raise AssertionError(f"phase 8 left {len(files)} files, not 65")
+    t0 = time.perf_counter()
+    ref = [read_wav_raw(f)[0] for f in files]
+    numpy_ms = (time.perf_counter() - t0) * 1e3 / len(files)
+    t0 = time.perf_counter()
+    got = [native.read_wav(f) for f in files]
+    read_ms = (time.perf_counter() - t0) * 1e3 / len(files)
+    if any(sr != SR or g.shape != r.shape for (g, sr), r in zip(got, ref)):
+        raise AssertionError("native.read_wav: a file's rate or length differs from numpy's")
+    read_err = max(float(np.abs(g - r).max()) for (g, _), r in zip(got, ref))
+    max_len = max(len(r) for r in ref)
+    t0 = time.perf_counter()
+    batch, lengths, rates = native.decode_batch(files, max_len)
+    batch_ms = (time.perf_counter() - t0) * 1e3 / len(files)
+    if list(lengths) != [len(r) for r in ref] or set(rates.tolist()) != {SR}:
+        raise AssertionError(f"native.decode_batch: lengths or rates wrong: {lengths}, {rates}")
+    batch_err = max(float(np.abs(batch[i, : len(r)] - r).max()) for i, r in enumerate(ref))
+    pad_ok = all(not batch[i, len(r):].any() for i, r in enumerate(ref))
+    print(f"native runtime: {lib.name} built with the host compiler in {build_s:.2f} s "
+          f"(phase 2); "
+          f"{len(files)} PCM16 files ({sum(map(len, ref)) / SR:.1f} audio-s): read_wav max abs "
+          f"err {read_err:.3g} vs numpy (tolerance 1e-7), decode_batch {batch_err:.3g} "
+          f"(tolerance 2e-4), padding zero {pad_ok}; host ms a file: numpy codec "
+          f"{numpy_ms:.3f}, native read_wav {read_ms:.3f}, native decode_batch {batch_ms:.3f} "
+          f"({len(files)} files on a thread pool)", flush=True)
+    if read_err > 1e-7 or batch_err > 2e-4 or not pad_ok:
+        raise AssertionError("the native decoders disagree with the numpy codec")
+
+    # b. Griffin-Lim at full size: the magnitude of one 32 x 3 s batch from K1
+    cfg = S.STFTConfig()
+    wav_len = int(SECONDS * SR) + 1024  # 49024: (384 - 1) * 128, the implied length
+    x = torch.from_numpy(np.stack([speechlike(wav_len, rng) for _ in range(BATCH)])).to(dev)
+    mag = cuda_stft.stft_mag(x, cfg)[2]
+    phase0 = S.draw_griffin_lim_phase(mag.shape, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    y = S.griffin_lim(mag, cfg, n_iter=GL_ITERS, phase=phase0)
+    gl_launches = counts()
+    print(f"griffin_lim on cuda: mag {tuple(mag.shape)}, {GL_ITERS} rounds, launches "
+          f"{gl_launches}", flush=True)
+    if (gl_launches["stft_mag"] != GL_ITERS or gl_launches["istft_polar"] != GL_ITERS + 1
+            or gl_launches["attention_fwd"] or gl_launches["attention_bwd"]):
+        raise AssertionError(f"griffin_lim: expected K1 {GL_ITERS} and K3 {GL_ITERS + 1} "
+                             f"launches, got {gl_launches}")
+    if tuple(y.shape) != (BATCH, wav_len) or not bool(torch.isfinite(y).all()):
+        raise AssertionError(f"griffin_lim output malformed: {tuple(y.shape)}")
+    y1 = S.griffin_lim(mag, cfg, n_iter=1, phase=phase0)
+    p1 = S.griffin_lim_plain(mag, phase0, cfg, n_iter=1)
+    plain = S.griffin_lim_plain(mag, phase0, cfg, n_iter=GL_ITERS)
+    err1 = float((y1 - p1).abs().max())
+    errn = float((y - plain).abs().max()) / float(plain.abs().max())
+
+    def convergence(wave: torch.Tensor) -> float:
+        m = cuda_stft.stft_mag(wave.contiguous(), cfg)[2]
+        return float(torch.linalg.norm(m - mag) / torch.linalg.norm(mag))
+
+    sc1, scn, scp = convergence(y1), convergence(y), convergence(plain)
+    print(f"griffin_lim kernels vs plain on cuda from one phase: after 1 round max abs err "
+          f"{err1:.3g} (tolerance {TOL_GL_ROUND1:.3g}, K1 and K3 composed); after "
+          f"{GL_ITERS} rounds {errn:.3g} of the output's peak (tolerance {TOL_GL_ROUNDS:g}); "
+          f"spectral convergence ||K1(y)| - mag| / |mag| {sc1:.4f} after 1 round, {scn:.4f} "
+          f"after {GL_ITERS} (plain {scp:.4f})", flush=True)
+    if err1 > TOL_GL_ROUND1 or errn > TOL_GL_ROUNDS or not scn < sc1:
+        raise AssertionError("griffin_lim: the kernels disagree with the plain version, or "
+                             "the spectral convergence did not fall")
+    gl_ms = median_ms(lambda m: S.griffin_lim(m, cfg, n_iter=GL_ITERS, phase=phase0),
+                      [(mag,)] * 3)
+    gl_plain_ms = median_ms(lambda m: S.griffin_lim_plain(m, phase0, cfg, n_iter=GL_ITERS),
+                            [(mag,)] * 3)
+    times = device_times(lambda: S.griffin_lim(mag, cfg, n_iter=GL_ITERS, phase=phase0))
+    busy = sum(times.values())
+    k1_ms, k3_ms = kernel_ms(times, "stft_mag"), kernel_ms(times, "istft_polar")
+    print(f"griffin_lim {BATCH} x {wav_len / SR:.3f} s, {GL_ITERS} rounds: {gl_ms:.3f} ms a "
+          f"call, {gl_ms / GL_ITERS:.4f} ms a round, {BATCH * wav_len / SR / (gl_ms * 1e-3):.1f} "
+          f"audio-s/s; plain version {gl_plain_ms:.3f} ms ({gl_plain_ms / gl_ms:.1f}x) "
+          f"(CUDA events, median of 5 over 3 calls on the same magnitude); device busy "
+          f"{busy:.3f} ms a call (profiler): K1 {k1_ms:.3f}, K3 {k3_ms:.3f}, the rest (atan2, "
+          f"copies) {busy - k1_ms - k3_ms:.3f}; {smi}", flush=True)
+
+    # c. method= on cuda: "auto" launches K1 or K3 and equals "matmul" within
+    # their limits, "fft" (cuFFT) within TOL_FFT
+    errs, fft_errs = {}, {}
+    re_m, im_m = S.stft(x, cfg, method="matmul")
+    mag_m, ph_m = S.magphase(re_m, im_m)
+    y_m = S.istft(re_m, im_m, cfg, length=wav_len)
+    r_m = S.reconstruct(mag_m, ph_m, cfg, length=wav_len)
+    for name, run, want, kernel, tol in (
+            ("stft", lambda m: S.stft(x, cfg, method=m), (re_m, im_m), "stft_mag", TOL_STFT),
+            ("spectrogram", lambda m: S.spectrogram(x, cfg, method=m)[:1], (mag_m,),
+             "stft_mag", TOL_STFT),
+            ("istft", lambda m: (S.istft(re_m, im_m, cfg, length=wav_len, method=m),), (y_m,),
+             "istft_polar", TOL_ISTFT),
+            ("reconstruct", lambda m: (S.reconstruct(mag_m, ph_m, cfg, length=wav_len,
+                                                     method=m),), (r_m,), "istft_polar",
+             TOL_ISTFT)):
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        got = run("auto")
+        launched = counts()
+        if launched[kernel] != 1 or sum(launched.values()) != 1:
+            raise AssertionError(f'{name}(method="auto") launched {launched}, not {kernel} once')
+        errs[name] = max_err(got, want)
+        fft_errs[name] = max_err(run("fft"), want)
+        if errs[name] > tol or fft_errs[name] > TOL_FFT:
+            raise AssertionError(f'{name}: method="auto" {errs[name]:.3g} (tolerance {tol}) or '
+                                 f'"fft" {fft_errs[name]:.3g} (tolerance {TOL_FFT}) off matmul')
+    try:
+        S.stft(x.clone().requires_grad_(), cfg, method="auto")
+    except RuntimeError as e:
+        refusal = str(e)
+    else:
+        raise AssertionError('stft(method="auto") on a tensor that needs grad did not raise')
+    print(f'method= on cuda, max abs err against "matmul": "auto" {errs} (each launched its '
+          f'kernel once), "fft" {fft_errs} (tolerance {TOL_FFT}); a tensor that needs grad is '
+          f'refused: {refusal!r}', flush=True)
+
+    # d. export: the hand-written kernels cannot be traced, so a model on
+    # the card is refused
+    model = create_hybrid_vit(RECIPE).to(dev).eval()
+    try:
+        export_program(Path(tempfile.gettempdir()) / "sevit_never.pt2", model,
+                       (torch.zeros(1, 257, 384, 1, device=dev),))
+    except ValueError as e:
+        print(f"export_program on the 28M model on cuda refused: {e}", flush=True)
+    else:
+        raise AssertionError("export_program exported a model on cuda")
+    del model
+    print(f"DSP phase: {time.perf_counter() - t_phase:.1f} s; {smi}", flush=True)
+    return {"launches": gl_launches}
+
+
 def main() -> int:
     import argparse
 
@@ -1943,6 +2150,15 @@ def main() -> int:
                   flush=True)
     if args.cards > 1:
         return across_cards(dev, smi, args.cards)
+    # the native WAV runtime, with the host compiler, before anything decodes
+    # a file through it (phase 12 checks it)
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch import native
+
+    t0 = time.perf_counter()
+    native_lib = native.build()
+    native_build_s = time.perf_counter() - t0
+    print(f"built {native_lib.name} from native/sevit_audio.cpp with the host compiler in "
+          f"{native_build_s:.2f} s", flush=True)
 
     phase("kernels vs plain")
     cfg = STFTConfig()
@@ -2160,10 +2376,13 @@ def main() -> int:
           f"launch {({n: round(ms[n]['path_device_ms'], 4) for n in SERVING})} ms; {smi}",
           flush=True)
 
-    offline_run = offline(dev, smi, rng)
-    train = training(dev, smi, rng, g)
-    shipped_run = shipped(dev, smi, rng)
-    mesh_run = mesh(dev, smi, rng, enhancer, wavs, out)
+    with tempfile.TemporaryDirectory() as kept:
+        noisy = Path(kept) / "noisy"
+        offline_run = offline(dev, smi, rng, noisy)
+        train = training(dev, smi, rng, g)
+        shipped_run = shipped(dev, smi, rng)
+        mesh_run = mesh(dev, smi, rng, enhancer, wavs, out)
+        dsp_run = dsp(dev, smi, rng, noisy, (native_lib, native_build_s))
     errs["attention_bwd"] = train["errs"]
     ms["attention_bwd"] = train["ms"]
     launches["attention_bwd"] = train["launches"]["attention_bwd"]
@@ -2182,6 +2401,7 @@ def main() -> int:
          "mesh_train_launches": mesh_run["train"][name],
          "tp_train_launches": mesh_run["tp"][name],
          "mesh_serve_launches": mesh_run["serve"][name],
+         "griffin_lim_launches": dsp_run["launches"][name],
          "max_abs_err": max(errs[name]),
          **ms[name]}
         for name, k in kernels.KERNELS.items()

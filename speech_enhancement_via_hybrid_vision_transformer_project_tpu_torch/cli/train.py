@@ -42,6 +42,17 @@ from pathlib import Path
 from ._runtime import use_device
 
 
+def set_seed(seed: int) -> None:
+    """Seed Python's, numpy's and torch's global generators (the model's
+    initialization and the trainer draw from their own ``torch.Generator``s)."""
+    import numpy as np
+    import torch
+
+    random.seed(seed)
+    np.random.seed(seed)
+    torch.manual_seed(seed)
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Train the Hybrid ViT speech enhancer (PyTorch)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
@@ -208,7 +219,6 @@ def worker(rank: int, args, config, plan: MeshPlan, init_method: str) -> None:
 
 def train(args, config, mesh=None) -> int:
     """Train on this process's device (``mesh.device`` on a mesh)."""
-    import numpy as np
     import torch
 
     from ..data.dataset import DataLoader, VoiceBankDataset
@@ -221,8 +231,7 @@ def train(args, config, mesh=None) -> int:
         "compute_dtype", "bfloat16") == "bfloat16" else torch.float32)
 
     seed = tc.get("seed", 42)
-    random.seed(seed)
-    np.random.seed(seed)
+    set_seed(seed)
 
     data_root = Path(config.get("data", {}).get("data_root", "data/voicebank_demand"))
     train_ds = VoiceBankDataset(data_root, "train", config)

@@ -1,7 +1,13 @@
 """Data layer: WAV codec, VoiceBank-DEMAND dataset, bucketed loader, host
 preprocessing, featurization and augmentation (the JAX package's names)."""
 
-from .augmentation import AudioAugmenter, SpecAugmentConfig, spec_augment_batch  # noqa: F401
+from .augmentation import (  # noqa: F401
+    AudioAugmenter,
+    SpecAugmentConfig,
+    SpectrogramAugmenter,
+    spec_augment,
+    spec_augment_batch,
+)
 from .dataset import (  # noqa: F401
     DataLoader,
     VoiceBankDataset,

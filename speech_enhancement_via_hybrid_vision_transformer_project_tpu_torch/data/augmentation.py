@@ -116,6 +116,36 @@ def spec_augment_batch(specs: torch.Tensor, cfg: SpecAugmentConfig,
     return apply_spec_augment(specs, draw_spec_augment(b, f, t, cfg, generator), cfg)
 
 
+def spec_augment(spec: torch.Tensor, cfg: SpecAugmentConfig = SpecAugmentConfig(),
+                 generator: Optional[torch.Generator] = None,
+                 draws: Optional[SpecAugmentDraws] = None) -> torch.Tensor:
+    """SpecAugment of one spectrogram ``[F, T]``: the given ``draws`` (a
+    batch of one), else draws from ``generator``."""
+    if draws is None:
+        if generator is None:
+            raise ValueError("spec_augment needs a generator or draws")
+        draws = draw_spec_augment(1, *spec.shape, cfg, generator)
+    return apply_spec_augment(spec[None], draws, cfg)[0]
+
+
+class SpectrogramAugmenter:
+    """SpecAugment with the settings of a data config's ``augmentation``
+    section (the JAX class; ``config`` is the ``data`` section)."""
+
+    def __init__(self, config: Optional[dict] = None):
+        self.cfg = SpecAugmentConfig.from_config({"data": config or {}})
+
+    def augment(self, spec: torch.Tensor, generator: Optional[torch.Generator] = None,
+                draws: Optional[SpecAugmentDraws] = None) -> torch.Tensor:
+        return spec_augment(spec, self.cfg, generator, draws)
+
+    def augment_batch(self, specs: torch.Tensor, generator: Optional[torch.Generator] = None,
+                      draws: Optional[SpecAugmentDraws] = None) -> torch.Tensor:
+        if draws is None:
+            return spec_augment_batch(specs, self.cfg, generator)
+        return apply_spec_augment(specs, draws, self.cfg)
+
+
 class AudioAugmenter:
     """Waveform augmentations on the host (JAX ``AudioAugmenter``): a
     resample-based time stretch (duration and pitch change together), a

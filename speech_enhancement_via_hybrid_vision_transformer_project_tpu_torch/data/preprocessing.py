@@ -5,9 +5,12 @@ default config enables only peak normalization."""
 
 from __future__ import annotations
 
+from pathlib import Path
+
 import numpy as np
 
 from ..ops import audio as A
+from .wavio import load_audio, save_wav
 
 
 class AudioPreprocessor:
@@ -67,3 +70,34 @@ class AudioPreprocessor:
         if self.normalize:
             x, _ = A.peak_normalize(x, self.target_level)
         return x
+
+    def pre_emphasis(self, x, coef=None):
+        return A.pre_emphasis(x, coef if coef is not None else self.pre_emphasis_coef)
+
+    def de_emphasis(self, x, coef=None):
+        return A.de_emphasis(x, coef if coef is not None else self.pre_emphasis_coef)
+
+    def resample(self, x, orig_sr, target_sr=None):
+        return A.resample(x, orig_sr, target_sr or self.sample_rate)
+
+    def add_noise_at_snr(self, clean, noise, snr_db, rng=None):
+        return A.mix_at_snr(clean, noise, snr_db, rng)
+
+    def compute_snr(self, clean, noisy):
+        return A.compute_snr_db(clean, noisy)
+
+    def process_file(self, in_path: str | Path, out_path: str | Path) -> None:
+        """Load at ``sample_rate``, ``process``, write PCM16."""
+        x, sr = load_audio(in_path, self.sample_rate)
+        save_wav(out_path, self.process(x), sr)
+
+    def process_directory(self, in_dir: str | Path, out_dir: str | Path,
+                          pattern: str = "*.wav") -> int:
+        """``process_file`` on each file of ``in_dir`` matching ``pattern``,
+        in name order, into ``out_dir`` under the same name; returns the count."""
+        in_dir, out_dir = Path(in_dir), Path(out_dir)
+        count = 0
+        for p in sorted(in_dir.glob(pattern)):
+            self.process_file(p, out_dir / p.name)
+            count += 1
+        return count

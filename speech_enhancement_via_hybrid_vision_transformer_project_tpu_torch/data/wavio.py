@@ -1,8 +1,9 @@
-"""WAV codec in pure numpy (the JAX package's ``data/wavio.py`` without its
-native C++ reader).
+"""WAV file I/O (the JAX package's ``data/wavio.py``).
 
-RIFF/WAVE parsing of PCM 8/16/24/32-bit and IEEE float; mono mixdown,
-optional resample, float32 in [-1, 1].
+RIFF/WAVE parsing of PCM 8/16/24/32-bit and IEEE float in numpy; mono
+mixdown, optional resample, float32 in [-1, 1]. ``load_audio`` decodes
+through the port's C++ runtime (``native/``) when it is built, and through
+numpy otherwise.
 """
 
 from __future__ import annotations
@@ -17,6 +18,11 @@ from ..ops.audio import resample as _resample
 _FMT_PCM = 1
 _FMT_IEEE_FLOAT = 3
 _FMT_EXTENSIBLE = 0xFFFE
+
+
+def read_wav_raw(path: str | Path) -> tuple[np.ndarray, int]:
+    """Parse a WAV file -> (float32 samples [n] or [n, ch], sample_rate)."""
+    return decode_wav_bytes(Path(path).read_bytes(), name=str(path))
 
 
 def decode_wav_bytes(data: bytes, name: str = "<bytes>") -> tuple[np.ndarray, int]:
@@ -120,12 +126,24 @@ def _finish(x: np.ndarray, sr: int, sample_rate: int | None, mono: bool):
 
 
 def load_audio(
-    path: str | Path, sample_rate: int | None = 16000, mono: bool = True
+    path: str | Path, sample_rate: int | None = 16000, mono: bool = True,
+    use_native: bool = True,
 ) -> tuple[np.ndarray, int]:
     """Load a WAV file as float32; mono mixdown and resample to
-    ``sample_rate`` (librosa.load semantics)."""
-    x, sr = decode_wav_bytes(Path(path).read_bytes(), name=str(path))
-    return _finish(x, sr, sample_rate, mono)
+    ``sample_rate`` (librosa.load semantics). Mono loads decode through the
+    C++ runtime when ``use_native`` and it is built (a file it cannot decode
+    goes to numpy, which names the fault); numpy otherwise."""
+    if use_native and mono:
+        from .. import native
+
+        if native.available():
+            try:
+                x, sr = native.read_wav(path)
+            except OSError:
+                pass
+            else:
+                return _finish(x, sr, sample_rate, mono)
+    return _finish(*read_wav_raw(path), sample_rate, mono)
 
 
 def read_wav_bytes(

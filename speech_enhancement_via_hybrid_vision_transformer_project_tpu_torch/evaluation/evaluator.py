@@ -29,6 +29,8 @@ from ..data.wavio import load_audio, save_wav, wav_info
 from ..inference.enhancer import AudioEnhancer
 from .metrics import compute_all_metrics, metrics_pool_init, metrics_task, pesq_implementation
 
+METRIC_KEYS = ("pesq", "stoi", "si_sdr", "snr", "seg_snr", "lsd", "lsd_db")
+
 
 def default_metric_workers() -> int:
     """``max(1, min(8, cpu_count - 2))``: two cores stay with the pipeline

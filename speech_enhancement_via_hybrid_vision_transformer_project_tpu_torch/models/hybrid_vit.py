@@ -362,3 +362,31 @@ def create_hybrid_vit(config: Optional[Dict] = None, **overrides) -> HybridViT:
         kwargs.setdefault("head_freq_up", rem)
         kwargs.setdefault("head_time_up", rem)
     return HybridViT(**kwargs).eval()
+
+
+_COMPONENTS = {  # JAX component: prefixes of its top-level flax module names
+    "encoder": ("encoder_",),
+    "transformer": ("transformer",),
+    "decoder": ("decoder_", "skip_proj_"),
+    "patch_embed": ("patch_embed",),
+    "pos_encoding": ("pos_encoding",),
+    "head": ("head_",),
+}
+
+
+def count_parameters(model: nn.Module) -> Dict[str, int]:
+    """Parameter counts by the JAX package's components (each parameter
+    named as the checkpoint mapping names it in flax), plus ``total`` and
+    ``trainable`` (those that require grad). BatchNorm statistics are
+    buffers and are not counted, as flax keeps them out of ``params``."""
+    from ..utils.checkpoint import _flax_path
+
+    counts = dict.fromkeys((*_COMPONENTS, "total", "trainable"), 0)
+    for name, p in model.named_parameters():
+        top = _flax_path(name, p.dim())[1][0]
+        for component, prefixes in _COMPONENTS.items():
+            if top.startswith(prefixes):
+                counts[component] += p.numel()
+        counts["total"] += p.numel()
+        counts["trainable"] += p.numel() if p.requires_grad else 0
+    return counts

@@ -1,5 +1,4 @@
-"""Host-side waveform utilities (the part of the JAX ``ops/audio.py`` the
-serving and training paths need)."""
+"""Host-side waveform utilities in numpy (the JAX ``ops/audio.py``)."""
 
 from __future__ import annotations
 
@@ -45,6 +44,21 @@ def pre_emphasis(x: np.ndarray, coef: float = 0.97) -> np.ndarray:
     return np.concatenate([x[:1], x[1:] - coef * x[:-1]]).astype(np.float32)
 
 
+def de_emphasis(x: np.ndarray, coef: float = 0.97) -> np.ndarray:
+    """The inverse IIR filter of ``pre_emphasis``: y[n] = x[n] + coef*y[n-1]
+    (``scipy.signal.lfilter`` where scipy is installed)."""
+    try:
+        from scipy import signal
+    except ImportError:
+        y = np.empty(len(x), np.float64)
+        acc = 0.0
+        for i, v in enumerate(x):
+            acc = v + coef * acc
+            y[i] = acc
+        return y.astype(np.float32)
+    return signal.lfilter([1.0], [1.0, -coef], x).astype(np.float32)
+
+
 def _trim(x: np.ndarray, keep: np.ndarray, frame_length: int, hop_length: int) -> np.ndarray:
     if keep.size == 0:
         return x
@@ -76,3 +90,34 @@ def dynamic_range_compress(x: np.ndarray, threshold_db: float = -20.0,
     db = 20.0 * np.log10(np.maximum(np.abs(x), eps))
     comp_db = np.where(db > threshold_db, threshold_db + (db - threshold_db) / ratio, db)
     return (np.sign(x) * 10.0 ** (comp_db / 20.0) * (np.abs(x) > eps)).astype(np.float32)
+
+
+def compute_snr_db(clean: np.ndarray, noisy: np.ndarray) -> float:
+    """SNR of ``noisy`` with respect to ``clean`` over their common length."""
+    n = min(len(clean), len(noisy))
+    clean, noisy = clean[:n], noisy[:n]
+    sp = float(np.sum(clean**2))
+    npow = float(np.sum((noisy - clean) ** 2))
+    if npow <= 0:
+        return float("inf")
+    return 10.0 * np.log10(sp / npow) if sp > 0 else float("-inf")
+
+
+def mix_at_snr(clean: np.ndarray, noise: np.ndarray, snr_db: float,
+               rng: np.random.Generator | None = None) -> np.ndarray:
+    """Add ``noise`` to ``clean`` at ``snr_db``; the noise is tiled to the
+    clean length, then a random window of it (drawn from ``rng``) is cut."""
+    if rng is None:
+        rng = np.random.default_rng()
+    n = len(clean)
+    if len(noise) < n:
+        noise = np.tile(noise, int(np.ceil(n / len(noise))))
+    if len(noise) > n:
+        start = int(rng.integers(0, len(noise) - n + 1))
+        noise = noise[start : start + n]
+    cp = np.mean(clean**2)
+    npow = np.mean(noise**2)
+    if npow <= 0 or cp <= 0:
+        return clean.astype(np.float32)
+    scale = np.sqrt(cp / (npow * 10.0 ** (snr_db / 10.0)))
+    return (clean + scale * noise).astype(np.float32)

@@ -26,6 +26,7 @@ import torch
 from . import kernels
 from .stft import (
     STFTConfig,
+    implied_length,
     istft_output_span,
     reconstruct,
     stft,
@@ -190,3 +191,28 @@ def istft_polar(
                 cfg.hop_length, offset, n_out, tile,
             )
     return y
+
+
+# ---------------------------------------------------------------------------
+# Griffin-Lim through K3 and K1
+# ---------------------------------------------------------------------------
+
+
+def griffin_lim_polar(mag: torch.Tensor, phase: torch.Tensor,
+                      cfg: STFTConfig = STFTConfig(), *, n_iter: int = 32,
+                      length: int | None = None) -> torch.Tensor:
+    """Griffin-Lim in polar form: each round ``istft_polar(mag, phase)`` at
+    the implied length, then ``stft_mag`` and ``phase = atan2(im, re)``;
+    the spectrum's magnitude is never formed again (K1 computes it, unused).
+    ``mag, phase [..., F, N]`` -> ``[..., length]``. The rounds launch K3
+    ``n_iter + 1`` and K1 ``n_iter`` times on CUDA tensors; on CPU tensors
+    they run the kernels' plain versions."""
+    lead, fn = mag.shape[:-2], mag.shape[-2:]
+    mag = mag.float().reshape(-1, *fn).contiguous()
+    phase = phase.float().reshape(-1, *fn).contiguous()
+    implied = implied_length(cfg, fn[-1])
+    for _ in range(n_iter):
+        re, im, _ = stft_mag(istft_polar(mag, phase, cfg, length=implied), cfg)
+        phase = torch.atan2(im, re)
+    y = istft_polar(mag, phase, cfg, length=implied if length is None else length)
+    return y.reshape(*lead, y.shape[-1])

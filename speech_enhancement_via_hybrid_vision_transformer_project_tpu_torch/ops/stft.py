@@ -7,6 +7,14 @@ trim. These are the plain versions the CPU runs and the CUDA kernels in
 ``ops/cuda_stft.py`` are held against; the enhancer calls the wrappers
 there, not these functions.
 
+``method=`` on ``stft``, ``istft``, ``spectrogram`` and ``reconstruct``, as in
+the JAX package: ``"matmul"`` (the default, differentiable), ``"fft"``
+(``torch.fft``, a cross-check), and ``"auto"`` or ``"pallas"``, which name the
+hand-written kernels (K1 ``stft_mag``, K3 ``istft_polar``): a CUDA tensor
+launches them, a CPU tensor runs their plain versions. A kernel's refusal
+(an unsupported config, a tensor that needs grad) is raised, never replaced
+by the matmul path.
+
 Float32 matmuls on a CUDA device must not run in TF32 for parity: the
 port's entry points set ``torch.backends.cuda.matmul.allow_tf32 = False``.
 """
@@ -20,6 +28,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from . import kernels
 from .windows import get_window
 
 
@@ -188,15 +197,31 @@ def _const(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
     return torch.from_numpy(a).to(like.device)
 
 
-def stft(x: torch.Tensor, cfg: STFTConfig = STFTConfig()):
-    """Short-time Fourier transform of ``x [..., L]`` as windowed-DFT
-    matmuls. Returns ``(re, im)``, each ``[..., F, N]`` float32 (bins
-    first, librosa's ``[F, T]``)."""
+KERNEL_METHODS = ("auto", "pallas")
+
+
+def stft(x: torch.Tensor, cfg: STFTConfig = STFTConfig(), *, method: str = "matmul"):
+    """Short-time Fourier transform of ``x [..., L]``. Returns ``(re, im)``,
+    each ``[..., F, N]`` float32 (bins first, librosa's ``[F, T]``).
+    ``method``: ``"matmul"`` (windowed-DFT matmuls), ``"fft"``
+    (``torch.fft.rfft``), ``"auto"``/``"pallas"`` (K1)."""
+    if method in KERNEL_METHODS:
+        from .cuda_stft import stft_mag
+
+        re, im, _ = stft_mag(x.float().reshape(-1, x.shape[-1]).contiguous(), cfg)
+        return (re.reshape(*x.shape[:-1], *re.shape[1:]),
+                im.reshape(*x.shape[:-1], *im.shape[1:]))
     frames = frame_signal(x.float(), cfg)  # [..., N, n_fft]
-    w = _const(window_dft(cfg), frames)
     f = cfg.num_bins
-    spec = frames @ w  # [..., N, 2F]
-    return spec[..., :f].transpose(-1, -2), spec[..., f:].transpose(-1, -2)
+    if method == "matmul":
+        spec = frames @ _const(window_dft(cfg), frames)  # [..., N, 2F]
+        re, im = spec[..., :f], spec[..., f:]
+    elif method == "fft":
+        spec = torch.fft.rfft(frames * _const(cfg.padded_window(), frames), n=cfg.n_fft)
+        re, im = spec.real, spec.imag
+    else:
+        raise ValueError(f"unknown stft method {method!r}")
+    return re.transpose(-1, -2), im.transpose(-1, -2)
 
 
 def istft(
@@ -205,15 +230,27 @@ def istft(
     cfg: STFTConfig = STFTConfig(),
     *,
     length: int | None = None,
+    method: str = "matmul",
 ) -> torch.Tensor:
     """Inverse STFT with synthesis-window overlap-add and window-sum
     normalization (librosa ``istft`` semantics incl. ``length`` trim).
-    ``re, im: [..., F, N]`` -> ``[..., length]``."""
+    ``re, im: [..., F, N]`` -> ``[..., length]``. ``method``: ``"matmul"``,
+    ``"fft"`` (``torch.fft.irfft``), ``"auto"``/``"pallas"`` (K3, which
+    takes the spectrum in polar form: ``magphase`` first)."""
+    if method in KERNEL_METHODS:
+        return reconstruct(*magphase(re.float(), im.float()), cfg, length=length,
+                           method=method)
     re = re.float().transpose(-1, -2)  # [..., N, F]
     im = im.float().transpose(-1, -2)
     n_frames = re.shape[-2]
-    wa, wb = inv_window_dft(cfg)
-    frames = re @ _const(wa, re) + im @ _const(wb, im)  # window folded in
+    if method == "matmul":
+        wa, wb = inv_window_dft(cfg)
+        frames = re @ _const(wa, re) + im @ _const(wb, im)  # window folded in
+    elif method == "fft":
+        frames = torch.fft.irfft(torch.complex(re, im), n=cfg.n_fft)
+        frames = frames * _const(cfg.padded_window(), frames)
+    else:
+        raise ValueError(f"unknown istft method {method!r}")
     y = overlap_add(frames, cfg)
     y = y / _const(window_sumsquare_denominator(cfg, n_frames), y)
     offset, n_out = istft_output_span(cfg, n_frames, length)
@@ -234,13 +271,83 @@ def polar(mag: torch.Tensor, phase: torch.Tensor):
     return mag * torch.cos(phase), mag * torch.sin(phase)
 
 
+def spectrogram(x: torch.Tensor, cfg: STFTConfig = STFTConfig(), *,
+                method: str = "matmul"):
+    """Waveform -> ``(magnitude, phase)``, the dataset's front-end transform."""
+    return magphase(*stft(x, cfg, method=method))
+
+
 def reconstruct(
     mag: torch.Tensor,
     phase: torch.Tensor,
     cfg: STFTConfig = STFTConfig(),
     *,
     length: int | None = None,
+    method: str = "matmul",
 ) -> torch.Tensor:
-    """(magnitude, phase) -> waveform: polar recombine, then ``istft``."""
+    """(magnitude, phase) -> waveform: polar recombine, then ``istft``; with
+    ``method="auto"``/``"pallas"`` K3, which recombines as it loads."""
+    if method in KERNEL_METHODS:
+        from .cuda_stft import istft_polar
+
+        lead, fn = mag.shape[:-2], mag.shape[-2:]
+        y = istft_polar(mag.float().reshape(-1, *fn).contiguous(),
+                        phase.float().reshape(-1, *fn).contiguous(), cfg, length=length)
+        return y.reshape(*lead, y.shape[-1])
     re, im = polar(mag, phase)
-    return istft(re, im, cfg, length=length)
+    return istft(re, im, cfg, length=length, method=method)
+
+
+def implied_length(cfg: STFTConfig, n_frames: int) -> int:
+    """The largest signal length whose STFT has ``n_frames`` frames, as
+    Griffin-Lim's rounds take it."""
+    if cfg.center:
+        return (n_frames - 1) * cfg.hop_length
+    return cfg.n_fft + (n_frames - 1) * cfg.hop_length
+
+
+def draw_griffin_lim_phase(shape, generator: torch.Generator) -> torch.Tensor:
+    """Griffin-Lim's initial phase: uniform in [0, 2 pi) on the generator's
+    device (the JAX package draws it from its ``key``)."""
+    return torch.rand(tuple(shape), generator=generator, device=generator.device) * (
+        2.0 * np.pi)
+
+
+def griffin_lim_plain(mag: torch.Tensor, phase: torch.Tensor,
+                      cfg: STFTConfig = STFTConfig(), *, n_iter: int = 32,
+                      length: int | None = None) -> torch.Tensor:
+    """The JAX package's Griffin-Lim on ``(re, im)`` with the matmul STFT:
+    each round is an iSTFT at the implied length, an STFT, and a rescale of
+    the spectrum to ``mag`` by ``mag / max(|X|, 1e-16)``."""
+    mag = mag.float()
+    implied = implied_length(cfg, mag.shape[-1])
+    re, im = polar(mag, phase.float())
+    for _ in range(n_iter):
+        r2, i2 = stft(istft(re, im, cfg, length=implied), cfg)
+        scale = mag / torch.clamp_min(torch.sqrt(r2 * r2 + i2 * i2), 1e-16)
+        re, im = r2 * scale, i2 * scale
+    return istft(re, im, cfg, length=implied if length is None else length)
+
+
+def griffin_lim(mag: torch.Tensor, cfg: STFTConfig = STFTConfig(), *, n_iter: int = 32,
+                length: int | None = None, phase: torch.Tensor | None = None,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+    """Griffin-Lim phase reconstruction of ``mag [..., F, N]`` from
+    ``phase`` (the initial phase; else drawn by ``draw_griffin_lim_phase``
+    from ``generator``, by default one seeded 0 on ``mag``'s device).
+
+    A CPU tensor runs ``griffin_lim_plain``. A CUDA tensor runs each round
+    as K3 (``istft_polar``) then K1 (``stft_mag``), keeping ``mag`` and the
+    new phase ``atan2(im, re)``: ``n_iter`` K1 and ``n_iter + 1`` K3
+    launches. The polar form equals the plain rescale wherever
+    ``|X| >= 1e-16``; where a frame's STFT is exactly 0 and ``mag`` is not,
+    the plain version gives 0 and the kernels give ``mag`` at phase 0."""
+    if phase is None:
+        if generator is None:
+            generator = torch.Generator(device=mag.device).manual_seed(0)
+        phase = draw_griffin_lim_phase(mag.shape, generator)
+    if not kernels.uses_kernel(mag):
+        return griffin_lim_plain(mag, phase, cfg, n_iter=n_iter, length=length)
+    from .cuda_stft import griffin_lim_polar
+
+    return griffin_lim_polar(mag, phase, cfg, n_iter=n_iter, length=length)

@@ -413,6 +413,49 @@ def load_checkpoint(path: str | Path, model: torch.nn.Module,
     return int(np.asarray(step)), opt, read_meta(path)
 
 
+def save_model_weights(path: str | Path, model: torch.nn.Module,
+                       config: Optional[Dict] = None) -> Path:
+    """Weights-only checkpoint for inference (``save_checkpoint`` without a
+    training state)."""
+    return save_checkpoint(path, model, config=config)
+
+
+def checkpoint_info(path: str | Path) -> Dict:
+    """A checkpoint directory's ``meta.json`` with its ``size_bytes`` (all
+    files below it) and ``path``."""
+    path = Path(path)
+    meta = {}
+    if (path / "meta.json").exists():
+        meta = json.loads((path / "meta.json").read_text())
+    meta["size_bytes"] = sum(f.stat().st_size for f in path.glob("**/*") if f.is_file())
+    meta["path"] = str(path)
+    return meta
+
+
+def export_program(path: str | Path, model: torch.nn.Module, example_args: tuple) -> Path:
+    """Export ``model``'s forward on ``example_args`` with
+    ``torch.export.export`` and write it with ``torch.export.save`` (reload
+    with ``torch.export.load``); the port's counterpart of the JAX
+    package's ``export_stablehlo``.
+
+    The model and its inputs must be on the CPU, where the program holds
+    the kernels' plain versions. On CUDA it raises ``ValueError``: the
+    hand-written kernels are ctypes launches on raw pointers, which
+    ``torch.export`` cannot trace, and exporting the plain versions in
+    their place would hand back a different program than the one that runs."""
+    tensors = [*model.parameters(), *model.buffers(),
+               *(a for a in example_args if isinstance(a, torch.Tensor))]
+    devices = sorted({str(t.device) for t in tensors if t.device.type != "cpu"})
+    if devices:
+        raise ValueError(f"export_program: tensors on {devices}; the CUDA kernels are ctypes "
+                         "launches that torch.export cannot trace: export the model on the CPU")
+    program = torch.export.export(model, tuple(example_args))
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    torch.export.save(program, str(path))
+    return path
+
+
 def _extract_variables(tree: Dict) -> Dict:
     """Model variables from a weights-only or a full train-state tree."""
     if "params" in tree and "batch_stats" in tree:

@@ -138,6 +138,13 @@ def load_config(path: str | Path) -> Dict[str, Any]:
     return parse_yaml(path.read_text())
 
 
+def save_config(config: Dict[str, Any], path: str | Path) -> None:
+    """Write ``config`` as YAML (``dump_yaml``), making the parent directory."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(dump_yaml(config) + "\n")
+
+
 def merge_configs(base: Dict[str, Any], override: Dict[str, Any]) -> Dict[str, Any]:
     """Recursive dict merge; override wins on leaves."""
     out = copy.deepcopy(base)
@@ -207,3 +214,10 @@ def validate_config(config: Dict[str, Any]) -> list[str]:
     if not (0.0 < split < 1.0):
         problems.append("data.train_val_split must be in (0, 1)")
     return problems
+
+
+def print_config(config: Dict[str, Any]) -> str:
+    """Print ``config`` as indented JSON and return the text."""
+    text = json.dumps(config, indent=2, default=str)
+    print(text)
+    return text

@@ -97,7 +97,7 @@ class MetricsLogger:
 
 
 class Stopwatch:
-    """Audio-seconds trained per second of wall time."""
+    """Wall-clock steps and audio-seconds per second."""
 
     def __init__(self):
         self.reset()
@@ -105,9 +105,11 @@ class Stopwatch:
     def reset(self):
         self.t0 = time.perf_counter()
         self.audio_seconds = 0.0
+        self.steps = 0
 
     def tick(self, audio_seconds: float = 0.0):
         self.audio_seconds += audio_seconds
+        self.steps += 1
 
     @property
     def elapsed(self) -> float:
@@ -117,3 +119,8 @@ class Stopwatch:
     def audio_seconds_per_second(self) -> float:
         e = self.elapsed
         return self.audio_seconds / e if e > 0 else 0.0
+
+    @property
+    def steps_per_second(self) -> float:
+        e = self.elapsed
+        return self.steps / e if e > 0 else 0.0

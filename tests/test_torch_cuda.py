@@ -579,3 +579,48 @@ def test_mesh_enhancer_on_two_replicas_of_one_card(dev):
     for a, b in zip(two.enhance_batch(wavs), one.enhance_batch(wavs)):
         assert a.shape == b.shape and np.isfinite(a).all()
         assert float(np.abs(a - b).max()) <= 2e-4
+
+
+def test_stft_methods_launch_the_kernels(dev, gen):
+    """``method="auto"`` launches K1 or K3 once and equals ``"matmul"``
+    within their limits (STFT 2e-4, iSTFT 2e-5); ``"fft"`` within 2e-3."""
+    import importlib
+
+    S = importlib.import_module(
+        "speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.ops.stft")
+    x = torch.randn(3, 16000, generator=gen).to(dev)
+    re, im = S.stft(x)
+    mag, phase = S.magphase(re, im)
+    for name, run, want, tol in (
+            ("stft_mag", lambda m: S.stft(x, method=m), (re, im), 2e-4),
+            ("istft_polar", lambda m: (S.reconstruct(mag, phase, length=16000, method=m),),
+             (S.reconstruct(mag, phase, length=16000),), 2e-5)):
+        before = kernels.KERNELS[name].launches
+        got = run("auto")
+        assert kernels.KERNELS[name].launches == before + 1
+        for g, w in zip(got, want):
+            assert float((g - w).abs().max()) <= tol
+        for g, w in zip(run("fft"), want):
+            assert float((g - w).abs().max()) <= 2e-3
+    with pytest.raises(RuntimeError, match="no backward"):
+        S.stft(x.clone().requires_grad_(), method="auto")
+
+
+def test_griffin_lim_rounds_are_k3_then_k1(dev, gen):
+    """n_iter rounds launch K1 n_iter and K3 n_iter + 1 times; after one
+    round the output is within K1's and K3's composed limits of the plain
+    (re, im) rounds from the same phase (chip_smoke.py's TOL_GL_ROUND1)."""
+    import importlib
+
+    S = importlib.import_module(
+        "speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.ops.stft")
+    mag = cuda_stft.stft_mag(torch.randn(2, 12160, generator=gen).to(dev))[2]
+    phase = (torch.rand(mag.shape, generator=gen) * 2 * np.pi).to(dev)
+    k1, k3 = kernels.KERNELS["stft_mag"].launches, kernels.KERNELS["istft_polar"].launches
+    y = S.griffin_lim(mag, n_iter=4, phase=phase)
+    assert kernels.KERNELS["stft_mag"].launches == k1 + 4
+    assert kernels.KERNELS["istft_polar"].launches == k3 + 5
+    assert y.shape == (2, 12160) and bool(torch.isfinite(y).all())
+    one = S.griffin_lim(mag, n_iter=1, phase=phase)
+    plain = S.griffin_lim_plain(mag, phase, n_iter=1)
+    assert float((one - plain).abs().max()) <= 2e-5 + 4 / 3 * (2e-3 + 256 * 2e-5)

@@ -130,7 +130,13 @@ def test_train_cli_on_two_data_ranks(hosts, tmp_path):
                  clean + 0.1 * rng.standard_normal(n).astype(np.float32), SR)
     (tmp_path / "config").mkdir()
     (tmp_path / "config" / "train_config.yaml").write_text(dump_yaml(TRAIN_CONFIG))
-    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    # the one-process reference steps batches of 2 rows: PyTorch then takes
+    # oneDNN's convolutions, whose sums follow the thread count and the
+    # instruction set the host offers (a rank's one-row batches take the
+    # im2col path, which does not); pinning both makes the reference the
+    # same on every x86-64 host with AVX2
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="2",
+               ATEN_CPU_CAPABILITY="avx2", ONEDNN_MAX_CPU_ISA="AVX2", MKL_CBWR="AVX2")
     def train_cmd(dp, out=""):
         return [sys.executable, "-m",
                 "speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.cli.train",

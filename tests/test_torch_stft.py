@@ -10,6 +10,8 @@ for unit-variance noise) taken in another order by two BLAS libraries; the
 JAX tests' own bound is 2e-3. iSTFT 2e-5 absolute, the JAX tests' own bound.
 """
 
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -29,7 +31,7 @@ from speech_enhancement_via_hybrid_vision_transformer_project_tpu.ops.stft impor
     reconstruct as j_reconstruct,
     stft as j_stft,
 )
-from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.ops import stft as T
+T = importlib.import_module("speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.ops.stft")
 from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.ops.cuda_stft import (
     istft_polar,
     stft_mag,
