@@ -60,8 +60,8 @@ which raises on failure:
    second and the pipelined sweep's device busy share (profiler).
 9. training (its wall time printed):
    a. K2's backward (``csrc/attention_bwd.cu``: a dq pass and a dk/dv
-      pass, each on the tensor cores in 3xTF32 as the forward; through the
-      autograd Function around K2) against autograd through the plain
+      pass, each on the tensor cores in 3xTF32 as the forward; the gradient
+      of K2's op, ``sevit::attention_bwd``) against autograd through the plain
       version, at q/k/v [16, 8, 384, 64] under the train batch's own patch
       mask, under a 1-3.06 s length mix and with no mask, and at N = 200
       with a fully masked row and N = 37 with a one-key row; dq, dk and dv
@@ -157,8 +157,23 @@ which raises on failure:
     round 1 to 32; ms a call and a round, audio-s/s. c. ``stft``, ``istft``,
     ``reconstruct`` and ``spectrogram`` with ``method="auto"`` launch K1 or K3
     once and equal ``method="matmul"`` within K1's and K3's limits,
-    ``method="fft"`` within 2e-3; a tensor that needs grad is refused. d.
-    ``export_program`` refuses the 28M model on cuda.
+    ``method="fft"`` within 2e-3; a tensor that needs grad is refused.
+13. export (its wall time printed): the kernels are ``torch.library`` ops
+    (``torch.ops.sevit.*``). a. ``export_program`` of phase 5's 28M serving
+    core (``inference.EnhancerCore``) on cuda, PCM16 [32, 49024] with
+    lengths: its graph holds exactly 1 ``sevit.stft_mag``, 6
+    ``sevit.attention_fwd`` and 1 ``sevit.istft_polar`` and none of the
+    ops the plain versions would put there. b. The program loaded in a fresh
+    process that imports only the port (``load_program``): K1 1, K2 6 and K3
+    1 launches on phase 5's batch, its PCM16 within 1 LSB of the eager
+    core's (the count of differing samples printed), the wall of both. c.
+    ``graft_entry.entry()``'s bf16 flagship exported on cuda: 6 K2 ops,
+    the loaded module within 1e-5 of the eager one. d. Host microseconds a
+    call of each op, of its CUDA impl called directly and of a bare
+    ``kernels.launch`` on a tiny input: the dispatcher's cost, beside phase
+    7's wall and phase 12b's ms a round. e. ``cli.synth_dataset`` writes 8 +
+    2 pairs, then ``cli.demo --device cuda`` trains on them for an epoch and
+    prints its SNR line.
 
 ``python3 chip_smoke.py --cards N`` (a machine with N >= 2 cards) builds the
 kernels and runs phase 11 alone over NCCL, one rank a card: N data ranks,
@@ -177,8 +192,9 @@ batch, ``offline_launches`` in the phase 8 evaluate run,
 phase 10 CLI epoch, ``remat_train_launches`` in one 28M remat step,
 ``mesh_train_launches`` per rank in one 2-rank step, ``tp_train_launches``
 per rank in one TP step, ``mesh_serve_launches`` per replica in one mesh
-batch, ``griffin_lim_launches`` in one phase 12 Griffin-Lim call), and the
-result JSON.
+batch, ``griffin_lim_launches`` in one phase 12 Griffin-Lim call,
+``exported_launches`` in one call of the phase 13 program loaded in a fresh
+process), and the result JSON.
 """
 
 from __future__ import annotations
@@ -926,7 +942,7 @@ def training(dev: torch.device, smi: str, rng: np.random.Generator, g: torch.Gen
     for _ in range(n_fresh):
         q, k, v, dout = (torch.randn(TRAIN_BATCH, heads, n_tok, dh, generator=g).to(dev)
                          for _ in range(4))
-        out, lse = cuda_attention._forward_kernel(q, k, v, scale, train_mask, with_lse=True)
+        out, lse = cuda_attention._forward_kernel(q, k, v, train_mask, scale, with_lse=True)
         bwd_in.append((q, k, v, out, lse, dout))
 
     def graphs(fwd):
@@ -942,8 +958,8 @@ def training(dev: torch.device, smi: str, rng: np.random.Generator, g: torch.Gen
     sdpa_in = graphs(lambda q, k, v: F.scaled_dot_product_attention(
         q, k, v, attn_mask=train_mask[:, None, None, :], scale=scale))
 
-    def kern(q, k, v, out, lse, dout):  # the launch that the autograd Function's backward makes
-        return cuda_attention._backward_kernel(q, k, v, out, lse, dout, scale, train_mask)
+    def kern(q, k, v, out, lse, dout):  # the launch that sevit::attention_bwd makes
+        return cuda_attention._backward_kernel(q, k, v, out, lse, dout, train_mask, scale)
 
     def grad(leaves, out, dout):
         return torch.autograd.grad(out, leaves, dout, retain_graph=True)
@@ -970,7 +986,7 @@ def training(dev: torch.device, smi: str, rng: np.random.Generator, g: torch.Gen
     del plain_in, sdpa_in
     fwd_in = [t[:3] for t in bwd_in]
     with_lse, without = (
-        lambda q, k, v, lse=lse: cuda_attention._forward_kernel(q, k, v, scale, train_mask, lse)
+        lambda q, k, v, lse=lse: cuda_attention._forward_kernel(q, k, v, train_mask, scale, lse)
         for lse in (True, False))
     a1, b1, b2, a2 = (median_ms(f, fwd_in) for f in (without, with_lse, with_lse, without))
     print(f"attention_fwd at the train shape and mask: per call {min(a1, a2):.4f} ms without the "
@@ -1927,19 +1943,13 @@ def dsp(dev: torch.device, smi: str, rng: np.random.Generator, noisy: Path,
     from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.data.wavio import (
         read_wav_raw,
     )
-    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.models import (
-        create_hybrid_vit,
-    )
     from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.ops import (
         cuda_stft, kernels,
-    )
-    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.utils.checkpoint import (
-        export_program,
     )
 
     S = importlib.import_module(
         "speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.ops.stft")
-    phase("DSP: the native WAV runtime, Griffin-Lim through K1 and K3, method=, export")
+    phase("DSP: the native WAV runtime, Griffin-Lim through K1 and K3, method=")
     t_phase = time.perf_counter()
 
     def counts() -> dict[str, int]:
@@ -2070,19 +2080,284 @@ def dsp(dev: torch.device, smi: str, rng: np.random.Generator, noisy: Path,
           f'kernel once), "fft" {fft_errs} (tolerance {TOL_FFT}); a tensor that needs grad is '
           f'refused: {refusal!r}', flush=True)
 
-    # d. export: the hand-written kernels cannot be traced, so a model on
-    # the card is refused
-    model = create_hybrid_vit(RECIPE).to(dev).eval()
-    try:
-        export_program(Path(tempfile.gettempdir()) / "sevit_never.pt2", model,
-                       (torch.zeros(1, 257, 384, 1, device=dev),))
-    except ValueError as e:
-        print(f"export_program on the 28M model on cuda refused: {e}", flush=True)
-    else:
-        raise AssertionError("export_program exported a model on cuda")
-    del model
     print(f"DSP phase: {time.perf_counter() - t_phase:.1f} s; {smi}", flush=True)
-    return {"launches": gl_launches}
+    return {"launches": gl_launches, "round_ms": gl_ms / GL_ITERS}
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: the kernels as torch.library ops; export on the card
+# ---------------------------------------------------------------------------
+
+# the ops that the kernels' plain versions would put into a graph in their
+# place (the serving model itself calls none of them: its attention is K2,
+# its linear layers aten.linear, its head's resize aten.upsample_bilinear2d)
+PLAIN_OPS = ("aten._softmax", "aten.softmax", "aten.matmul", "aten.bmm", "aten.cos",
+             "aten.sin.", "aten.logsumexp", "aten.unfold")
+# the loaded serving core in a fresh process against the eager core: cuDNN
+# may pick another algorithm in another process, so a sample may round to
+# the next PCM16 step
+TOL_EXPORT_LSB = 1
+# the loaded bf16 entry in this process against the eager module: the same
+# cuDNN and cuBLAS calls in the same order (expected equal); 1e-5 allows a
+# convolution algorithm picked otherwise (another order of up to 2304
+# products a sum, over ~20 layers, on outputs of magnitude <= 1)
+TOL_EXPORT_ENTRY = 1e-5
+DISPATCH_ROUNDS = 15  # rounds of 100 calls a way (impl, op, bare launch in turns)
+# the fresh process: loads the program with only the port imported, runs it
+# on the saved batch, counts the launches and times the call
+EXPORTED_CHILD = r"""
+import json, statistics, sys, time
+import numpy as np, torch
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.ops import kernels
+from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.utils.checkpoint import (
+    load_program)
+path, inputs, out_path = sys.argv[1:4]
+run = load_program(path).module()
+data = np.load(inputs)
+x, lengths = (torch.from_numpy(data[k]).cuda() for k in ("noisy", "lengths"))
+kernels.reset_launch_counts()
+with torch.inference_mode():
+    y = run(x, lengths)
+torch.cuda.synchronize()
+launches = {n: k.launches for n, k in kernels.KERNELS.items()}
+walls = []
+for _ in range(5):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        run(x, lengths)
+    torch.cuda.synchronize()
+    walls.append((time.perf_counter() - t0) * 1e3)
+np.save(out_path, y.cpu().numpy())
+print(json.dumps({"launches": launches, "wall_ms": statistics.median(walls),
+                  "jax_loaded": any(m.split(".")[0] in ("jax", "flax") for m in sys.modules)}))
+"""
+
+
+def graph_ops(program) -> tuple[dict, list]:
+    """``(calls of each sevit op, plain-version ops)`` in an exported graph."""
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.ops import kernels
+
+    targets = [str(n.target) for n in program.graph.nodes if n.op == "call_function"]
+    calls = {name: targets.count(f"sevit.{name}.default") for name in kernels.KERNELS}
+    return calls, sorted({t for t in targets if t.startswith(PLAIN_OPS)})
+
+
+def host_us(fn, args, calls: int = 100) -> float:
+    """Host microseconds a call of ``fn(*args)`` over ``calls`` calls: the
+    enqueue alone (the card runs these tiny launches faster than the host
+    issues them)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn(*args)
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def dispatcher_cost(dev: torch.device) -> dict:
+    """13d: host us a call of each kernel on a tiny input three ways: the op
+    (``torch.ops.sevit.*``, through the dispatcher: what the wrappers call),
+    its CUDA impl called directly (the same checks, allocations and launch:
+    the path before the ops), and a bare ``kernels.launch`` on buffers
+    allocated once: medians over ``DISPATCH_ROUNDS`` rounds, and the
+    dispatcher's cost as the median of each round's op - impl."""
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.ops import (
+        cuda_attention as A, cuda_stft as C, kernels,
+    )
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.ops.stft import (
+        STFTConfig, istft_output_span,
+    )
+
+    cfg = STFTConfig()
+    cfg_args = (cfg.n_fft, cfg.hop_length, cfg.win_length, cfg.window, cfg.center, cfg.pad_mode)
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(1, 4096, generator=g).to(dev)
+    nf = cfg.num_frames(4096)
+    mag = torch.rand(1, cfg.num_bins, nf, generator=g).to(dev)
+    ph = (torch.rand(1, cfg.num_bins, nf, generator=g) * 6.28 - 3.14).to(dev)
+    q, k, v, dout = (torch.randn(1, 1, 16, 64, generator=g).to(dev) for _ in range(4))
+    scale = 64**-0.5
+    out, lse = A._forward_kernel(q, k, v, None, scale, True)
+    plan = C._device_const("plan", cfg, dev)
+    offset, n_out = istft_output_span(cfg, nf, None)
+    denom = C._device_const("denom", cfg, dev, nf)
+    spec = [torch.empty(1, cfg.num_bins, nf, device=dev) for _ in range(3)]
+    y = torch.empty(1, n_out, device=dev)
+    o2, delta, *grads = (torch.empty_like(t) for t in (q, lse, q, q, q))
+    ptr = [t.data_ptr() for t in (x, plan, *spec, mag, ph, denom, y, q, k, v, o2, out, dout, lse,
+                                  delta, *grads)]
+    xp, pp, rp, ip, mp, magp, php, dp, yp, qp, kp, vp, o2p, outp, doutp, lsep, dlp, g1, g2, g3 = ptr
+    ways = {
+        "stft_mag": (
+            (C.stft_mag_op, (x, *cfg_args)), (C._stft_cuda, (x, *cfg_args)),
+            (xp, pp, rp, ip, mp, 1, 4096, cfg.n_fft // 2, nf, cfg.n_fft, cfg.hop_length,
+             C.kernel_tile(cfg, inverse=False))),
+        "attention_fwd": (
+            (A.attention_fwd_op, (q, k, v, None, scale, False)),
+            (A._forward_kernel, (q, k, v, None, scale, False)),
+            (qp, kp, vp, None, o2p, None, 1, 1, 16, 64, scale * A.LOG2E)),
+        "attention_bwd": (
+            (A.attention_bwd_op, (q, k, v, out, lse, dout, None, scale)),
+            (A._backward_kernel, (q, k, v, out, lse, dout, None, scale)),
+            (qp, kp, vp, outp, doutp, lsep, None, dlp, g1, g2, g3, 1, 1, 16, 64,
+             scale * A.LOG2E, scale)),
+        "istft_polar": (
+            (C.istft_polar_op, (mag, ph, *cfg_args, None)),
+            (C._istft_cuda, (mag, ph, *cfg_args, None)),
+            (magp, php, pp, dp, yp, 1, nf, cfg.n_fft, cfg.hop_length, offset, n_out,
+             C.kernel_tile(cfg, inverse=True))),
+    }
+    cost = {}
+    for name, ((op, op_args), (impl, impl_args), launch_args) in ways.items():
+        bare = lambda *a, name=name: kernels.launch(name, *a)  # noqa: E731
+        host_us(op, op_args)  # warm-up
+        rounds = [(host_us(impl, impl_args), host_us(op, op_args), host_us(bare, launch_args))
+                  for _ in range(DISPATCH_ROUNDS)]
+        impl_us, op_us, launch_us = (statistics.median(r[i] for r in rounds) for i in range(3))
+        # the paired difference of each round: the host's drift cancels
+        cost[name] = {"op_us": op_us, "impl_us": impl_us, "launch_us": launch_us,
+                      "dispatcher_us": statistics.median(o - i for i, o, _ in rounds)}
+    return cost
+
+
+def exported(dev: torch.device, smi: str, enhancer, wavs: list, slice_ms: float,
+             gl_round_ms: float) -> dict:
+    """Phase 13. ``enhancer`` and ``wavs``: phase 5's 28M serving enhancer
+    (PCM16 I/O, patch mask) and its 32 x 3 s batch; ``slice_ms``: phase 7's
+    wall a batch; ``gl_round_ms``: phase 12b's wall a Griffin-Lim round.
+    Returns each kernel's launches in one call of the loaded core."""
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch import graft_entry
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.inference import (
+        EnhancerCore,
+    )
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.ops import kernels
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.utils.checkpoint import (
+        export_program, load_program,
+    )
+
+    phase("export: the serving core and the bf16 entry on cuda, the ops' host cost, the demo")
+    t_phase = time.perf_counter()
+    serving = {"stft_mag": 1, "attention_fwd": 6, "attention_bwd": 0, "istft_polar": 1}
+    # phase 5's batch as enhance_batch_async pads it: PCM16 [32, 49024] and lengths
+    wav_len = enhancer._padded_len(max(len(w) for w in wavs))
+    batch = np.zeros((len(wavs), wav_len), np.int16)
+    lengths = np.array([len(w) for w in wavs], np.int32)
+    for row, w in enumerate(wavs):
+        batch[row, :len(w)] = (np.clip(w, -1.0, 1.0) * 32767.0).astype(np.int16)
+    x, lens = torch.from_numpy(batch).to(dev), torch.from_numpy(lengths).to(dev)
+    core = EnhancerCore(enhancer)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # a. export on cuda: one op call a kernel launch, none of the plain versions
+        t0 = time.perf_counter()
+        path = export_program(tmp / "core.pt2", core, (x, lens))
+        export_s = time.perf_counter() - t0
+        calls, plain = graph_ops(load_program(path))
+        print(f"export_program of the 28M serving core on cuda, PCM16 {tuple(batch.shape)}: "
+              f"{export_s:.1f} s, {path.stat().st_size / 1e6:.1f} MB; sevit ops in the graph "
+              f"{calls}; plain-version ops {plain}", flush=True)
+        if calls != serving or plain:
+            raise AssertionError(f"exported core: sevit ops {calls} (expected {serving}), "
+                                 f"plain-version ops {plain}")
+        torch.cuda.synchronize()
+        with torch.inference_mode():
+            eager = core(x, lens)
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                core(x, lens)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        eager = eager.cpu().numpy()
+
+        # b. the program loaded in a fresh process that imports only the port
+        np.savez(tmp / "batch.npz", noisy=batch, lengths=lengths)
+        t0 = time.perf_counter()
+        child = subprocess.run([sys.executable, "-c", EXPORTED_CHILD, str(path),
+                                str(tmp / "batch.npz"), str(tmp / "out.npy")],
+                               cwd=ROOT, capture_output=True, text=True, timeout=300)
+        child_s = time.perf_counter() - t0
+        if child.returncode != 0:
+            raise AssertionError(f"the loaded program failed:\n{child.stdout[-3000:]}"
+                                 f"{child.stderr[-3000:]}")
+        got = json.loads(child.stdout.strip().splitlines()[-1])
+        loaded = np.load(tmp / "out.npy")
+        diff = np.abs(loaded.astype(np.int32) - eager.astype(np.int32))
+        print(f"loaded in a fresh process ({child_s:.1f} s with its start; jax imported: "
+              f"{got['jax_loaded']}): launches {got['launches']}; {loaded.dtype} "
+              f"{loaded.shape} against the eager core: max {int(diff.max())} LSB, "
+              f"{int((diff > 0).sum())} of {diff.size} samples differ (tolerance "
+              f"{TOL_EXPORT_LSB} LSB); wall a batch {got['wall_ms']:.2f} ms loaded, "
+              f"{statistics.median(walls):.2f} ms eager (the core alone, device tensors in and "
+              f"out, median of 5); {smi}", flush=True)
+        if (got["launches"] != serving or got["jax_loaded"] or loaded.shape != eager.shape
+                or loaded.dtype != np.int16 or diff.max() > TOL_EXPORT_LSB):
+            raise AssertionError("the loaded serving core did not run the kernels or "
+                                 "disagrees with the eager core")
+
+        # c. graft_entry.entry(): the flagship bf16 forward, exported on cuda
+        module, example = graft_entry.entry(dev)
+        t0 = time.perf_counter()
+        program = load_program(export_program(tmp / "entry.pt2", module, example))
+        entry_s = time.perf_counter() - t0
+        calls, plain = graph_ops(program)
+        xin = torch.rand(example[0].shape, generator=torch.Generator().manual_seed(5)).to(dev)
+        kernels.reset_launch_counts()
+        with torch.inference_mode():
+            want, got_entry = module(xin), program.module()(xin)
+        entry_launches = {n: k.launches for n, k in kernels.KERNELS.items()}
+        entry_err = float((want - got_entry).abs().max())
+        print(f"graft_entry.entry() (bf16 input rounding, {tuple(example[0].shape)}) exported "
+              f"on cuda and read back in {entry_s:.1f} s: sevit ops {calls}, plain-version ops "
+              f"{plain}; loaded against eager on a seeded input: max abs err {entry_err:.3g} "
+              f"(tolerance {TOL_EXPORT_ENTRY:g}), launches (both) {entry_launches}", flush=True)
+        if (calls["attention_fwd"] != 6 or plain or entry_err > TOL_EXPORT_ENTRY
+                or entry_launches["attention_fwd"] != 12):
+            raise AssertionError("the exported entry is not the kernels' program")
+        del module, program, want, got_entry
+
+    # d. the dispatcher's host cost a call, beside the two walls it could move
+    cost = dispatcher_cost(dev)
+    per_batch = sum(cost[n]["dispatcher_us"] * c for n, c in serving.items()) / 1e3
+    per_round = (cost["stft_mag"]["dispatcher_us"] + cost["istft_polar"]["dispatcher_us"]) / 1e3
+    print(f"host us a call on a tiny input, op (dispatcher) / CUDA impl called directly / "
+          f"bare kernels.launch: "
+          + "; ".join(f"{n} {c['op_us']:.1f} / {c['impl_us']:.1f} / {c['launch_us']:.1f} "
+                      f"(dispatcher {c['dispatcher_us']:.1f})" for n, c in cost.items())
+          + f". The dispatcher's cost: {per_batch:.4f} ms over a serving batch's 8 launches "
+          f"(phase 7's wall {slice_ms:.1f} ms), {per_round:.4f} ms over a Griffin-Lim round's "
+          f"K3 and K1 (phase 12b's {gl_round_ms:.4f} ms a round); {smi}", flush=True)
+
+    # e. the synthetic dataset, then the demo on cuda for an epoch on it
+    with tempfile.TemporaryDirectory() as tmp:
+        synth = subprocess.run(
+            [sys.executable, "-m",
+             "speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.cli.synth_dataset",
+             str(Path(tmp) / "data"), "--train", "8", "--test", "2", "--max-seconds", "2.0"],
+            cwd=ROOT, capture_output=True, text=True, timeout=300)
+        demo = subprocess.run(
+            [sys.executable, "-m",
+             "speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.cli.demo",
+             "--device", "cuda", "--epochs", "1", "--data-root", str(Path(tmp) / "data"),
+             "--outdir", str(Path(tmp) / "demo")],
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        snr = [s for s in demo.stdout.splitlines() if s.startswith("[demo] SNR improvement")]
+        wrote = sorted(p.name for p in (Path(tmp) / "demo").glob("*.wav"))
+        print(f"cli.synth_dataset: exit {synth.returncode}, "
+              f"{len(list((Path(tmp) / 'data').rglob('*.wav')))} WAV files; cli.demo --device "
+              f"cuda, 1 epoch on them: exit {demo.returncode}, {snr}, wrote {wrote}", flush=True)
+        if synth.returncode != 0 or demo.returncode != 0 or len(snr) != 1 or len(wrote) != 3:
+            raise AssertionError(f"synth_dataset or the demo failed:\n{synth.stderr[-2000:]}"
+                                 f"{demo.stdout[-2000:]}{demo.stderr[-2000:]}")
+    print(f"export phase: {time.perf_counter() - t_phase:.1f} s; {smi}", flush=True)
+    return {"launches": got["launches"], "dispatcher": cost}
 
 
 def main() -> int:
@@ -2383,6 +2658,7 @@ def main() -> int:
         shipped_run = shipped(dev, smi, rng)
         mesh_run = mesh(dev, smi, rng, enhancer, wavs, out)
         dsp_run = dsp(dev, smi, rng, noisy, (native_lib, native_build_s))
+    export_run = exported(dev, smi, enhancer, wavs, wall * 1e3, dsp_run["round_ms"])
     errs["attention_bwd"] = train["errs"]
     ms["attention_bwd"] = train["ms"]
     launches["attention_bwd"] = train["launches"]["attention_bwd"]
@@ -2402,6 +2678,7 @@ def main() -> int:
          "tp_train_launches": mesh_run["tp"][name],
          "mesh_serve_launches": mesh_run["serve"][name],
          "griffin_lim_launches": dsp_run["launches"][name],
+         "exported_launches": export_run["launches"][name],
          "max_abs_err": max(errs[name]),
          **ms[name]}
         for name, k in kernels.KERNELS.items()

@@ -2,6 +2,7 @@
 
 from .enhancer import (
     AudioEnhancer,
+    EnhancerCore,
     PendingBatch,
     enhance_audio,
     enhance_file,
@@ -9,5 +10,5 @@ from .enhancer import (
 )
 from .server import DynamicBatcher, make_server
 
-__all__ = ["AudioEnhancer", "DynamicBatcher", "PendingBatch", "enhance_audio", "enhance_file",
-           "load_model_for_inference", "make_server"]
+__all__ = ["AudioEnhancer", "DynamicBatcher", "EnhancerCore", "PendingBatch", "enhance_audio",
+           "enhance_file", "load_model_for_inference", "make_server"]

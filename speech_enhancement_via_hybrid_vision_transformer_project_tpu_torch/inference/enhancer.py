@@ -73,6 +73,24 @@ class PendingBatch:
         return out
 
 
+class EnhancerCore(torch.nn.Module):
+    """An enhancer's core as a module: ``forward(noisy, lengths)`` is
+    ``AudioEnhancer._core`` on the enhancer's own model, blend and
+    ``io_dtype`` (``noisy [B, wav_len]``, PCM16 when ``io_dtype='int16'``;
+    ``lengths [B]`` true sample counts). The JAX enhancer exports its
+    per-length jitted ``_core``; this is what
+    ``utils.checkpoint.export_program`` takes for the same program:
+    ``export_program(path, EnhancerCore(enhancer), (noisy, lengths))``."""
+
+    def __init__(self, enhancer: "AudioEnhancer"):
+        super().__init__()
+        self.model = enhancer.model
+        self._enhancer = enhancer
+
+    def forward(self, noisy: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+        return self._enhancer._core(noisy, lengths, self.model)
+
+
 class AudioEnhancer:
     """Speech enhancer around a HybridViT with loaded weights.
 

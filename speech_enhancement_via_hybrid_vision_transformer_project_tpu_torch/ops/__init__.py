@@ -1,7 +1,8 @@
 """DSP core and the CUDA kernels' wrappers (the JAX package's ``ops`` names).
 
 Importing this package builds no kernel: the wrappers build and load the
-kernels at their first launch. As in the JAX package, ``ops.stft`` is the
+kernels at their first launch. It defines the kernels' ``torch.library`` ops
+(``torch.ops.sevit.*``), which a saved ``torch.export`` program needs. As in the JAX package, ``ops.stft`` is the
 function; import the module as ``ops.stft`` through ``from ..ops.stft import``
 or ``importlib``.
 """
@@ -20,4 +21,4 @@ from .stft import (  # noqa: F401
 )
 from .resize import resize_bilinear, resize_nearest, upsample_nearest  # noqa: F401
 from .windows import get_window, hann  # noqa: F401
-from . import audio  # noqa: F401
+from . import audio, cuda_attention, cuda_stft, kernels  # noqa: F401

@@ -2,14 +2,15 @@
 and backward, beside its plain PyTorch version.
 
 ``attention`` replaces the JAX package's ``fused_attention``
-(``ops/pallas_attention.py``) and its custom VJP. A CPU tensor runs the plain
-version (and autograd through it). A CUDA tensor launches the kernels or
-raises: with no gradient wanted, the forward (``csrc/attention.cu``: a
-flash-attention forward on the tensor cores in 3xTF32); when q, k or v
-require grad, the autograd Function ``_Attention``, whose forward is that
-kernel (it also writes each row's log-sum-exp) and whose backward is
-``csrc/attention_bwd.cu`` (a dq pass and a dk/dv pass, each on the tensor
-cores in 3xTF32; the softmax weights recomputed, never stored).
+(``ops/pallas_attention.py``) and its custom VJP. It calls the op
+``torch.ops.sevit.attention_fwd`` on both devices. On a CPU tensor the op
+runs the plain version; on a CUDA tensor it launches the forward kernel
+(``csrc/attention.cu``: a flash-attention forward on the tensor cores in
+3xTF32) or raises. The op's gradient (``torch.library.register_autograd``)
+is the op ``torch.ops.sevit.attention_bwd``: on the CPU the plain version of
+``_fused_bwd``'s einsums, on CUDA ``csrc/attention_bwd.cu`` (a dq pass and a
+dk/dv pass, each on the tensor cores in 3xTF32; the softmax weights
+recomputed from the forward's log-sum-exp, never stored).
 """
 
 from __future__ import annotations
@@ -27,6 +28,13 @@ NEG_INF = -1e30  # masked-key logit, as sdpa_reference
 LOG2E = 1.0 / math.log(2.0)  # the kernels' softmax runs in base 2
 
 
+def _logits(q, k, scale, mask):
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if mask is not None:
+        logits = logits.masked_fill(~mask[:, None, None, :], NEG_INF)
+    return logits
+
+
 def attention_plain(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -37,23 +45,28 @@ def attention_plain(
 ) -> torch.Tensor:
     """Plain version of K2 with ``sdpa_reference`` semantics:
     ``[B, H, N, D]`` in and out, fp32 softmax, masked keys' logits replaced
-    by -1e30 (``mask``: ``[B, N]`` bool, True = attend). Autograd through it
-    is the plain version of K2's backward: ``masked_fill`` gives a masked
-    logit no gradient, as ``jnp.where`` does."""
-    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
-    if mask is not None:
-        logits = logits.masked_fill(~mask[:, None, None, :], NEG_INF)
-    w = torch.softmax(logits, dim=-1)
+    by -1e30 (``mask``: ``[B, N]`` bool, True = attend). Differentiable:
+    ``masked_fill`` gives a masked logit no gradient, as ``jnp.where``
+    does."""
+    w = torch.softmax(_logits(q, k, scale, mask), dim=-1)
     return torch.matmul(w.to(q.dtype), v).to(q.dtype)
 
 
 def attention_bwd_plain(q, k, v, dout, *, scale: float, mask=None):
-    """Plain version of K2's backward: ``(dq, dk, dv)`` by autograd through
-    ``attention_plain`` (``_fused_bwd``'s einsums, derived)."""
-    with torch.enable_grad():
-        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-        out = attention_plain(*leaves, scale=scale, mask=mask)
-        return torch.autograd.grad(out, leaves, dout)
+    """Plain version of K2's backward: ``(dq, dk, dv)`` of
+    ``attention_plain``, as ``_fused_bwd``'s einsums compute them (the
+    weights recomputed; a masked logit is a constant and passes no
+    gradient, so a masked key gets no dk)."""
+    w = torch.softmax(_logits(q, k, scale, mask), dim=-1)
+    go = dout.float()
+    dv = torch.matmul(w.transpose(-1, -2), go)
+    dw = torch.matmul(go, v.float().transpose(-1, -2))
+    dlogits = w * (dw - torch.sum(dw * w, dim=-1, keepdim=True))
+    if mask is not None:
+        dlogits = dlogits.masked_fill(~mask[:, None, None, :], 0.0)
+    dq = torch.matmul(dlogits, k.float()) * scale
+    dk = torch.matmul(dlogits.transpose(-1, -2), q.float()) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _check(q, k, v, mask):
@@ -71,19 +84,28 @@ def _check(q, k, v, mask):
 
 
 def _check_kernel_inputs(named, d):
+    """What K2 takes, shapes and types only (no storage is read: these
+    checks also run while ``torch.export`` traces)."""
     for name, t in named:
-        kernels.check_input(f"attention {name}", t, 4)
-        if t.data_ptr() % 16:  # float4 loads
-            raise ValueError(f"attention {name}: expected a 16-byte aligned tensor")
+        kernels.check_input(f"attention {name}", t, 4, differentiable=True)
     if d not in _HEAD_DIMS:
         raise ValueError(f"attention kernel: head dim {d} not in {_HEAD_DIMS}")
 
 
-def _forward_kernel(q, k, v, scale, mask, with_lse: bool):
-    """Launch K2's forward; returns ``(out, lse)``, ``lse`` ``[B*H, N]``
-    (log2 units) when ``with_lse``, else None."""
+def _check_aligned(named):
+    for name, t in named:
+        if t.data_ptr() % 16:  # float4 loads
+            raise ValueError(f"attention {name}: expected a 16-byte aligned tensor")
+
+
+def _forward_kernel(q, k, v, mask, scale, with_lse: bool):
+    """Launch K2's forward (the op's CUDA impl); returns ``(out, lse)``,
+    ``lse`` ``[B*H, N]`` (log2 units) when ``with_lse``, else an empty
+    tensor (the kernel then writes none)."""
     b, h, n, d = q.shape
-    _check_kernel_inputs((("q", q), ("k", k), ("v", v)), d)
+    named = (("q", q), ("k", k), ("v", v))
+    _check_kernel_inputs(named, d)
+    _check_aligned(named)
     if mask is not None:
         mask = mask.contiguous()
     out = torch.empty_like(q)
@@ -96,18 +118,24 @@ def _forward_kernel(q, k, v, scale, mask, with_lse: bool):
                 None if lse is None else lse.data_ptr(),
                 b * h, h, n, d, float(scale) * LOG2E,
             )
-    return out, lse
+    return out, (q.new_empty(0) if lse is None else lse)
 
 
-def _backward_kernel(q, k, v, out, lse, dout, scale, mask):
-    """Launch K2's backward: ``(dq, dk, dv)`` given what ``_forward_kernel``
-    took and made with ``with_lse`` (q, k, v, mask; ``out``, ``lse``) and
-    the output's gradient ``dout`` ``[B, H, N, D]``. Under the same
-    kept-key-list limit as the forward."""
+def _backward_kernel(q, k, v, out, lse, dout, mask, scale):
+    """Launch K2's backward (the op's CUDA impl): ``(dq, dk, dv)`` given
+    what ``_forward_kernel`` took and made with ``with_lse`` (q, k, v, mask;
+    ``out``, ``lse``) and the output's gradient ``dout`` ``[B, H, N, D]``.
+    Under the same kept-key-list limit as the forward."""
     b, h, n, d = q.shape
-    _check_kernel_inputs((("dout", dout),), d)
-    if dout.shape != q.shape:
-        raise ValueError(f"attention backward: dout {tuple(dout.shape)}, not q's shape")
+    named = (("q", q), ("k", k), ("v", v), ("out", out), ("dout", dout))
+    _check_kernel_inputs(named, d)
+    _check_aligned(named)
+    if dout.shape != q.shape or out.shape != q.shape:
+        raise ValueError(f"attention backward: out {tuple(out.shape)}, dout "
+                         f"{tuple(dout.shape)}, not q's shape")
+    if lse.shape != (b * h, n):
+        raise ValueError(f"attention backward: lse {tuple(lse.shape)}, not [B*H, N]: the "
+                         "forward ran without with_lse")
     if mask is not None:
         mask = mask.contiguous()
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
@@ -123,25 +151,67 @@ def _backward_kernel(q, k, v, out, lse, dout, scale, mask):
     return dq, dk, dv
 
 
-class _Attention(torch.autograd.Function):
-    """K2 forward and backward on CUDA tensors: the forward saves its output
-    and log-sum-exp; the backward recomputes the softmax weights from them."""
+# ---------------------------------------------------------------------------
+# The ops: sevit::attention_fwd and sevit::attention_bwd
+# ---------------------------------------------------------------------------
 
-    @staticmethod
-    def forward(ctx, q, k, v, mask, scale):
-        q, k, v = (t.detach() for t in (q, k, v))
-        out, lse = _forward_kernel(q, k, v, scale, mask, with_lse=True)
-        ctx.save_for_backward(q, k, v, out, lse, mask)
-        ctx.scale = scale
-        return out
 
-    @staticmethod
-    def backward(ctx, dout):
-        # the saved output comes back as the graph's tensor, requiring grad
-        q, k, v, out, lse, mask = (None if t is None else t.detach() for t in ctx.saved_tensors)
-        dq, dk, dv = _backward_kernel(q, k, v, out, lse, dout.detach().contiguous(), ctx.scale,
-                                      mask)
-        return dq, dk, dv, None, None
+def _fwd_plain(q, k, v, mask, scale, with_lse):
+    out = attention_plain(q, k, v, scale=scale, mask=mask)
+    if not with_lse:
+        return out, q.new_empty(0, dtype=torch.float32)
+    b, h, n, _ = q.shape
+    lse = torch.logsumexp(_logits(q, k, scale, mask), dim=-1) * LOG2E
+    return out, lse.reshape(b * h, n)
+
+
+def _fwd_fake(q, k, v, mask, scale, with_lse):
+    b, h, n, _ = q.shape
+    return torch.empty_like(q), q.new_empty((b * h, n) if with_lse else (0,),
+                                            dtype=torch.float32)
+
+
+attention_fwd_op = kernels.define_op(
+    "attention_fwd",
+    "(Tensor q, Tensor k, Tensor v, Tensor? mask, float scale, bool with_lse)"
+    " -> (Tensor, Tensor)",
+    cpu=_fwd_plain, cuda=_forward_kernel, fake=_fwd_fake)
+
+
+def _bwd_plain(q, k, v, out, lse, dout, mask, scale):
+    return attention_bwd_plain(q, k, v, dout, scale=scale, mask=mask)
+
+
+def _bwd_fake(q, k, v, out, lse, dout, mask, scale):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+attention_bwd_op = kernels.define_op(
+    "attention_bwd",
+    "(Tensor q, Tensor k, Tensor v, Tensor out, Tensor lse, Tensor dout, Tensor? mask,"
+    " float scale) -> (Tensor, Tensor, Tensor)",
+    cpu=_bwd_plain, cuda=_backward_kernel, fake=_bwd_fake)
+
+
+def _setup_context(ctx, inputs, output):
+    q, k, v, mask, scale, with_lse = inputs
+    out, lse = output
+    if not with_lse:
+        raise RuntimeError("sevit::attention_fwd: a gradient needs the log-sum-exp: "
+                           "call it with with_lse=True")
+    ctx.mark_non_differentiable(lse)
+    ctx.save_for_backward(q, k, v, out, lse, mask)
+    ctx.scale = scale
+
+
+def _backward(ctx, dout, _dlse):
+    q, k, v, out, lse, mask = ctx.saved_tensors
+    dq, dk, dv = attention_bwd_op(q, k, v, out, lse, dout.contiguous(), mask, ctx.scale)
+    return dq, dk, dv, None, None, None
+
+
+torch.library.register_autograd("sevit::attention_fwd", _backward,
+                                setup_context=_setup_context, lib=kernels.LIBRARY)
 
 
 def attention(
@@ -153,19 +223,18 @@ def attention(
     mask: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Attention over ``[B, H, N, D]`` tensors with an optional ``[B, N]``
-    bool key mask, differentiable. CPU: plain version; CUDA: kernel K2 (and
-    its backward when q, k or v require grad), which walks only the keys a
-    masked row keeps. Its blocks list those keys in shared memory, 4 bytes a
-    key, so a mask over more than about 37,000 keys (head dim 64; fewer in
-    the backward, whose A operands and tiles take more: 30,956) does not fit
-    and raises."""
+    bool key mask, differentiable, through the op ``sevit::attention_fwd``
+    (which writes the log-sum-exp only when a gradient is wanted). CPU:
+    plain version; CUDA: kernel K2 (and its backward), which walks only the
+    keys a masked row keeps. Its blocks list those keys in shared memory, 4
+    bytes a key, so a mask over more than about 37,000 keys (head dim 64;
+    fewer in the backward, whose A operands and tiles take more: 30,956)
+    does not fit and raises."""
     _check(q, k, v, mask)
-    if not kernels.uses_kernel(q):
-        return attention_plain(q, k, v, scale=scale, mask=mask)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return _Attention.apply(q, k, v, mask, scale)
-    q, k, v = (t.detach() for t in (q, k, v))  # no gradient wanted (no_grad)
-    return _forward_kernel(q, k, v, scale, mask, with_lse=False)[0]
+    if kernels.uses_kernel(q):
+        _check_kernel_inputs((("q", q), ("k", k), ("v", v)), q.shape[-1])
+    with_lse = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+    return attention_fwd_op(q, k, v, mask, float(scale), with_lse)[0]
 
 
 def kernel_info(d: int, n: int, masked: bool = True) -> dict:

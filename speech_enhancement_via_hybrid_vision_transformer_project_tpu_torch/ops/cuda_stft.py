@@ -3,17 +3,21 @@ plain PyTorch versions.
 
 ``stft_mag`` replaces the JAX package's ``pallas_stft(return_mag=True)``
 (``ops/pallas_stft.py``) and ``istft_polar`` its
-``pallas_istft(polar=True)``. Dispatch is by the device of the input: a CPU
-tensor runs the plain version, a CUDA tensor launches the kernel
-(``csrc/stft.cu``, ``csrc/istft.cu``) or raises. There is no fallback from
-one to the other.
+``pallas_istft(polar=True)``. Each calls its op, ``torch.ops.sevit.stft_mag``
+or ``torch.ops.sevit.istft_polar``, on both devices, with the STFT config as
+plain ints, a bool and strings. Dispatch is by the device of the input: on a
+CPU tensor the op runs the plain version, on a CUDA tensor it launches the
+kernel (``csrc/stft.cu``, ``csrc/istft.cu``) or raises. There is no
+fallback from one to the other.
 
 Both kernels are shared-memory FFTs (``csrc/fft_stages.cuh``) that read one
 fp32 table built here in float64 (``fft_plan``). They take a power-of-two
 ``n_fft`` from 128 to 2048 and a ``hop_length`` that is a multiple of 4 (K3:
 one that divides ``n_fft``); ``kernel_tile`` checks that and picks the frames
 each block transforms. K1 reads the unpadded signal: its center (reflect)
-padding is fused into the kernel's loads.
+padding is fused into the kernel's loads. The table and K3's window-sum
+denominator are device constants that the CUDA impls fetch when they run
+(``_device_const``); they never enter a traced graph.
 """
 
 from __future__ import annotations
@@ -95,6 +99,13 @@ def _device_const(kind: str, cfg: STFTConfig, device: torch.device, n_frames: in
     return t
 
 
+def _cfg_args(cfg: STFTConfig) -> tuple:
+    return (cfg.n_fft, cfg.hop_length, cfg.win_length, cfg.window, cfg.center, cfg.pad_mode)
+
+
+_CFG_SCHEMA = "int n_fft, int hop_length, int win_length, str window, bool center, str pad_mode"
+
+
 # ---------------------------------------------------------------------------
 # K1: STFT with fused magnitude
 # ---------------------------------------------------------------------------
@@ -107,35 +118,67 @@ def stft_mag_plain(x: torch.Tensor, cfg: STFTConfig = STFTConfig()):
     return re, im, torch.sqrt(re * re + im * im)
 
 
-def stft_mag(x: torch.Tensor, cfg: STFTConfig = STFTConfig()):
-    """STFT of ``x [B, L]`` with its magnitude: ``(re, im, mag)``, each
-    ``[B, F, N]`` float32 (bins first). CPU: plain version; CUDA: kernel K1."""
-    if x.dim() != 2:
-        raise ValueError(f"stft_mag: expected [B, L], got {tuple(x.shape)}")
-    if not kernels.uses_kernel(x):
-        return stft_mag_plain(x, cfg)
+def _check_stft_kernel(x: torch.Tensor, cfg: STFTConfig) -> int:
+    """K1's argument checks (shapes and types only); returns its tile."""
     kernels.check_input("stft_mag x", x, 2)
     tile = kernel_tile(cfg, inverse=False)
-    n_fft, hop = cfg.n_fft, cfg.hop_length
+    pad = cfg.n_fft // 2 if cfg.center else 0
+    if x.shape[1] <= pad:
+        raise ValueError(f"stft_mag: {x.shape[1]} samples cannot be reflect padded by {pad}")
+    return tile
+
+
+def _stft_plain(x, *cfg):
+    # the plain re and im are views of one buffer, and an op's outputs may not
+    # alias: clones, in the plain version's frames-major layout (the CPU
+    # callers' reductions follow it; _stft_fake states it)
+    re, im, mag = stft_mag_plain(x, STFTConfig(*cfg))
+    return re.clone(), im.clone(), mag
+
+
+def _stft_cuda(x, *cfg):
+    cfg = STFTConfig(*cfg)
+    tile = _check_stft_kernel(x, cfg)
     b, length = x.shape
-    pad = n_fft // 2 if cfg.center else 0
-    if length <= pad:
-        raise ValueError(f"stft_mag: {length} samples cannot be reflect padded by {pad}")
     n_frames = cfg.num_frames(length)
-    f = cfg.num_bins
     plan = _device_const("plan", cfg, x.device)
     re, im, mag = (
-        torch.empty(b, f, n_frames, device=x.device, dtype=torch.float32)
+        torch.empty(b, cfg.num_bins, n_frames, device=x.device, dtype=torch.float32)
         for _ in range(3)
     )
     if b:
         with torch.cuda.device(x.device):
             kernels.launch(
                 "stft_mag", x.data_ptr(), plan.data_ptr(), re.data_ptr(),
-                im.data_ptr(), mag.data_ptr(), b, length, pad, n_frames, n_fft,
-                hop, tile,
+                im.data_ptr(), mag.data_ptr(), b, length,
+                cfg.n_fft // 2 if cfg.center else 0, n_frames, cfg.n_fft, cfg.hop_length, tile,
             )
     return re, im, mag
+
+
+def _stft_fake(x, *cfg):
+    cfg = STFTConfig(*cfg)
+    b, f, n = x.shape[0], cfg.num_bins, cfg.num_frames(x.shape[1])
+    if x.device.type == "cpu":  # the plain version's [B, N, F] memory, viewed [B, F, N]
+        return tuple(x.new_empty((b, n, f), dtype=torch.float32).transpose(1, 2)
+                     for _ in range(3))
+    return tuple(x.new_empty((b, f, n), dtype=torch.float32) for _ in range(3))
+
+
+stft_mag_op = kernels.define_op(
+    "stft_mag", f"(Tensor x, {_CFG_SCHEMA}) -> (Tensor, Tensor, Tensor)",
+    cpu=_stft_plain, cuda=_stft_cuda, fake=_stft_fake)
+
+
+def stft_mag(x: torch.Tensor, cfg: STFTConfig = STFTConfig()):
+    """STFT of ``x [B, L]`` with its magnitude: ``(re, im, mag)``, each
+    ``[B, F, N]`` float32 (bins first), through the op ``sevit::stft_mag``.
+    CPU: plain version; CUDA: kernel K1."""
+    if x.dim() != 2:
+        raise ValueError(f"stft_mag: expected [B, L], got {tuple(x.shape)}")
+    if kernels.uses_kernel(x):
+        _check_stft_kernel(x, cfg)
+    return stft_mag_op(x, *_cfg_args(cfg))
 
 
 # ---------------------------------------------------------------------------
@@ -154,31 +197,27 @@ def istft_polar_plain(
     return reconstruct(mag, phase, cfg, length=length)
 
 
-def istft_polar(
-    mag: torch.Tensor,
-    phase: torch.Tensor,
-    cfg: STFTConfig = STFTConfig(),
-    *,
-    length: int | None = None,
-) -> torch.Tensor:
-    """Waveform ``[B, length]`` from magnitude and phase ``[B, F, N]``
-    (librosa ``istft`` semantics: window-sum normalize, center crop,
-    ``length`` trim or zero pad). CPU: plain version; CUDA: kernel K3."""
-    if mag.dim() != 3 or mag.shape != phase.shape:
-        raise ValueError(
-            f"istft_polar: expected mag and phase [B, F, N], got "
-            f"{tuple(mag.shape)} and {tuple(phase.shape)}"
-        )
-    if kernels.uses_kernel(mag) != kernels.uses_kernel(phase) or mag.device != phase.device:
-        raise ValueError("istft_polar: mag and phase on different devices")
-    if not kernels.uses_kernel(mag):
-        return istft_polar_plain(mag, phase, cfg, length=length)
+def _check_istft_kernel(mag: torch.Tensor, phase: torch.Tensor, cfg: STFTConfig) -> int:
+    """K3's argument checks (shapes and types only); returns its tile."""
     kernels.check_input("istft_polar mag", mag, 3)
     kernels.check_input("istft_polar phase", phase, 3)
     tile = kernel_tile(cfg, inverse=True)
-    b, f, n_frames = mag.shape
-    if f != cfg.num_bins:
-        raise ValueError(f"istft_polar: {f} bins, config has {cfg.num_bins}")
+    if mag.shape[1] != cfg.num_bins:
+        raise ValueError(f"istft_polar: {mag.shape[1]} bins, config has {cfg.num_bins}")
+    return tile
+
+
+def _istft_plain(mag, phase, *cfg_length):
+    *cfg, length = cfg_length
+    # the plain output is a crop, a view; _istft_fake states a contiguous tensor
+    return istft_polar_plain(mag, phase, STFTConfig(*cfg), length=length).contiguous()
+
+
+def _istft_cuda(mag, phase, *cfg_length):
+    *cfg, length = cfg_length
+    cfg = STFTConfig(*cfg)
+    tile = _check_istft_kernel(mag, phase, cfg)
+    b, _, n_frames = mag.shape
     offset, n_out = istft_output_span(cfg, n_frames, length)
     plan = _device_const("plan", cfg, mag.device)
     denom = _device_const("denom", cfg, mag.device, n_frames)
@@ -191,6 +230,40 @@ def istft_polar(
                 cfg.hop_length, offset, n_out, tile,
             )
     return y
+
+
+def _istft_fake(mag, phase, *cfg_length):
+    *cfg, length = cfg_length
+    n_out = istft_output_span(STFTConfig(*cfg), mag.shape[2], length)[1]
+    return mag.new_empty((mag.shape[0], n_out), dtype=torch.float32)
+
+
+istft_polar_op = kernels.define_op(
+    "istft_polar", f"(Tensor mag, Tensor phase, {_CFG_SCHEMA}, int? length) -> Tensor",
+    cpu=_istft_plain, cuda=_istft_cuda, fake=_istft_fake)
+
+
+def istft_polar(
+    mag: torch.Tensor,
+    phase: torch.Tensor,
+    cfg: STFTConfig = STFTConfig(),
+    *,
+    length: int | None = None,
+) -> torch.Tensor:
+    """Waveform ``[B, length]`` from magnitude and phase ``[B, F, N]``
+    (librosa ``istft`` semantics: window-sum normalize, center crop,
+    ``length`` trim or zero pad), through the op ``sevit::istft_polar``.
+    CPU: plain version; CUDA: kernel K3."""
+    if mag.dim() != 3 or mag.shape != phase.shape:
+        raise ValueError(
+            f"istft_polar: expected mag and phase [B, F, N], got "
+            f"{tuple(mag.shape)} and {tuple(phase.shape)}"
+        )
+    if kernels.uses_kernel(mag) != kernels.uses_kernel(phase) or mag.device != phase.device:
+        raise ValueError("istft_polar: mag and phase on different devices")
+    if kernels.uses_kernel(mag):
+        _check_istft_kernel(mag, phase, cfg)
+    return istft_polar_op(mag, phase, *_cfg_args(cfg), length)
 
 
 # ---------------------------------------------------------------------------

@@ -13,9 +13,19 @@ Every C entry point takes device pointers and the CUDA stream as
 ``void*``, launches on that stream without synchronizing, and returns
 ``cudaGetLastError()``; ``launch`` raises when that is not 0.
 
-Each kernel has a ``Kernel`` record with a plain launch counter that its
-wrapper increments once per launch, so a run can show that its main path
+Each kernel has a ``Kernel`` record with a plain launch counter that
+``launch`` increments once per launch, so a run can show that its main path
 went through the kernel.
+
+Each kernel is also an operator of the ``sevit`` namespace of
+``torch.library`` (``define_op``), so that ``torch.export`` records it as one
+call, ``torch.ops.sevit.<name>``, on either device: its CUDA impl launches
+the kernel, its CPU impl is the kernel's plain version, and its fake impl
+gives the outputs' shapes and dtypes from the arguments alone. A meta tensor
+is refused rather than given shapes as if it had been computed. The ops are
+defined when ``cuda_stft`` and ``cuda_attention`` are imported (``import``
+of the port's ``ops`` package does both); a program that ``torch.export``
+saved needs them defined before it is loaded.
 """
 
 from __future__ import annotations
@@ -113,18 +123,43 @@ def uses_kernel(t: torch.Tensor) -> bool:
     return t.device.type == "cuda"
 
 
-def check_input(name: str, t: torch.Tensor, ndim: int) -> None:
+def check_input(name: str, t: torch.Tensor, ndim: int, *, differentiable: bool = False) -> None:
     """Raise unless ``t`` is what the kernels take: float32 with ``ndim``
-    dims, contiguous and not requiring grad (only K2 has a backward, and its
-    autograd Function hands the kernels detached tensors)."""
+    dims, contiguous and, unless ``differentiable`` (K2, whose op has a
+    backward), not requiring grad."""
     if t.dtype != torch.float32:
         raise TypeError(f"{name}: expected float32, got {t.dtype}")
     if t.dim() != ndim:
         raise ValueError(f"{name}: expected {ndim} dims, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
-    if t.requires_grad:
+    if t.requires_grad and not differentiable:
         raise RuntimeError(f"{name}: the CUDA kernel has no backward")
+
+
+LIBRARY = torch.library.Library("sevit", "DEF")
+
+
+def define_op(name: str, schema: str, *, cpu, cuda, fake):
+    """Define ``torch.ops.sevit.<name>`` with signature ``schema`` (the
+    part after the name): ``cuda`` launches the kernel, ``cpu`` is its plain
+    version, ``fake`` gives the outputs' shapes and dtypes. Each device type
+    is registered by name; a meta tensor raises. Returns the op."""
+    LIBRARY.define(name + schema)
+    LIBRARY.impl(name, cpu, "CPU")
+    LIBRARY.impl(name, cuda, "CUDA")
+
+    def fake_or_refuse(*args):
+        # a tensor under torch.export's (or opcheck's) fake mode reports the
+        # device it stands for; a meta tensor here was handed to the op itself
+        if any(isinstance(a, torch.Tensor) and a.device.type == "meta" for a in args):
+            raise ValueError(f"sevit::{name}: unsupported device meta (the op computes on "
+                             "cpu or cuda)")
+        return fake(*args)
+
+    # PyTorch also makes the fake impl the op's Meta kernel
+    torch.library.register_fake(f"sevit::{name}", fake_or_refuse, lib=LIBRARY)
+    return getattr(torch.ops.sevit, name).default
 
 
 def library_path(source: str) -> Path:

@@ -17,6 +17,7 @@ from .checkpoint import (  # noqa: F401
     export_program,
     load_checkpoint,
     load_model_weights,
+    load_program,
     save_checkpoint,
     save_model_weights,
 )

@@ -434,26 +434,39 @@ def checkpoint_info(path: str | Path) -> Dict:
 
 def export_program(path: str | Path, model: torch.nn.Module, example_args: tuple) -> Path:
     """Export ``model``'s forward on ``example_args`` with
-    ``torch.export.export`` and write it with ``torch.export.save`` (reload
-    with ``torch.export.load``); the port's counterpart of the JAX
-    package's ``export_stablehlo``.
+    ``torch.export.export`` and write it with ``torch.export.save``; the
+    port's counterpart of the JAX package's ``export_stablehlo``.
 
-    The model and its inputs must be on the CPU, where the program holds
-    the kernels' plain versions. On CUDA it raises ``ValueError``: the
-    hand-written kernels are ctypes launches on raw pointers, which
-    ``torch.export`` cannot trace, and exporting the plain versions in
-    their place would hand back a different program than the one that runs."""
+    The program is the one that runs on the device of the model and its
+    inputs. On CUDA it holds the hand-written kernels as single calls,
+    ``torch.ops.sevit.stft_mag``, ``attention_fwd`` and ``istft_polar``
+    (``ops/kernels.py``); on the CPU the same ops, whose CPU impls are the
+    kernels' plain versions. Any other device (meta) raises ``ValueError``.
+    The forward is traced without gradients, as an inference program.
+    ``torch.export.load`` needs those ops defined before it reads the file:
+    ``load_program`` imports the port's ``ops`` and loads."""
     tensors = [*model.parameters(), *model.buffers(),
                *(a for a in example_args if isinstance(a, torch.Tensor))]
-    devices = sorted({str(t.device) for t in tensors if t.device.type != "cpu"})
+    devices = sorted({str(t.device) for t in tensors if t.device.type not in ("cpu", "cuda")})
     if devices:
-        raise ValueError(f"export_program: tensors on {devices}; the CUDA kernels are ctypes "
-                         "launches that torch.export cannot trace: export the model on the CPU")
-    program = torch.export.export(model, tuple(example_args))
+        raise ValueError(f"export_program: tensors on {devices}; the program computes on "
+                         "cpu or cuda")
+    with torch.no_grad():  # an inference program: K2 then writes no log-sum-exp
+        program = torch.export.export(model, tuple(example_args))
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
     torch.export.save(program, str(path))
     return path
+
+
+def load_program(path: str | Path) -> torch.export.ExportedProgram:
+    """A program that ``export_program`` wrote, read back with
+    ``torch.export.load`` after the ``sevit`` ops are defined; the port's
+    counterpart of ``jax.export.deserialize``. ``.module()`` runs it on the
+    device it was exported on."""
+    from ..ops import cuda_attention, cuda_stft  # noqa: F401  (define the sevit ops)
+
+    return torch.export.load(str(path))
 
 
 def _extract_variables(tree: Dict) -> Dict:

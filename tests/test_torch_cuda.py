@@ -624,3 +624,61 @@ def test_griffin_lim_rounds_are_k3_then_k1(dev, gen):
     one = S.griffin_lim(mag, n_iter=1, phase=phase)
     plain = S.griffin_lim_plain(mag, phase, n_iter=1)
     assert float((one - plain).abs().max()) <= 2e-5 + 4 / 3 * (2e-3 + 256 * 2e-5)
+
+
+@pytest.mark.parametrize("name", ["stft_mag", "attention_fwd", "attention_bwd", "istft_polar"])
+def test_opcheck_on_cuda(name, dev, gen):
+    """Each op's CUDA impl against its fake impl and registrations, on the
+    card (``tests/test_torch_custom_ops.py`` runs the same on the CPU)."""
+    from torch.library import opcheck
+
+    cfg = STFTConfig()
+    args = (cfg.n_fft, cfg.hop_length, cfg.win_length, cfg.window, cfg.center, cfg.pad_mode)
+    q, k, v, dout = (torch.randn(2, 2, 37, 64, generator=gen).to(dev) for _ in range(4))
+    mask = (torch.rand(2, 37, generator=gen) > 0.3).to(dev)
+    if name == "stft_mag":
+        opcheck(cuda_stft.stft_mag_op, (torch.randn(2, 4000, generator=gen).to(dev), *args))
+    elif name == "istft_polar":
+        mag = torch.rand(2, 257, 30, generator=gen).to(dev)
+        opcheck(cuda_stft.istft_polar_op, (mag, mag * 3.0, *args, 3800))
+    elif name == "attention_fwd":
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        opcheck(cuda_attention.attention_fwd_op, (*leaves, mask, 0.125, True))
+    else:
+        out, lse = cuda_attention.attention_fwd_op(q, k, v, mask, 0.125, True)
+        opcheck(cuda_attention.attention_bwd_op, (q, k, v, out, lse, dout, mask, 0.125))
+
+
+@pytest.mark.parametrize("io_dtype", ["float32", "int16"])
+def test_export_program_on_cuda_holds_the_kernel_ops(io_dtype, dev, tmp_path):
+    """The enhancer core exported on the card: one sevit op a kernel launch,
+    none of the plain versions; the loaded program launches each kernel as
+    the graph says and equals the eager core (one process: the same calls)."""
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.inference import (
+        EnhancerCore,
+    )
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.utils.checkpoint import (
+        export_program, load_program,
+    )
+
+    model = init_weights(HybridViT(**SMALL), torch.Generator().manual_seed(0))
+    enhancer = AudioEnhancer(model, {"model": {"output_mode": "mask"}}, device=dev,
+                             io_dtype=io_dtype, mask_padding=True, buckets=(64,))
+    rng = np.random.default_rng(1)
+    wav = (0.3 * rng.standard_normal((3, 63 * 128))).astype(np.float32)
+    x = torch.from_numpy((wav * 32767).astype(np.int16) if io_dtype == "int16" else wav).to(dev)
+    lengths = torch.tensor([63 * 128, 5000, 3000], dtype=torch.int32, device=dev)
+    core = EnhancerCore(enhancer)
+    program = load_program(export_program(tmp_path / "core.pt2", core, (x, lengths)))
+    targets = [str(n.target) for n in program.graph.nodes if n.op == "call_function"]
+    calls = {name: targets.count(f"sevit.{name}.default") for name in kernels.KERNELS}
+    assert calls == {"stft_mag": 1, "attention_fwd": 2, "attention_bwd": 0, "istft_polar": 1}
+    assert not [t for t in targets if "softmax" in t or "matmul" in t or t.startswith("aten.cos")]
+    with torch.inference_mode():
+        want = core(x, lengths)
+        kernels.reset_launch_counts()
+        got = program.module()(x, lengths)
+    torch.cuda.synchronize()
+    assert {n: k.launches for n, k in kernels.KERNELS.items()} == calls
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert float((got.float() - want.float()).abs().max()) <= (1.0 if io_dtype == "int16" else 1e-6)

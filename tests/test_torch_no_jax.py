@@ -98,3 +98,11 @@ def test_kernel_registry_names_sources_and_tpu_kernels():
         file, line = k.replaces.rsplit(":", 1)
         src = (ROOT / file).read_text().splitlines()
         assert src[int(line) - 1].lstrip().startswith("def _"), k.replaces
+
+
+@pytest.mark.parametrize("rel", ["graft_entry.py", "cli/demo.py", "cli/synth_dataset.py"])
+def test_the_entry_points_are_scanned(rel):
+    """The entry points outside the package's CLIs (the counterparts of
+    ``__graft_entry__.py``, ``examples/demo.py`` and
+    ``scripts/synth_dataset.py``) are among the scanned sources."""
+    assert PORT / rel in SOURCES
