@@ -174,6 +174,20 @@ which raises on failure:
     7's wall and phase 12b's ms a round. e. ``cli.synth_dataset`` writes 8 +
     2 pairs, then ``cli.demo --device cuda`` trains on them for an epoch and
     prints its SNR line.
+14. quality tools (``tools/``; its wall time printed): a. ``cli.synth_dataset``
+    writes 12 + 4 held-out-family test pairs of 1-3 s. b. ``tune_blend`` on
+    the trained ``tests/fixtures/tiny_denoiser`` (a copy with a
+    ``config.model``) over 8 of them on cuda and on cpu: each file's input
+    SI-SDR equal, its SNR estimate and 11 blend gains within the stated
+    limits, the same fit; the fit written with ``--write-checkpoint-meta``
+    on cuda and adopted by ``AudioEnhancer(blend=None)``. c. ``tune_blend``
+    on a 28M magnitude-head checkpoint of seeded weights over all 16 files on
+    cuda: files a second, K1 1, K2 6 and K3 1 launches a file. d.
+    ``oracle_heads`` on cuda and cpu: each head's mean gain within the stated
+    limit, K1 1 and K3 1 a file. e. ``bench_mask_delta --full-size
+    --pos-embed factored_2d`` on cuda: its worst max LSB, K1 3, K2 18 and K3
+    3 a clip. f. ``calibrate_pesq --clips 1 --seconds 2``: its residuals, on
+    a machine without jax. A tool on cpu launches nothing.
 
 ``python3 chip_smoke.py --cards N`` (a machine with N >= 2 cards) builds the
 kernels and runs phase 11 alone over NCCL, one rank a card: N data ranks,
@@ -194,11 +208,14 @@ phase 10 CLI epoch, ``remat_train_launches`` in one 28M remat step,
 per rank in one TP step, ``mesh_serve_launches`` per replica in one mesh
 batch, ``griffin_lim_launches`` in one phase 12 Griffin-Lim call,
 ``exported_launches`` in one call of the phase 13 program loaded in a fresh
-process), and the result JSON.
+process, ``tools_launches`` a file in phase 14c's ``tune_blend`` run), and
+the result JSON.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import re
 import shutil
@@ -2360,6 +2377,207 @@ def exported(dev: torch.device, smi: str, enhancer, wavs: list, slice_ms: float,
     return {"launches": got["launches"], "dispatcher": cost}
 
 
+# Phase 14, the quality tools on cuda against the same tools on cpu. A
+# waveform within TOL_WAVE (2e-4) of cpu's moves an SI-SDR of 5-25 dB by at
+# most ~4e-2 dB, were the whole difference to line up with the residual: each
+# blend's gain within 5e-2 dB. The model's SNR estimate is a ratio of two
+# fp32 sums over 257 x N bins of magnitudes within K1's limit: 1e-2 dB. The
+# oracle's estimates take no model, only K1 and K3 (limits 2e-3 and 2e-5 on
+# spectra and waveforms of unit scale): each head's mean gain within 1e-2 dB.
+TOL_TOOLS_EST_SNR = 1e-2
+TOL_TOOLS_GAIN = 5e-2
+TOL_TOOLS_ORACLE = 1e-2
+TOOLS_FILES, TOOLS_BLEND_FILES = 16, 8
+# the committed tests/fixtures/tiny_denoiser's architecture as a config.model
+# (its meta.json holds it under config.tiny, which create_hybrid_vit does not read)
+TINY_MODEL = {"encoder": {"channels": [16, 32, 64], "dropout": 0.0},
+              "transformer": {"embed_dim": 128, "num_heads": 4, "num_layers": 2,
+                              "mlp_ratio": 2.0, "pos_embed": "factored_2d",
+                              "attention_dropout": 0.0, "drop_path_rate": 0.0},
+              "decoder": {"channels": [32, 16, 1]}}
+
+
+def quality_tools(smi: str) -> dict:
+    """Phase 14. Returns each kernel's launches a file in c's run."""
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.cli import (
+        synth_dataset,
+    )
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.inference import (
+        AudioEnhancer, load_model_for_inference,
+    )
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.models import (
+        create_hybrid_vit, init_weights,
+    )
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.ops import kernels
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.tools import (
+        bench_mask_delta, calibrate_pesq, oracle_heads, tune_blend,
+    )
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.utils.checkpoint import (
+        read_meta, save_checkpoint,
+    )
+
+    phase("quality tools: tune_blend, oracle_heads, bench_mask_delta and calibrate_pesq")
+    t_phase = time.perf_counter()
+
+    def run(main, argv: list, device: str | None) -> tuple[dict, float]:
+        """One tool's ``main(argv)`` on ``device``: its kernel launches and
+        wall seconds; on cpu it must launch nothing."""
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        if main(argv + ["--device", device] if device else argv) != 0:
+            raise AssertionError(f"{main.__module__} {argv} failed")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = {name: k.launches for name, k in kernels.KERNELS.items()}
+        if device == "cpu" and any(launched.values()):
+            raise AssertionError(f"{main.__module__} on cpu launched {launched}")
+        return launched, wall
+
+    def per_file(launched: dict, n: int, expect: dict, what: str) -> None:
+        want = {name: n * expect.get(name, 0) for name in launched}
+        print(f"{what}: launches {launched} over {n} (expected {expect} a file or clip)",
+              flush=True)
+        if launched != want:
+            raise AssertionError(f"{what}: launches {launched}, expected {want}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # a. data: 12 + 4 held-out-family test pairs of 1-3 s
+        data = tmp / "data"
+        if synth_dataset.main([str(data), "--train", "0", "--test", str(TOOLS_FILES - 4),
+                               "--test-unseen", "4"]) != 0:
+            raise AssertionError("synth_dataset failed")
+        noisy, clean = data / "noisy_testset_wav", data / "clean_testset_wav"
+        if len(list(noisy.glob("*.wav"))) != TOOLS_FILES:
+            raise AssertionError("synth_dataset wrote the wrong number of pairs")
+        dirs = ["--noisy-dir", str(noisy), "--clean-dir", str(clean)]
+
+        # b. tune_blend on the trained tiny denoiser, cuda against cpu on the
+        # same files, then the fit written on cuda and adopted by an enhancer
+        runs = {}
+        for device in ("cuda", "cpu"):
+            ck = tmp / f"tiny_{device}"
+            shutil.copytree(ROOT / "tests" / "fixtures" / "tiny_denoiser", ck)
+            meta = json.loads((ck / "meta.json").read_text())
+            meta["config"]["model"] = TINY_MODEL
+            (ck / "meta.json").write_text(json.dumps(meta, indent=1))
+            out = tmp / f"blend_{device}.json"
+            argv = ["--checkpoint", str(ck), "--config-dir", str(ROOT / "config"), *dirs,
+                    "--max-files", str(TOOLS_BLEND_FILES), "--json-out", str(out)]
+            if device == "cuda":
+                argv.append("--write-checkpoint-meta")
+            launched, wall = run(tune_blend.main, argv, device)
+            runs[device] = (json.loads(out.read_text()), ck, launched, wall)
+        got, ck, launched, wall = runs["cuda"]
+        ref = runs["cpu"][0]
+        per_file(launched, TOOLS_BLEND_FILES, {"stft_mag": 1, "attention_fwd": 2, "istft_polar": 1},
+                 "tune_blend, tiny denoiser")
+        errs = {"est_snr": 0.0, "gain": 0.0}
+        for row, ref_row in zip(got["rows"], ref["rows"], strict=True):
+            if row["file"] != ref_row["file"] or row["input_si_sdr"] != ref_row["input_si_sdr"]:
+                raise AssertionError(f"tune_blend rows differ in file or input: {row}, {ref_row}")
+            errs["est_snr"] = max(errs["est_snr"], abs(row["est_snr"] - ref_row["est_snr"]))
+            errs["gain"] = max(errs["gain"], float(np.abs(
+                np.subtract(row["gains"], ref_row["gains"])).max()))
+        params = [r["best"] and r["best"]["params"] for r in (got, ref)]
+        # the fit is strict (a larger mean wins): the runner-up's distance says
+        # how far the gains could move before another point wins
+        feasible = sorted((m for m, _, _, ok in tune_blend.grid(ref["rows"]) if ok), reverse=True)
+        print(f"tune_blend, tiny denoiser, {TOOLS_BLEND_FILES} files, cuda vs cpu: est_snr max "
+              f"err {errs['est_snr']:.3g} dB (tolerance {TOL_TOOLS_EST_SNR}), gains max err "
+              f"{errs['gain']:.3g} dB (tolerance {TOL_TOOLS_GAIN}); fit cuda {params[0]} mean "
+              f"{got['best'] and got['best']['mean']}, cpu {params[1]} (its runner-up "
+              f"{feasible[0] - feasible[1] if len(feasible) > 1 else None} dB below); no blend "
+              f"{got['no_blend']['mean']:.4f} dB; cuda {wall:.2f} s, cpu {runs['cpu'][3]:.2f} s; "
+              f"{smi}", flush=True)
+        if errs["est_snr"] > TOL_TOOLS_EST_SNR or errs["gain"] > TOL_TOOLS_GAIN:
+            raise AssertionError(f"tune_blend differs between cuda and cpu: {errs}")
+        if params[0] != params[1] or params[0] is None:
+            raise AssertionError(f"tune_blend fits differ or found none: {params}")
+        model = load_model_for_inference(ck, {}, device="cuda")[0]
+        enhancer = AudioEnhancer(model, read_meta(ck)["config"], device="cuda", blend=None)
+        adopted = (enhancer.blend, enhancer.blend_min, enhancer.blend_pivot_db,
+                   enhancer.blend_width_db)
+        print(f"written fit adopted by AudioEnhancer(blend=None) on cuda: {adopted}", flush=True)
+        if adopted != ("snr_adaptive", params[0]["min"], params[0]["pivot"], params[0]["width"]):
+            raise AssertionError(f"the written fit was not adopted: {adopted}, {params[0]}")
+
+        # c. tune_blend at full width: a 28M magnitude-head checkpoint from
+        # seeded weights, every file on cuda
+        config = {"model": {"output_mode": "magnitude"}}
+        big = save_checkpoint(tmp / "big", init_weights(create_hybrid_vit(config),
+                                                        torch.Generator().manual_seed(3)),
+                              config=config)
+        out = tmp / "blend_28m.json"
+        launched, wall = run(tune_blend.main, ["--checkpoint", str(big), "--config-dir",
+                                               str(ROOT / "config"), *dirs, "--json-out",
+                                               str(out)], "cuda")
+        big_rows = json.loads(out.read_text())["rows"]
+        seconds = sum(json.loads((data / "manifest.json").read_text())[r["file"]]["seconds"]
+                      for r in big_rows)
+        print(f"tune_blend at 28M (magnitude head, seeded weights): {len(big_rows)} files "
+              f"({seconds:.1f} audio-s) in {wall:.2f} s = {len(big_rows) / wall:.2f} files/s; "
+              f"{smi}", flush=True)
+        if len(big_rows) != TOOLS_FILES or not all(
+                np.isfinite(r["est_snr"]) and np.isfinite(r["gains"]).all() for r in big_rows):
+            raise AssertionError("tune_blend at 28M: rows missing or not finite")
+        tools_launches = {name: n // TOOLS_FILES for name, n in launched.items()}
+        per_file(launched, TOOLS_FILES, {"stft_mag": 1, "attention_fwd": 6, "istft_polar": 1},
+                 "tune_blend at 28M")
+
+        # d. oracle_heads, cuda against cpu
+        oracle = {}
+        for device in ("cuda", "cpu"):
+            out = tmp / f"oracle_{device}.json"
+            launched, wall = run(oracle_heads.main, [*dirs, "--out", str(out)], device)
+            oracle[device] = (json.loads(out.read_text()), launched, wall)
+        per_file(oracle["cuda"][1], TOOLS_FILES, {"stft_mag": 1, "istft_polar": 1},
+                 "oracle_heads")
+        got, ref = oracle["cuda"][0], oracle["cpu"][0]
+        means = {h: (got[f"{h}_gain_mean"], abs(got[f"{h}_gain_mean"] - ref[f"{h}_gain_mean"]))
+                 for h in oracle_heads.HEADS}
+        print(f"oracle_heads over {got['n']} files, gain mean (dB) and its cuda vs cpu err: "
+              f"{ {h: (round(m, 4), float(f'{e:.3g}')) for h, (m, e) in means.items()} } "
+              f"(tolerance {TOL_TOOLS_ORACLE}); cuda {oracle['cuda'][2]:.2f} s, cpu "
+              f"{oracle['cpu'][2]:.2f} s; {smi}", flush=True)
+        if got["n"] != TOOLS_FILES or any(not np.isfinite(m) or e > TOL_TOOLS_ORACLE
+                                          for m, e in means.values()):
+            raise AssertionError(f"oracle_heads differs between cuda and cpu: {means}")
+
+        # e. the bucketing's error budget at full width; the tool prints its report
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            launched, wall = run(bench_mask_delta.main, ["--full-size", "--pos-embed",
+                                                         "factored_2d"], "cuda")
+        report = json.loads(printed.getvalue())
+        n_clips = len(bench_mask_delta.LENGTH_FRAMES)
+        rel_rms = [(c["samples"], round(c["unmasked_rel_rms"], 4), round(c["masked_rel_rms"], 4))
+                   for c in report["clips"]]
+        print(f"bench_mask_delta --full-size --pos-embed factored_2d on cuda: worst max LSB "
+              f"{report['worst_max_lsb']} over {n_clips} clips, relative RMS (samples, unmasked, "
+              f"masked) {rel_rms}, in {wall:.2f} s; {smi}", flush=True)
+        per_file(launched, n_clips, {"stft_mag": 3, "attention_fwd": 18, "istft_polar": 3},
+                 "bench_mask_delta")
+        if len(report["clips"]) != n_clips or not all(
+                np.isfinite(v) for c in report["clips"] for v in c.values()):
+            raise AssertionError(f"bench_mask_delta report malformed: {report}")
+
+        # f. the PESQ calibration on this machine, which has no jax
+        out = tmp / "pesq_calibration.json"
+        _, wall = run(calibrate_pesq.main, ["--clips", "1", "--seconds", "2", "--out", str(out)],
+                      None)
+        cal = json.loads(out.read_text())
+        print(f"calibrate_pesq --clips 1 --seconds 2: {wall:.2f} s; _D_CAL {cal['d_cal']}, "
+              f"anchored MAE {cal['mae']:.4f}, max |residual| {cal['max_abs_residual']:.4f}, "
+              f"per family {cal['per_family_residuals']}, monotonic {cal['monotonicity']}; {smi}",
+              flush=True)
+        if not np.isfinite(cal["mae"]):
+            raise AssertionError("calibrate_pesq: residuals not finite")
+    print(f"quality tools phase: {time.perf_counter() - t_phase:.1f} s; {smi}", flush=True)
+    return {"launches": tools_launches}
+
+
 def main() -> int:
     import argparse
 
@@ -2659,6 +2877,7 @@ def main() -> int:
         mesh_run = mesh(dev, smi, rng, enhancer, wavs, out)
         dsp_run = dsp(dev, smi, rng, noisy, (native_lib, native_build_s))
     export_run = exported(dev, smi, enhancer, wavs, wall * 1e3, dsp_run["round_ms"])
+    tools_run = quality_tools(smi)
     errs["attention_bwd"] = train["errs"]
     ms["attention_bwd"] = train["ms"]
     launches["attention_bwd"] = train["launches"]["attention_bwd"]
@@ -2679,6 +2898,7 @@ def main() -> int:
          "mesh_serve_launches": mesh_run["serve"][name],
          "griffin_lim_launches": dsp_run["launches"][name],
          "exported_launches": export_run["launches"][name],
+         "tools_launches": tools_run["launches"][name],
          "max_abs_err": max(errs[name]),
          **ms[name]}
         for name, k in kernels.KERNELS.items()
