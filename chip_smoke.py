@@ -188,6 +188,21 @@ which raises on failure:
     --pos-embed factored_2d`` on cuda: its worst max LSB, K1 3, K2 18 and K3
     3 a clip. f. ``calibrate_pesq --clips 1 --seconds 2``: its residuals, on
     a machine without jax. A tool on cpu launches nothing.
+15. measurement tools (``tools/``; its wall time printed): a. ``tools.bench``
+    (the port's ``bench.py``) at its defaults, its one JSON line printed:
+    ``mfu_pct`` in (0, 100], K1 1, K2 6 and K3 1 launches a device step; its
+    device core on cuda against the same core on cpu (rows 0-3 of a 32 x 3 s
+    batch) within ``TOL_WAVE``. b. ``tools.flops`` at batch 4 x 256 frames on
+    cuda (the ``sevit`` ops' FLOP formulas). c. ``bench_infer`` at 32 x 3 s:
+    ms, audio-s/s, PyTorch's FLOP count within 2% of the analytic one, the
+    share of the peak in (0, 100], launches 1 / 6 / 1. d. ``bench_stages`` at
+    32 x 3 s (its full prefix within 25% of a.'s device step), then
+    ``roofline`` on its JSON: each stage's bound at the card's data-sheet
+    peaks beside its time. e. ``bench_train`` at the 28M recipe (fullres
+    head, mask output, attention dropout 0, batch 16, 384 frames, fp32): ms,
+    audio-s/s, the share of the peak in (0, 100], K1 2, K2 6 and K2's
+    backward 6 launches a step. f. ``bench_io`` on phase 8's PCM16 files.
+    g. ``bench_scaling`` over NCCL at the ranks the visible cards allow.
 
 ``python3 chip_smoke.py --cards N`` (a machine with N >= 2 cards) builds the
 kernels and runs phase 11 alone over NCCL, one rank a card: N data ranks,
@@ -196,7 +211,8 @@ times (no 11a); then the train CLI itself at ``--data-parallel N`` and at 1
 on the shipped ``config/`` (two epochs of synthetic files, a third resumed
 on N cards): every rank's final loss equal, rank 0 alone writing the
 metrics and the checkpoints, which read back, and the epoch's wall per
-batch; and prints the launches and the result JSON.
+batch; then ``tools.bench_scaling`` at 1, 2, 4, ... ranks up to N; and
+prints the launches and the result JSON.
 
 Before its last three lines it prints its own wall time, start to result.
 Prints, on its last three lines: the card's ``nvidia-smi`` name and power
@@ -208,8 +224,9 @@ phase 10 CLI epoch, ``remat_train_launches`` in one 28M remat step,
 per rank in one TP step, ``mesh_serve_launches`` per replica in one mesh
 batch, ``griffin_lim_launches`` in one phase 12 Griffin-Lim call,
 ``exported_launches`` in one call of the phase 13 program loaded in a fresh
-process, ``tools_launches`` a file in phase 14c's ``tune_blend`` run), and
-the result JSON.
+process, ``tools_launches`` a file in phase 14c's ``tune_blend`` run,
+``bench_launches`` a step of phase 15a's device core, ``bench_train_launches``
+a step of phase 15e's ``bench_train``), and the result JSON.
 """
 
 from __future__ import annotations
@@ -1921,6 +1938,7 @@ def across_cards(dev: torch.device, smi: str, cards: int) -> int:
     del enhancer
     torch.cuda.empty_cache()
     train_cli_across_cards(smi, cards, rng)
+    scaling(smi, cards)
     print(f"chip_smoke.py --cards {cards}: {time.perf_counter() - STARTED:.1f} s from start to "
           f"result; {smi}", flush=True)
     print(smi)
@@ -2578,6 +2596,157 @@ def quality_tools(smi: str) -> dict:
     return {"launches": tools_launches}
 
 
+# Phase 15, the measurement tools. The inference core's launches a step and
+# the train step's (the recipe, attention dropout 0), exactly; PyTorch's FLOP
+# count of the core step within 2% of the analytic one (the bound
+# tests/test_flops.py holds XLA's count to; the resize head's bilinear
+# resizes, which the counter counts as 0, are 0.9% of it); a share of the
+# peak above 0 and at most 100%; bench_stages' full prefix within 25% of
+# tools.bench's device step (the same core, timed apart; the stage
+# differences add up to the full prefix by construction); tools.bench's
+# device core on cuda against the same core on the cpu at TOL_WAVE.
+INFER_LAUNCHES = {"stft_mag": 1, "attention_fwd": 6, "attention_bwd": 0, "istft_polar": 1}
+TRAIN_LAUNCHES = {"stft_mag": 2, "attention_fwd": 6, "attention_bwd": 6, "istft_polar": 0}
+TOL_FLOP_COUNT = 0.02
+TOL_STAGES_VS_BENCH = 0.25
+BENCH_CPU_ROWS = 4  # rows of the device batch run again on the cpu (rows are independent)
+
+
+def scaling(smi: str, cards: int) -> list:
+    """``tools.bench_scaling`` over NCCL, one rank a card, at 1, 2, 4, ...
+    ranks up to ``cards``: each rank's loss finite, K1 twice a step."""
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.tools import (
+        bench_scaling,
+    )
+
+    runs = bench_scaling.run("cuda", max_ranks=cards)
+    base = None
+    for ranks in runs:
+        ms = max(r["ms"] for r in ranks)
+        base = base or ms
+        print(f"bench_scaling: {len(ranks)} ranks (NCCL, per-rank batch 4, 128 frames): "
+              f"{ms:.2f} ms a step, weak-scaling efficiency {100 * base / ms:.1f}%, launches a "
+              f"step {ranks[0]['launches']}; {smi}", flush=True)
+        if not all(np.isfinite(r["last_loss"]) and r["launches"]["stft_mag"] == 2
+                   for r in ranks):
+            raise AssertionError(f"bench_scaling at {len(ranks)} ranks: {ranks}")
+    return runs
+
+
+def measurement_tools(smi: str, noisy: Path) -> dict:
+    """Phase 15. Returns each kernel's launches a step of tools.bench's
+    device core and of bench_train's step."""
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.ops.stft import STFTConfig
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.tools import (
+        bench, bench_infer, bench_io, bench_stages, bench_train, flops, roofline,
+    )
+
+    phase("measurement tools: bench, flops, bench_infer, bench_stages, roofline, bench_train, "
+          "bench_io, bench_scaling")
+    t_phase = time.perf_counter()
+
+    def captured(main, argv: list) -> str:
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            if main(argv) != 0:
+                raise AssertionError(f"{main.__module__} {argv} failed:\n{out.getvalue()}")
+        return out.getvalue()
+
+    def share(what: str, pct) -> None:
+        if pct is None or not 0 < pct <= 100:
+            raise AssertionError(f"{what}: share of the peak {pct} is not in (0, 100]")
+
+    def launches_are(what: str, got: dict, want: dict) -> None:
+        if got != {k: float(v) for k, v in want.items()}:
+            raise AssertionError(f"{what}: launches a step {got}, expected {want}")
+
+    # a. tools.bench at its defaults: one JSON line
+    t0 = time.perf_counter()
+    lines = captured(bench.main, []).splitlines()
+    if len(lines) != 1:
+        raise AssertionError(f"tools.bench printed {len(lines)} lines")
+    line = json.loads(lines[0])
+    print(f"tools.bench ({time.perf_counter() - t0:.1f} s): {lines[0]}", flush=True)
+    share("tools.bench mfu_pct", line["mfu_pct"])
+    launches_are("tools.bench's device core", line["launches_per_step"], INFER_LAUNCHES)
+    if not line["value"] or not line["device_audio_s_per_s"] or line["name"] is None:
+        raise AssertionError(f"tools.bench: missing rates or card: {line}")
+    # its device core on cuda against the same core on the cpu
+    cfg = STFTConfig()
+    wav_len = int(SECONDS * SR) // cfg.hop_length * cfg.hop_length
+    noisy_batch = bench_stages.synthesize(torch.Generator(device="cuda").manual_seed(5), BATCH,
+                                          wav_len)
+    got = bench_stages.run_prefix("full", bench_stages.build_model(device="cuda"), noisy_batch,
+                                  cfg)[:BENCH_CPU_ROWS].cpu()
+    ref = bench_stages.run_prefix("full", bench_stages.build_model(device="cpu"),
+                                  noisy_batch[:BENCH_CPU_ROWS].cpu(), cfg)
+    core_err = max_err([got], [ref])
+    print(f"tools.bench's device core, rows 0-{BENCH_CPU_ROWS - 1} of a {BATCH} x {SECONDS:g} s "
+          f"batch, cuda vs cpu: max abs err {core_err:.3g} (tolerance {TOL_WAVE}; output peak "
+          f"{float(ref.abs().max()):.3g})", flush=True)
+    if not torch.isfinite(got).all() or core_err > TOL_WAVE:
+        raise AssertionError("tools.bench's core differs between cuda and cpu")
+
+    # b. flops: the 28M forward counted on the card, with the sevit formulas
+    print(captured(flops.main, ["--batch", "4", "--frames", "256"]), end="", flush=True)
+
+    # c. bench_infer at 32 x 3 s: ms, FLOPs, share, launches
+    model = bench_stages.build_model(fp32=True, device="cuda")
+    infer = bench_infer.measure(model, "cuda", BATCH, wav_len, 30, cfg)
+    del model
+    print("bench_infer --batch 32 --seconds 3 --fp32:", flush=True)
+    bench_infer.report(infer, flops.describe_device("cuda"))
+    count_err = abs(infer["torch_flops"] / infer["analytic_flops"] - 1)
+    print(f"bench_infer: torch's count against the analytic one: {count_err:.4%} (tolerance "
+          f"{TOL_FLOP_COUNT:.0%})", flush=True)
+    share("bench_infer", infer["mfu_pct"])
+    launches_are("bench_infer", infer["launches_per_step"], INFER_LAUNCHES)
+    if count_err > TOL_FLOP_COUNT:
+        raise AssertionError("the FLOP count on the card disagrees with the analytic one")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # d. bench_stages at 32 x 3 s, then the roofline on its JSON
+        stages_json = Path(tmp) / "stages.json"
+        print(captured(bench_stages.main, ["--fp32", "--iters", "10", "--json-out",
+                                           str(stages_json)]), end="", flush=True)
+        stages = json.loads(stages_json.read_text())
+        full, stage_sum = stages["full_step_ms"], sum(stages["stage_ms"].values())
+        print(f"bench_stages: full prefix {full:.3f} ms, stage sum {stage_sum:.3f} ms, "
+              f"tools.bench's device step {line['device_step_ms']:.3f} ms "
+              f"(tolerance {TOL_STAGES_VS_BENCH:.0%})", flush=True)
+        if abs(full / line["device_step_ms"] - 1) > TOL_STAGES_VS_BENCH:
+            raise AssertionError("bench_stages' full prefix and tools.bench's device step differ")
+        roof = json.loads(captured(roofline.main, ["--stages-json", str(stages_json)]))
+        for r in roof["stages"]:
+            print(f"roofline {r['stage']}: {r['GF']} GF, {r['MB_moved']} MB, bound "
+                  f"{r['t_roofline_ms']} ms by {r['bound']}, measured {r.get('measured_ms')} ms "
+                  f"({r.get('share_of_bound_pct')}% of it)", flush=True)
+        print(f"roofline: step bound {roof['roofline_step_ms']} ms, ceiling "
+              f"{roof['roofline_mfu_pct']}% at {roof['peak_tflops']} TFLOP/s {roof['math']} and "
+              f"{roof['hbm_TBps']} TB/s ({roof['peaks_from']}); {smi}", flush=True)
+
+    # e. bench_train at the 28M recipe: batch 16, 384 frames, attention dropout 0
+    args = bench_train.parser().parse_args([
+        "--head", "fullres_mask", "--output-mode", "mask", "--attention", "pallas", "--fp32",
+        "--batch", str(TRAIN_BATCH), "--frames", "384", "--iters", "10"])
+    train = bench_train.measure(args)
+    print(f"bench_train (fullres_mask, mask, attention pallas, batch {TRAIN_BATCH}, 384 frames, "
+          f"fp32): {train['step_ms']:.2f} ms a step, {train['audio_s_per_s']:.1f} audio-s/s, "
+          f"analytic {train['analytic']['train_total'] / 1e9:.1f} GF, torch "
+          f"{train['torch_flops'] / 1e9:.1f} GF; MFU "
+          f"{flops.mfu_report(train['analytic']['train_total'], train['step_ms'] * 1e-3)}; "
+          f"launches a step {train['launches_per_step']}; {smi}", flush=True)
+    share("bench_train", train["mfu_pct"])
+    launches_are("bench_train", train["launches_per_step"], TRAIN_LAUNCHES)
+
+    # f. bench_io on phase 8's PCM16 files, g. bench_scaling on the visible cards
+    print(captured(bench_io.main, ["--dir", str(noisy)]), end="", flush=True)
+    scaling(smi, torch.cuda.device_count())
+    print(f"measurement tools phase: {time.perf_counter() - t_phase:.1f} s; {smi}", flush=True)
+    return {"launches": line["launches_per_step"], "train": train["launches_per_step"],
+            "mfu_pct": line["mfu_pct"], "train_mfu_pct": train["mfu_pct"]}
+
+
 def main() -> int:
     import argparse
 
@@ -2876,8 +3045,9 @@ def main() -> int:
         shipped_run = shipped(dev, smi, rng)
         mesh_run = mesh(dev, smi, rng, enhancer, wavs, out)
         dsp_run = dsp(dev, smi, rng, noisy, (native_lib, native_build_s))
-    export_run = exported(dev, smi, enhancer, wavs, wall * 1e3, dsp_run["round_ms"])
-    tools_run = quality_tools(smi)
+        export_run = exported(dev, smi, enhancer, wavs, wall * 1e3, dsp_run["round_ms"])
+        tools_run = quality_tools(smi)
+        bench_run = measurement_tools(smi, noisy)
     errs["attention_bwd"] = train["errs"]
     ms["attention_bwd"] = train["ms"]
     launches["attention_bwd"] = train["launches"]["attention_bwd"]
@@ -2899,6 +3069,8 @@ def main() -> int:
          "griffin_lim_launches": dsp_run["launches"][name],
          "exported_launches": export_run["launches"][name],
          "tools_launches": tools_run["launches"][name],
+         "bench_launches": bench_run["launches"][name],
+         "bench_train_launches": bench_run["train"][name],
          "max_abs_err": max(errs[name]),
          **ms[name]}
         for name, k in kernels.KERNELS.items()

@@ -34,7 +34,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..ops.cuda_attention import NEG_INF, attention
+from ..ops.cuda_attention import NEG_INF, attention, attention_plain
 from ..parallel.collectives import copy_to_group, reduce_from_group
 from .components import LN_EPS, DropPath, FeedForward, dropout_from
 
@@ -57,6 +57,9 @@ class MultiHeadSelfAttention(nn.Module):
         self.attn_dropout = attn_dropout
         self.proj_dropout = proj_dropout
         self.tp = None  # a TPGroup: this rank's heads only
+        # True: attention's plain version on CUDA tensors too, in place of
+        # kernel K2 (a caller's explicit choice: tools.bench_infer --attention xla)
+        self.plain = False
 
     def forward(
         self,
@@ -84,7 +87,7 @@ class MultiHeadSelfAttention(nn.Module):
                              None if tp is None else tp.generator)
             out = torch.matmul(w, v)
         else:
-            out = attention(q, k, v, scale=scale, mask=mask)
+            out = (attention_plain if self.plain else attention)(q, k, v, scale=scale, mask=mask)
         out = out.transpose(1, 2).reshape(b, n, h * d)
         if tp is None:
             out = self.proj(out)

@@ -97,7 +97,17 @@ class HybridViT(nn.Module):
                 f"unknown pos_embed_type {pos_embed_type!r} "
                 "(expected 'learned_1d', 'sinusoidal' or 'factored_2d')"
             )
+        # the architecture's fields, as the JAX module's dataclass holds them
+        # (tools.flops.spec_from_model reads them)
+        self.input_channels, self.output_channels = input_channels, output_channels
+        self.encoder_channels = tuple(encoder_channels)
+        self.encoder_kernel_sizes = tuple(encoder_kernel_sizes)
         self.encoder_pool_sizes = tuple(encoder_pool_sizes)
+        self.num_heads, self.num_layers, self.mlp_ratio = num_heads, num_layers, mlp_ratio
+        self.decoder_channels = tuple(decoder_channels)
+        self.decoder_kernel_sizes = tuple(decoder_kernel_sizes)
+        self.decoder_upsample_factors = tuple(decoder_upsample_factors)
+        self.use_skip_connections = use_skip_connections
         self.patch_size = patch_size
         self.embed_dim = embed_dim
         self.pos_embed_type = pos_embed_type

@@ -1,7 +1,30 @@
-"""The quality tools, on the card or the CPU: the port's counterparts of the
-repository's ``benchmarks/`` scripts that the README's quality claims were
-made with. Each module takes the name of its ``benchmarks/`` script and runs
-as ``python -m speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.tools.<name>``:
+"""The measurement and quality tools, on the card or the CPU: the port's
+counterparts of the repository's ``bench.py`` and ``benchmarks/`` scripts.
+Each module takes the name of its JAX script and runs as
+``python -m speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.tools.<name>``.
+
+The measurement tools:
+
+- ``bench``: ``bench.py``, enhancement throughput at batch 32 x 3 s, end to
+  end and on the device alone, and ``mfu_pct``, as one JSON line (K1, K2
+  and K3).
+- ``flops``: ``benchmarks/flops.py``, the analytic FLOP count, the card's
+  data-sheet peaks, ``mfu_report``, and PyTorch's own count
+  (``torch_program_flops``, with formulas for the ``sevit`` ops).
+- ``roofline``: ``benchmarks/roofline.py``, each stage's bound at the card's
+  peaks beside ``bench_stages``' times.
+- ``bench_stages``: ``benchmarks/bench_stages.py``, the core's nested
+  prefixes timed on the device (K1 in the front, K2, K3 in ``full``).
+- ``bench_infer``: ``benchmarks/bench_infer.py``, the core's device
+  throughput, FLOPs and launches a step (K1, K2, K3).
+- ``bench_train``: ``benchmarks/bench_train.py``, the train step's ms,
+  audio-s/s and share of the peak (K1 twice, K2 and its backward).
+- ``bench_scaling``: ``benchmarks/bench_scaling.py``, weak scaling of the
+  train step over data ranks (NCCL, one rank a card; gloo on the CPU).
+- ``bench_io``: ``benchmarks/bench_io.py``, the native WAV decoder against
+  the numpy codec (host).
+
+The quality tools:
 
 - ``oracle_heads``: ``benchmarks/oracle_heads.py``, the constructed SI-SDR
   reference points of the output-head geometries (K1 and K3 on the card).
@@ -19,5 +42,8 @@ imports nothing of either package, so it runs as it is on the port's
 evaluate CLI ``--output`` JSON and ``cli.synth_dataset``'s ``manifest.json``.
 
 The tools that take a device default to ``--device cuda`` and exit without
-a card; ``--device cpu`` runs the kernels' plain versions.
+a card; ``--device cpu`` runs the kernels' plain versions, and the
+measurement tools then write no device metric (every time, rate and share
+null or "not measured"). Every number a measurement tool prints on the card
+stands beside the card's name and power limit.
 """

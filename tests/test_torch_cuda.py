@@ -17,6 +17,8 @@ another order, and the weights recomputed from the forward's log-sum-exp
 rather than a two-pass softmax.
 """
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -682,3 +684,48 @@ def test_export_program_on_cuda_holds_the_kernel_ops(io_dtype, dev, tmp_path):
     assert {n: k.launches for n, k in kernels.KERNELS.items()} == calls
     assert got.dtype == want.dtype and got.shape == want.shape
     assert float((got.float() - want.float()).abs().max()) <= (1.0 if io_dtype == "int16" else 1e-6)
+
+
+def test_flop_count_and_plain_attention_on_cuda(dev, gen):
+    """PyTorch's count of a forward on the card equals the CPU's (the same
+    shapes through the ``sevit`` ops' formulas) and the analytic count less
+    the bilinear resizes; the tools' ``--attention xla`` takes attention's
+    plain version on CUDA tensors: no K2 launch, output within 2e-5 of K2's."""
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.tools import (
+        bench_infer, flops,
+    )
+
+    model = init_weights(HybridViT(**SMALL), gen).eval()
+    x = torch.rand(2, 257, 64, 1, generator=gen)
+    with torch.no_grad():
+        cpu = flops.torch_program_flops(model, x)
+        model = model.to(dev)
+        on_card = flops.torch_program_flops(model, x.to(dev))
+        spec = flops.spec_from_model(model)
+        assert on_card == cpu == pytest.approx(
+            flops.forward_flops(spec, 2, 257, 64)["total"] - flops.bilinear_flops(spec, 2, 257, 64),
+            rel=1e-9)
+        k2 = model(x.to(dev))
+        kernels.reset_launch_counts()
+        plain = bench_infer.use_attention(model, "xla")(x.to(dev))
+        torch.cuda.synchronize()
+    assert kernels.KERNELS["attention_fwd"].launches == 0
+    assert float((plain - k2).abs().max()) <= 2e-5
+
+
+def test_bench_prints_one_json_line_on_cuda(dev, capsys):
+    """The port's ``bench.py`` at a small batch: one JSON line naming the
+    card, every rate measured, ``mfu_pct`` in (0, 100], K1 1, K2 6 and K3 1
+    launches a device step."""
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.tools import bench
+
+    assert bench.main(["--batch", "2", "--seconds", "0.5", "--iters", "2",
+                       "--device-iters", "2"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert len(lines) == 1
+    line = json.loads(lines[0])
+    assert line["device"] == "cuda" and line["name"] == torch.cuda.get_device_name()
+    assert line["value"] > 0 and line["device_audio_s_per_s"] > 0
+    assert line["mfu_pct"] is None or 0 < line["mfu_pct"] <= 100
+    assert line["launches_per_step"] == {"stft_mag": 1.0, "attention_fwd": 6.0,
+                                         "attention_bwd": 0.0, "istft_polar": 1.0}
