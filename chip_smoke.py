@@ -9,13 +9,15 @@ which raises on failure:
 
 1. device: a CUDA card is required; prints its name and power limit and
    turns TF32 off (float32 end to end).
-2. build: compiles the four kernels (K1, K2 forward and backward, K3)
-   from the port's ``csrc/``, one nvcc per source, all started together,
-   and the native WAV runtime (``native/``) with the host compiler;
-   prints K2's registers, shared memory and blocks per SM and its
-   backward's registers and spills per pass, and checks that K2's forward
-   and both passes of its backward hold TF32 tensor-core instructions
-   (``HMMA ... TF32`` in ``cuobjdump -sass``).
+2. build: compiles the six kernels (K1, K2 forward and backward, K3, and
+   K1g and K3g for the STFT geometries K1 and K3 do not take) from the
+   port's ``csrc/``, one nvcc per source, all started together, and the
+   native WAV runtime (``native/``) with the host compiler; prints K2's
+   registers, shared memory and blocks per SM and its backward's registers
+   and spills per pass at every head-dim instance (16, 32, 64, 128), and
+   checks that K2's forward, both passes of its backward, K1g and K3g's
+   product hold TF32 tensor-core instructions (``HMMA ... TF32`` in
+   ``cuobjdump -sass``).
 3. kernels: each kernel against its plain PyTorch version at the serving
    path's shapes (batch 32 x 3 s; attention under the serving batch's own
    mask and under a mix of clip lengths) and at ragged shapes (attention: a
@@ -203,6 +205,27 @@ which raises on failure:
     audio-s/s, the share of the peak in (0, 100], K1 2, K2 6 and K2's
     backward 6 launches a step. f. ``bench_io`` on phase 8's PCM16 files.
     g. ``bench_scaling`` over NCCL at the ranks the visible cards allow.
+16. geometry (its wall time printed): every STFT geometry and head dim the
+    JAX package runs. 1. At 400/100/400, 320/160/320, 400/160/400,
+    512/100/400, 512/100/512, 4096/1024/4096 and 512/128/512 with zero
+    padding (``cuda_stft.GEOMETRIES``), the kernel ``cuda_stft.route`` picks
+    (K1 or K1g, K3 or K3g) launches once, and nothing else, against its
+    plain version within K1's and K3's limits, on the serving batch's 32
+    rows of 51100 samples and on the shortest row reflect padding allows. 2. K2 at head dims 24, 48, 80, 96 and 112 (the
+    next instance, zero-padded), [32, 8, 384, D] under the train mask:
+    forward within ``TOL_ATTN``, backward within ``TOL_BWD``; D = 136 raises.
+    3. The 28M serving recipe at 400/100/400, 32 x 3 s PCM16 through
+    ``AudioEnhancer``: a 1 s clip cuda vs cpu within ``TOL_WAVE``, launches
+    K1g 1, K2 6, K3g 1; wall and busy ms a batch. 4. The DCCRN geometry
+    512/100/400 through the same enhancer: K1 1, K2 6, K3g 1. 5. The
+    recipe's train step at 400/100/400: depth 1 cuda vs cpu at phase 9's
+    limits; at full width, batch 16, K1g 2, K2 6 and its backward 6. 6. A
+    model with D = 48 (embed 384, 8 heads, depth 2): cuda vs cpu within
+    ``TOL_WAVE``. 7. K1g and K3g at the serving batch's geometry beside their
+    plain versions, ``torch.stft`` + ``abs`` and ``torch.istft`` of
+    ``torch.polar``, each timed output against the plain version's, and
+    their bounds: the function's, as K1's and K3's (an FFT's operations at
+    the fp32 peak, or the bytes), not the dense product the kernels do.
 
 ``python3 chip_smoke.py --cards N`` (a machine with N >= 2 cards) builds the
 kernels and runs phase 11 alone over NCCL, one rank a card: N data ranks,
@@ -226,7 +249,10 @@ batch, ``griffin_lim_launches`` in one phase 12 Griffin-Lim call,
 ``exported_launches`` in one call of the phase 13 program loaded in a fresh
 process, ``tools_launches`` a file in phase 14c's ``tune_blend`` run,
 ``bench_launches`` a step of phase 15a's device core, ``bench_train_launches``
-a step of phase 15e's ``bench_train``), and the result JSON.
+a step of phase 15e's ``bench_train``, ``geometry_serve_launches`` in one
+phase 16 batch at 400/100/400, ``dccrn_serve_launches`` in one at
+512/100/400, ``geometry_train_launches`` in one phase 16 train step at
+400/100/400), and the result JSON.
 """
 
 from __future__ import annotations
@@ -299,6 +325,9 @@ TOL_STEP_GRAD_BLOCK = 3e-2
 TOL_STEP_PARAM_ULPS = 8
 SERVING = ("stft_mag", "attention_fwd", "istft_polar")  # the kernels each path runs
 TRAINING = ("stft_mag", "attention_fwd", "attention_bwd")
+# K1g and K3g run the STFT geometries that K1 and K3 do not take (phase 16):
+# at the repo's 512/128 they launch nothing
+NO_DFT = {"stft_dft": 0, "istft_dft": 0}
 TRAIN_BATCH, TRAIN_LR, TRAIN_STEPS = 16, 1e-4, 5
 # the evaluator tests' tolerances on a metric of two enhanced waveforms
 # within the port's limits (tests/test_torch_evaluator.py)
@@ -342,23 +371,32 @@ def median_ms(fn, inputs, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-def device_times(run, attempts: int = 3) -> dict[str, float]:
+def device_times(run, attempts: int = 3, need=()) -> dict[str, float]:
     """Device time (ms) of every CUDA kernel and copy ``run()`` enqueues,
     summed by name, as ``torch.profiler`` records it. Now and then the
-    profiler hands back an empty trace; then ``run()`` is profiled again,
-    up to ``attempts`` times in all."""
+    profiler hands back an empty trace, or, late in a long process, one
+    without the records of the first work ``run()`` enqueues (a serving
+    batch's host-to-device copy and K1g); then ``run()`` is profiled again,
+    up to ``attempts`` times in all, until each of ``need`` (``kernel_ms``
+    names that ``run()`` launches) has a record. The last trace is returned
+    whatever it lacks."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(attempts):
+    for attempt in range(attempts):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             run()
             torch.cuda.synchronize()
         times = {e.key: e.self_device_time_total / 1e3 for e in prof.key_averages()
                  if e.device_type == DeviceType.CUDA}
-        if sum(times.values()) > 0:
+        missing = [name for name in need if not kernel_ms(times, name)]
+        if sum(times.values()) > 0 and (not missing or attempt == attempts - 1):
             return times
+        if missing:
+            print(f"profile {attempt + 1} holds no record of {missing} among its "
+                  f"{len(times)} CUDA functions {sorted(k[:60] for k in times)}; profiling "
+                  f"again", flush=True)
     raise RuntimeError(f"the profiler recorded no device time in {attempts} runs")
 
 
@@ -389,6 +427,22 @@ def rfft_flops(n: int) -> float:
     return 2.5 * n * np.log2(n)
 
 
+def stft_work(cfg, batch: int, wav_len: int) -> dict[str, tuple[float, float]]:
+    """Operations and bytes that an STFT with its magnitude (``stft``) and
+    an iSTFT from magnitude and phase (``istft``) of ``batch`` rows of
+    ``wav_len`` samples must do and move, whichever kernel computes them: a
+    real FFT of each windowed frame, the magnitude or the polar recombine
+    and the overlap-add; every input read once, every output written once,
+    fp32. Bound them at the fp32 peak."""
+    n_frames, bins = cfg.num_frames(wav_len), cfg.num_bins
+    frames = batch * n_frames
+    return {"stft": (frames * (rfft_flops(cfg.n_fft) + cfg.n_fft + 4 * bins),
+                     4 * (batch * wav_len + 3 * batch * bins * n_frames)),
+            "istft": (frames * (rfft_flops(cfg.n_fft) + 2 * bins + 2 * cfg.n_fft)
+                      + batch * wav_len,
+                      4 * (2 * batch * bins * n_frames + batch * wav_len))}
+
+
 def tf32_hmma(cuobjdump: str, lib: Path) -> dict[str, list[str]]:
     """The TF32 tensor-core instructions (``HMMA ... TF32``) in a library's
     SASS, by the (mangled) name of the function that holds them."""
@@ -409,8 +463,10 @@ def max_err(a, b) -> float:
 
 def kernel_ms(times: dict[str, float], name: str) -> float:
     """Device time of the kernel record ``name``'s CUDA functions
-    (``<name>*_kernel``) in a ``device_times`` result."""
-    return sum(t for key, t in times.items() if re.search(rf"\b{name}\w*_kernel\b", key))
+    (``<name>*_kernel``) in a ``device_times`` result, under their demangled
+    or their mangled names (``...15stft_dft_kernelEPKf...``)."""
+    return sum(t for key, t in times.items()
+               if re.search(rf"(?<![A-Za-z_]){name}\w*?_kernel(?![a-z])", key))
 
 
 def op_split(run, attempts: int = 3) -> dict[str, float]:
@@ -446,20 +502,30 @@ def op_split(run, attempts: int = 3) -> dict[str, float]:
     raise RuntimeError(f"the profiler recorded no device time in {attempts} runs")
 
 
-def loader_batch(n: int, lo: float, hi: float, rng: np.random.Generator) -> dict:
-    """A loader batch (the port's collate, PCM16) of n speech-like pairs,
+def audio_config(config: dict | None):
+    """The STFT geometry of a config's ``audio`` section (512/128 by
+    default), as the enhancer reads it."""
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.ops.stft import STFTConfig
+
+    audio = (config or {}).get("audio", {})
+    return STFTConfig(n_fft=audio.get("n_fft", 512), hop_length=audio.get("hop_length", 128),
+                      win_length=audio.get("win_length", 512))
+
+
+def loader_batch(n: int, lo: float, hi: float, rng: np.random.Generator, cfg=None) -> dict:
+    """A loader batch (the port's collate, PCM16, bucketed at the STFT
+    config ``cfg``'s hop, 512/128 by default) of n speech-like pairs,
     lengths spread evenly from lo to hi samples."""
     from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.data.dataset import (
         collate_waveforms,
     )
-    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.ops.stft import STFTConfig
 
     items = []
     for length in np.linspace(lo, hi, n).astype(int):
         clean = speechlike(int(length), rng)
         noisy = (clean + 0.1 * rng.standard_normal(length)).astype(np.float32)
         items.append({"noisy_audio": noisy, "clean_audio": clean, "length": np.int32(length)})
-    return collate_waveforms(items, STFTConfig(), transfer_dtype="int16")
+    return collate_waveforms(items, cfg or audio_config(None), transfer_dtype="int16")
 
 
 def step_cuda_vs_cpu(rng: np.random.Generator, seed: int = 1, config: dict | None = None,
@@ -467,8 +533,8 @@ def step_cuda_vs_cpu(rng: np.random.Generator, seed: int = 1, config: dict | Non
     """One train step of the 28M recipe at depth 1 (dropouts 0, SpecAugment
     off, weights from seed ``seed``) on cuda and on cpu, on one batch of 4
     PCM16 clips in the 128-frame bucket; or of ``config`` (its model at
-    depth 1 with dropouts 0, its loss ``loss_cfg``, output mode and
-    ``training.mask_padding``) in ``compute_dtype``. In bf16 the cpu step
+    depth 1 with dropouts 0, its loss ``loss_cfg``, output mode,
+    ``training.mask_padding`` and STFT geometry) in ``compute_dtype``. In bf16 the cpu step
     takes the cuda step's model input (its noisy spectrogram): bf16 rounding
     turns the two devices' float32 featurizations, which differ in the last
     places, into one-ulp (2^-8) flips of a few elements, and those move the
@@ -486,7 +552,6 @@ def step_cuda_vs_cpu(rng: np.random.Generator, seed: int = 1, config: dict | Non
     from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.models import (
         create_hybrid_vit, init_weights,
     )
-    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.ops.stft import STFTConfig
     from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.training.losses import (
         LossConfig,
     )
@@ -507,7 +572,7 @@ def step_cuda_vs_cpu(rng: np.random.Generator, seed: int = 1, config: dict | Non
             self.grads = [x.detach().cpu().clone() for x in grads]
             return super().step(grads)
 
-    cfg = STFTConfig()
+    cfg = audio_config(config)
     if config is None:
         config = {"model": {**RECIPE["model"], "encoder": {"dropout": 0.0},
                             "transformer": {**RECIPE["model"]["transformer"], "num_layers": 1,
@@ -525,7 +590,7 @@ def step_cuda_vs_cpu(rng: np.random.Generator, seed: int = 1, config: dict | Non
                          torch.Generator().manual_seed(seed))
     names = [name for name, p in model.named_parameters() if p.requires_grad]
     initial = [model.state_dict()[name].clone() for name in names]
-    batch = loader_batch(4, 0.6 * SR, 127 * cfg.hop_length, rng)  # the 128-frame bucket
+    batch = loader_batch(4, 0.6 * SR, 127 * cfg.hop_length, rng, cfg)  # the 128-frame bucket
     adamw = dict(name="adamw", lr=TRAIN_LR, weight_decay=0.01, max_norm=1.0)
     res = {}
     featurize, model_input = trainer_module.featurize_batch, {}
@@ -912,7 +977,7 @@ def training(dev: torch.device, smi: str, rng: np.random.Generator, g: torch.Gen
           f"launches {train_launches}; eval step {val}, launches {eval_launches}", flush=True)
     if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
         raise AssertionError(f"the full-width loss is not finite and falling: {losses}")
-    want = {"stft_mag": 2, "attention_fwd": 6, "attention_bwd": 6, "istft_polar": 0}
+    want = {"stft_mag": 2, "attention_fwd": 6, "attention_bwd": 6, "istft_polar": 0, **NO_DFT}
     if train_launches != {k: TRAIN_STEPS * c for k, c in want.items()}:
         raise AssertionError(f"train steps' launches {train_launches}, not {want} a step")
     if eval_launches != dict(want, attention_bwd=0) or not np.isfinite(val["total"]):
@@ -1330,9 +1395,10 @@ def depth1(config: dict) -> dict:
                                                 "dropout": 0.0}}}
 
 
-def recipe_step_fns(model, opt, mesh=None, augment: bool = False, generator=None):
+def recipe_step_fns(model, opt, mesh=None, augment: bool = False, generator=None, cfg=None):
     """Phase 9's step functions of the training recipe (mask output, fullres
-    head, log-L1 0.05, the patch mask), on ``mesh`` when given."""
+    head, log-L1 0.05, the patch mask), on ``mesh`` when given, at the STFT
+    config ``cfg`` (512/128 by default)."""
     from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.data.augmentation import (
         SpecAugmentConfig,
     )
@@ -1344,7 +1410,7 @@ def recipe_step_fns(model, opt, mesh=None, augment: bool = False, generator=None
         make_step_fns,
     )
 
-    return make_step_fns(model, opt, LossConfig(log_l1_weight=0.05), STFTConfig(),
+    return make_step_fns(model, opt, LossConfig(log_l1_weight=0.05), cfg or STFTConfig(),
                          SpecAugmentConfig(), augment=augment, use_attention_mask=True,
                          output_mode="mask", generator=generator, mesh=mesh)
 
@@ -1707,7 +1773,7 @@ def mesh(dev: torch.device, smi: str, rng: np.random.Generator, enhancer, wavs: 
     rank_steps = [{k: v // TRAIN_MESH_STEPS for k, v in t["launches"].items()} for t in train]
     print(f"{ranks_b} ranks, full width: losses {[[f'{x:.6f}' for x in t['losses']] for t in train]}; "
           f"launches per rank per step {rank_steps}", flush=True)
-    want = {"stft_mag": 2, "attention_fwd": 6, "attention_bwd": 6, "istft_polar": 0}
+    want = {"stft_mag": 2, "attention_fwd": 6, "attention_bwd": 6, "istft_polar": 0, **NO_DFT}
     if (any(t["losses"] != train[0]["losses"] for t in train)
             or not np.isfinite(train[0]["losses"]).all()
             or any(t["launches"] != {k: TRAIN_MESH_STEPS * c for k, c in want.items()}
@@ -1772,7 +1838,8 @@ def mesh(dev: torch.device, smi: str, rng: np.random.Generator, enhancer, wavs: 
           f"{[t['launches'] for t in tp]}; spawn, build and run {tp_s:.1f} s", flush=True)
     check_mesh_step(f"TP = 2 x DP = {data_c} step vs one device",
                     (tp[0]["metrics"], tp[0]["grads"], tp[0]["stats"]), ref, names)
-    want_tp = {"stft_mag": 2, "attention_fwd": 12, "attention_bwd": 12, "istft_polar": 0}
+    want_tp = {"stft_mag": 2, "attention_fwd": 12, "attention_bwd": 12, "istft_polar": 0,
+               **NO_DFT}
     if fwd_err > tol_forward or any(t["heads"] != [SCALED["num_heads"] // 2] for t in tp) or any(
             t["launches"] != want_tp for t in tp):
         raise AssertionError("tensor parallelism: output, heads or launches wrong")
@@ -1824,7 +1891,7 @@ def mesh(dev: torch.device, smi: str, rng: np.random.Generator, enhancer, wavs: 
           f"{cli.returncode}, {cli.stderr.strip().splitlines()[-1:]}", flush=True)
     if (wave_err > TOL_WAVE or len(got) != len(out)
             or serve_launches != {"stft_mag": 1, "attention_fwd": 6, "attention_bwd": 0,
-                                  "istft_polar": 1}):
+                                  "istft_polar": 1, **NO_DFT}):
         raise AssertionError("the mesh enhancer differs from one device or skipped a kernel")
     if cli.returncode == 0 or refused not in cli.stderr:
         raise AssertionError(f"enhance --data-parallel {visible + 1} was not refused: {cli.stderr}")
@@ -2276,7 +2343,8 @@ def exported(dev: torch.device, smi: str, enhancer, wavs: list, slice_ms: float,
 
     phase("export: the serving core and the bf16 entry on cuda, the ops' host cost, the demo")
     t_phase = time.perf_counter()
-    serving = {"stft_mag": 1, "attention_fwd": 6, "attention_bwd": 0, "istft_polar": 1}
+    serving = {"stft_mag": 1, "attention_fwd": 6, "attention_bwd": 0, "istft_polar": 1,
+               **NO_DFT}
     # phase 5's batch as enhance_batch_async pads it: PCM16 [32, 49024] and lengths
     wav_len = enhancer._padded_len(max(len(w) for w in wavs))
     batch = np.zeros((len(wavs), wav_len), np.int16)
@@ -2360,7 +2428,7 @@ def exported(dev: torch.device, smi: str, enhancer, wavs: list, slice_ms: float,
 
     # d. the dispatcher's host cost a call, beside the two walls it could move
     cost = dispatcher_cost(dev)
-    per_batch = sum(cost[n]["dispatcher_us"] * c for n, c in serving.items()) / 1e3
+    per_batch = sum(cost[n]["dispatcher_us"] * c for n, c in serving.items() if c) / 1e3
     per_round = (cost["stft_mag"]["dispatcher_us"] + cost["istft_polar"]["dispatcher_us"]) / 1e3
     print(f"host us a call on a tiny input, op (dispatcher) / CUDA impl called directly / "
           f"bare kernels.launch: "
@@ -2605,8 +2673,10 @@ def quality_tools(smi: str) -> dict:
 # tools.bench's device step (the same core, timed apart; the stage
 # differences add up to the full prefix by construction); tools.bench's
 # device core on cuda against the same core on the cpu at TOL_WAVE.
-INFER_LAUNCHES = {"stft_mag": 1, "attention_fwd": 6, "attention_bwd": 0, "istft_polar": 1}
-TRAIN_LAUNCHES = {"stft_mag": 2, "attention_fwd": 6, "attention_bwd": 6, "istft_polar": 0}
+INFER_LAUNCHES = {"stft_mag": 1, "attention_fwd": 6, "attention_bwd": 0, "istft_polar": 1,
+                  **NO_DFT}
+TRAIN_LAUNCHES = {"stft_mag": 2, "attention_fwd": 6, "attention_bwd": 6, "istft_polar": 0,
+                  **NO_DFT}
 TOL_FLOP_COUNT = 0.02
 TOL_STAGES_VS_BENCH = 0.25
 BENCH_CPU_ROWS = 4  # rows of the device batch run again on the cpu (rows are independent)
@@ -2747,6 +2817,309 @@ def measurement_tools(smi: str, noisy: Path) -> dict:
             "mfu_pct": line["mfu_pct"], "train_mfu_pct": train["mfu_pct"]}
 
 
+# phase 16: head dims that are no K2 instance (its STFT geometries are
+# cuda_stft.GEOMETRIES)
+PADDED_HEAD_DIMS = (24, 48, 80, 96, 112)
+AUDIO_400 = {"n_fft": 400, "hop_length": 100, "win_length": 400}  # CMGAN's 16 kHz front end
+AUDIO_DCCRN = {"n_fft": 512, "hop_length": 100, "win_length": 400}
+# the CUDA functions of K1g and K3g, as kernel_ms names them
+DFT_FUNCS = {"stft_dft": ("stft_dft",), "istft_dft": ("istft_dft_frames", "istft_dft_ola")}
+
+
+def dft_ms(times: dict[str, float], name: str, calls: int) -> float | None:
+    """Device ms a call of K1g's or K3g's CUDA functions (``DFT_FUNCS``) in
+    a ``device_times`` result of ``calls`` calls; None ("not measured")
+    where the trace lacks a record of one."""
+    parts = [kernel_ms(times, fn) for fn in DFT_FUNCS[name]]
+    return sum(parts) / calls if all(parts) else None
+
+
+def ms_or_not(x) -> str:
+    return "not measured" if x is None else f"{x:.4f}"
+
+
+def geometry(dev: torch.device, smi: str, rng: np.random.Generator, g: torch.Generator) -> dict:
+    """Phase 16. Returns K1g's and K3g's errors and times (``errs``,
+    ``ms``), K2's errors at the padded head dims (``attention``), and the
+    launches of a 400/100 serving batch (``serve``), a DCCRN batch
+    (``dccrn``) and a 400/100 train step (``train``)."""
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.inference import (
+        AudioEnhancer,
+    )
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.models import (
+        create_hybrid_vit, init_weights,
+    )
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.models.components import (
+        patch_validity_mask,
+    )
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.ops import (
+        cuda_attention, cuda_stft, kernels,
+    )
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.ops.stft import (
+        STFTConfig, frame_signal, implied_length, window_dft,
+    )
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.ops.cuda_stft import (
+        GEOMETRIES,
+    )
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.training.losses import (
+        LossConfig,
+    )
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.training.optimizer import (
+        Optimizer, parameters,
+    )
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.training.trainer import (
+        batch_to_device,
+    )
+
+    phase("geometry: K1g and K3g for the STFT geometries K1 and K3 do not take, K2 at any head "
+          "dim up to 128")
+    t_phase = time.perf_counter()
+
+    def ran(what: str, want: dict) -> dict:
+        """The launches since the last reset; raise unless exactly ``want``."""
+        got = launch_counts()
+        if {n: c for n, c in got.items() if c} != want:
+            raise AssertionError(f"{what}: launches {got}, expected {want}")
+        return got
+
+    def seeded(config: dict):
+        return init_weights(create_hybrid_vit(config), torch.Generator().manual_seed(0))
+
+    # 1. each geometry's kernels against their plain versions, on the serving
+    # batch's 32 rows of 51100 samples (bucket 512 at hop 100) and on the
+    # shortest row reflect padding allows
+    errs = {name: [] for name in ("stft_mag", "stft_dft", "istft_polar", "istft_dft")}
+    for n_fft, hop, win, pad_mode in GEOMETRIES:
+        cfg = STFTConfig(n_fft=n_fft, hop_length=hop, win_length=win, pad_mode=pad_mode)
+        fwd, inv = (cuda_stft.route(cfg, inverse=i)[0] for i in (False, True))
+        got_errs = []
+        for shape in ((BATCH, 51100), (2, n_fft // 2 + 1)):
+            x = torch.randn(shape, generator=g).to(dev)
+            kernels.reset_launch_counts()
+            out = cuda_stft.stft_mag(x, cfg)
+            ran(f"stft_mag at {n_fft}/{hop}/{win} {pad_mode}", {fwd: 1})
+            plain = cuda_stft.stft_mag_plain(x, cfg)
+            got_errs.append(max_err(out, plain))
+            if n_fft == 4096 and shape[0] == BATCH:  # the longest sums, against float64
+                spec = frame_signal(x[:1].double().cpu(), cfg) @ torch.from_numpy(
+                    window_dft(cfg).astype(np.float64))
+                re64 = spec[0, :, :cfg.num_bins].T
+                print(f"4096/1024 re of row 0 against a float64 product: {fwd} "
+                      f"{float((out[0][0].cpu().double() - re64).abs().max()):.3g}, the plain "
+                      f"version {float((plain[0][0].cpu().double() - re64).abs().max()):.3g}",
+                      flush=True)
+        errs[fwd] += got_errs
+        n = cfg.num_frames(51100)
+        mag = torch.rand(BATCH, cfg.num_bins, n, generator=g).to(dev)
+        ph = (torch.rand(BATCH, cfg.num_bins, n, generator=g) * 2 * np.pi - np.pi).to(dev)
+        length = implied_length(cfg, n)
+        kernels.reset_launch_counts()
+        y = cuda_stft.istft_polar(mag, ph, cfg, length=length)
+        ran(f"istft_polar at {n_fft}/{hop}/{win} {pad_mode}", {inv: 1})
+        errs[inv].append(max_err([y], [cuda_stft.istft_polar_plain(mag, ph, cfg, length=length)]))
+        print(f"{n_fft}/{hop}/{win} {pad_mode}: {fwd} max abs err {got_errs} (tolerance "
+              f"{TOL_STFT}); {inv} {errs[inv][-1]:.3g} (tolerance {TOL_ISTFT})", flush=True)
+    for name, e in errs.items():
+        if e and max(e) > (TOL_ISTFT if name.startswith("istft") else TOL_STFT):
+            raise AssertionError(f"{name} disagrees with its plain version: {e}")
+
+    # 2. K2 at head dims between its instances, under the train batch's mask
+    heads, n_tok = 8, 16 * 24
+    lengths = np.linspace(1.5 * SR, 383 * 128, BATCH).astype(np.int64)
+    train_mask = patch_validity_mask(torch.from_numpy(lengths), 257, 384, 128).to(dev)
+    attn = {"attention_fwd": [], "attention_bwd": []}  # max abs errors
+    bwd_rel = []  # the backward's, relative to each gradient's largest
+    for d in PADDED_HEAD_DIMS:
+        q, k, v, dout = (torch.randn(BATCH, heads, n_tok, d, generator=g).to(dev)
+                         for _ in range(4))
+        kernels.reset_launch_counts()
+        out = cuda_attention.attention(q, k, v, scale=d**-0.5, mask=train_mask)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        grads = torch.autograd.grad(
+            cuda_attention.attention(*leaves, scale=d**-0.5, mask=train_mask), leaves, dout)
+        ran(f"attention at D = {d}", {"attention_fwd": 2, "attention_bwd": 1})
+        ref = cuda_attention.attention_bwd_plain(q, k, v, dout, scale=d**-0.5, mask=train_mask)
+        attn["attention_fwd"].append(max_err(
+            [out], [cuda_attention.attention_plain(q, k, v, scale=d**-0.5, mask=train_mask)]))
+        attn["attention_bwd"].append(max_err(grads, ref))
+        bwd_rel.append(max(float((a - r).abs().max() / r.abs().max())
+                           for a, r in zip(grads, ref)))
+        print(f"attention at D = {d} (the {cuda_attention.kernel_head_dim(d)} instance, "
+              f"zero-padded), q/k/v [{BATCH}, {heads}, {n_tok}, {d}] under the train mask: "
+              f"forward max abs err {attn['attention_fwd'][-1]:.3g} (tolerance {TOL_ATTN}), "
+              f"backward {bwd_rel[-1]:.3g} of the largest |grad| (tolerance {TOL_BWD}), "
+              f"{attn['attention_bwd'][-1]:.3g} abs", flush=True)
+    if max(attn["attention_fwd"]) > TOL_ATTN or max(bwd_rel) > TOL_BWD:
+        raise AssertionError(f"K2 at a padded head dim disagrees with its plain version: {attn}")
+    try:
+        cuda_attention.attention(*(torch.zeros(1, 1, 4, 136, device=dev) for _ in range(3)),
+                                 scale=0.1)
+        raise AssertionError("attention at D = 136 did not raise")
+    except ValueError as e:
+        print(f"attention at D = 136 raises before a launch: {e}", flush=True)
+
+    # 3. the 28M serving recipe at 400/100/400, 32 x 3 s PCM16 (bucket 512)
+    serve_cfg = {"audio": AUDIO_400, "model": {"output_mode": "mask", "head": "fullres_mask",
+                                               "transformer": {"pos_embed": "factored_2d"}}}
+    short = speechlike(SR, rng)
+    enhancers = {}
+    for name, config in (("400/100/400", serve_cfg), ("512/100/400", {**serve_cfg,
+                                                                      "audio": AUDIO_DCCRN})):
+        ref_short = AudioEnhancer(seeded(config), config, device="cpu", io_dtype="int16",
+                                  mask_padding=True).enhance(short)
+        enh = AudioEnhancer(seeded(config), config, device=dev, io_dtype="int16",
+                            mask_padding=True)
+        enhancers[name] = enh
+        err = float(np.abs(enh.enhance(short) - ref_short).max())
+        print(f"28M serving recipe at {name}: a 1 s clip cuda vs cpu max abs err {err:.3g} "
+              f"(tolerance {TOL_WAVE})", flush=True)
+        if err > TOL_WAVE:
+            raise AssertionError(f"the 28M enhancer at {name} differs between cuda and cpu")
+    wavs = [speechlike(int(SECONDS * SR), rng) for _ in range(BATCH)]
+    launched, outs = {}, {}
+    # 4. the DCCRN geometry through the same enhancer: K1 (FFT) and K3g
+    for name, want in (("400/100/400", {"stft_dft": 1, "attention_fwd": 6, "istft_dft": 1}),
+                       ("512/100/400", {"stft_mag": 1, "attention_fwd": 6, "istft_dft": 1})):
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        outs[name] = out = enhancers[name].enhance_batch(wavs)
+        launched[name] = ran(f"the 28M serving batch at {name}", want)
+        if any(o.shape != w.shape or not np.isfinite(o).all() for o, w in zip(out, wavs)):
+            raise AssertionError(f"the 28M serving batch at {name}: output malformed")
+    enhancer = enhancers["400/100/400"]
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        enhancer.enhance_batch(wavs)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    wall = statistics.median(walls)
+    profiled = []
+    times = device_times(lambda: profiled.append(enhancer.enhance_batch(wavs)),
+                         need=("stft_dft", "istft_dft_frames", "istft_dft_ola"))
+    path_ms = {name: dft_ms(times, name, 1) for name in DFT_FUNCS}
+    # the profiled batches ran the kernels whatever the trace holds: each
+    # equals the counted batch's output
+    prof_err = max(float(np.abs(a - b).max()) for p in profiled
+                   for a, b in zip(p, outs["400/100/400"]))
+    if prof_err > TOL_WAVE:
+        raise AssertionError(f"a profiled 400/100 batch differs from the counted one: {prof_err}")
+    print(f"28M serving recipe at 400/100/400: enhance_batch of {BATCH} x {SECONDS:g} s PCM16 "
+          f"in {wall * 1e3:.1f} ms (median of 5) = {BATCH * SECONDS / wall:.1f} audio-s/s; busy "
+          f"{sum(times.values()):.2f} ms on the device (profiler, one batch), K1g "
+          f"{ms_or_not(path_ms['stft_dft'])} ms, K3g {ms_or_not(path_ms['istft_dft'])} ms, K2 "
+          f"{kernel_ms(times, 'attention_fwd'):.4f} ms; launches {launched['400/100/400']}; "
+          f"DCCRN 512/100/400 launches {launched['512/100/400']}; {smi}", flush=True)
+
+    # 5. the recipe's train step at 400/100/400: cuda vs cpu at depth 1, and
+    # one full-width step at batch 16 in the 384-frame bucket
+    train_cfg = {"audio": AUDIO_400, "model": RECIPE["model"], "training": {"mask_padding": True}}
+    check_step(step_cuda_vs_cpu(rng, config=train_cfg, loss_cfg=LossConfig(log_l1_weight=0.05)),
+               "one recipe step at 400/100/400, depth 1")
+    cfg = audio_config(train_cfg)
+    model = seeded(train_cfg).to(dev)
+    opt = Optimizer(parameters(model), "adamw", lr=TRAIN_LR, weight_decay=0.01, max_norm=1.0)
+    step, _ = recipe_step_fns(model, opt, cfg=cfg)
+    batch = batch_to_device(loader_batch(TRAIN_BATCH, 1.5 * SR, 383 * cfg.hop_length, rng, cfg),
+                            dev)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    loss = float(step(batch)["total"])
+    train = ran("the recipe's train step at 400/100/400",
+                {"stft_dft": 2, "attention_fwd": 6, "attention_bwd": 6})
+    if not np.isfinite(loss):
+        raise AssertionError(f"the train step at 400/100/400: loss {loss}")
+    print(f"recipe train step at 400/100/400, batch {TRAIN_BATCH} x "
+          f"{batch['noisy_audio'].shape[1]} samples: loss {loss:.4f}, launches {train}",
+          flush=True)
+
+    # 6. a model with head dim 48: embed 384, 8 heads, depth 2
+    d48 = {"model": {"output_mode": "mask", "head": "fullres_mask",
+                     "transformer": {"pos_embed": "factored_2d", "embed_dim": 384,
+                                     "num_heads": 8, "num_layers": 2}}}
+    x = torch.rand(4, 257, 384, 1, generator=g)
+    mask = patch_validity_mask(torch.from_numpy(lengths[:4]), 257, 384, 128)
+    outs = {}
+    for device in ("cpu", "cuda"):
+        m = seeded(d48).to(device)
+        kernels.reset_launch_counts()
+        with torch.inference_mode():
+            outs[device] = m(x.to(device), mask=mask.to(device)).cpu()
+        if device == "cuda":
+            ran("the D = 48 model's forward", {"attention_fwd": 2})
+    d48_err = max_err([outs["cuda"]], [outs["cpu"]])
+    print(f"model with embed 384 and 8 heads (D = 48), depth 2, [4, 257, 384] under a patch "
+          f"mask: cuda vs cpu max abs err {d48_err:.3g} (tolerance {TOL_WAVE})", flush=True)
+    if d48_err > TOL_WAVE:
+        raise AssertionError("the D = 48 model differs between cuda and cpu")
+
+    # 7. times: K1g and K3g at the serving batch's geometry, beside their plain
+    # versions, torch.stft + abs and torch.istft of torch.polar
+    cfg = audio_config(serve_cfg)
+    wav_len, n_frames = 51100, cfg.num_frames(51100)
+    f_bins = cfg.num_bins
+    n_fresh = 8
+    xs = [(torch.randn(BATCH, wav_len, generator=g).to(dev),) for _ in range(n_fresh)]
+    mp = [(torch.rand(BATCH, f_bins, n_frames, generator=g).to(dev),
+           (torch.rand(BATCH, f_bins, n_frames, generator=g) * 6.28 - 3.14).to(dev))
+          for _ in range(n_fresh)]
+    win = torch.from_numpy(cfg.padded_window()).to(dev)
+    timed = {
+        "stft_dft": (
+            lambda x: cuda_stft.stft_mag(x, cfg), lambda x: cuda_stft.stft_mag_plain(x, cfg),
+            lambda x: torch.stft(x, cfg.n_fft, cfg.hop_length, window=win, center=True,
+                                 pad_mode="reflect", return_complex=True).abs(),
+            xs),
+        "istft_dft": (
+            lambda m, p: cuda_stft.istft_polar(m, p, cfg, length=wav_len),
+            lambda m, p: cuda_stft.istft_polar_plain(m, p, cfg, length=wav_len),
+            lambda m, p: torch.istft(torch.polar(m, p), cfg.n_fft, cfg.hop_length, window=win,
+                                     center=True, length=wav_len),
+            mp),
+    }
+    # the function's work, as K1's and K3's: an FFT's operations, not the
+    # dense product these kernels do (2 * frames * n_fft * 2F, 5.27 GFLOP)
+    fft_work = stft_work(cfg, BATCH, wav_len)
+    work = {"stft_dft": fft_work["stft"], "istft_dft": fft_work["istft"]}
+    ms = {}
+    for name, (kern, plain, lib_call, inputs) in timed.items():
+        # the timed inputs are the main path's shapes: each output against the
+        # plain version's
+        timed_err = max(max_err(kern(*args), plain(*args)) for args in inputs)
+        tol = TOL_ISTFT if name == "istft_dft" else TOL_STFT
+        errs[name].append(timed_err)
+        if timed_err > tol:
+            raise AssertionError(f"{name} on the timed inputs disagrees with its plain "
+                                 f"version: {timed_err} > {tol}")
+        p1, k1, l1, l2, k2, p2 = (median_ms(f, inputs)
+                                  for f in (plain, kern, lib_call, lib_call, kern, plain))
+        flops, nbytes = work[name]
+        b_ms, b_by = bound(flops, nbytes, FP32_PEAK)
+        for args in inputs:  # warm-up
+            kern(*args)
+        dev_ms = dft_ms(device_times(lambda: [kern(*args) for args in inputs],
+                                     need=DFT_FUNCS[name]), name, len(inputs))
+        ms[name] = {"ms": min(k1, k2), "plain_ms": min(p1, p2), "library_ms": min(l1, l2),
+                    "bound_ms": b_ms, "bound_by": b_by, "device_ms": dev_ms,
+                    "path_device_ms": path_ms[name]}
+        m = ms[name]
+        share = "not measured" if dev_ms is None else f"{b_ms / dev_ms:.1%}"
+        print(f"{name} at 400/100/400, {'x' if name == 'stft_dft' else 'mag/phase'} of the "
+              f"serving batch: per call {m['ms']:.4f} ms (device {ms_or_not(dev_ms)}), plain "
+              f"{m['plain_ms']:.4f} ms (device {device_ms(plain, inputs):.4f}), library "
+              f"{m['library_ms']:.4f} ms (device {device_ms(lib_call, inputs):.4f}); bound "
+              f"{b_ms:.4f} ms by {b_by} ({flops / 1e9:.3f} GFLOP of an FFT at "
+              f"{FP32_PEAK / 1e12:g} TFLOP/s, {nbytes / 1e6:.2f} MB at {HBM_RATE / 1e12:g} "
+              f"TB/s); share of bound {b_ms / m['ms']:.1%} per call, {share} on the device; "
+              f"outputs against the plain version's max abs err {timed_err:.3g} (tolerance "
+              f"{tol}) (per call: median of 5 runs over {n_fresh} fresh inputs; device: mean "
+              f"over them; {smi})", flush=True)
+    print(f"geometry phase: {time.perf_counter() - t_phase:.1f} s; {smi}", flush=True)
+    return {"errs": errs, "ms": ms, "attention": attn, "serve": launched["400/100/400"],
+            "dccrn": launched["512/100/400"], "train": train}
+
+
 def main() -> int:
     import argparse
 
@@ -2794,14 +3167,18 @@ def main() -> int:
     libs = kernels.build()
     print(f"built {sorted(p.name for p in libs.values())} from csrc/*.cu (one nvcc each, "
           f"in parallel) in {time.perf_counter() - t0:.1f} s", flush=True)
-    for d in (64, 128):
+    # every instance runs: 64 at the repo's configs, 16, 32 and 128 for the
+    # head dims between them (zero-padded; phase 16)
+    for d in cuda_attention._HEAD_DIMS:
         print(f"attention_fwd at head dim {d}, 384 keys, masked: "
-              f"{cuda_attention.kernel_info(d, 384)}", flush=True)
-    print(f"attention_bwd at head dim 64, registers and local (spill) bytes a thread of each "
-          f"pass: {cuda_attention.bwd_kernel_info(64)}", flush=True)
+              f"{cuda_attention.kernel_info(d, 384)}; attention_bwd, registers and local "
+              f"(spill) bytes a thread of each pass: {cuda_attention.bwd_kernel_info(d)}",
+              flush=True)
     cuobjdump = shutil.which("cuobjdump") or str(Path(kernels._nvcc()).parent / "cuobjdump")
     for name, passes in (("attention_fwd", ("attention_fwd_kernel",)),
-                         ("attention_bwd", ("attention_bwd_dq_kernel", "attention_bwd_dkdv_kernel"))):
+                         ("attention_bwd", ("attention_bwd_dq_kernel", "attention_bwd_dkdv_kernel")),
+                         ("stft_dft", ("stft_dft_kernel",)),
+                         ("istft_dft", ("istft_dft_frames_kernel",))):
         hmma = tf32_hmma(cuobjdump, libs[name])
         for fn in passes:
             found = [i for f, instrs in hmma.items() if fn in f for i in instrs]
@@ -2977,16 +3354,13 @@ def main() -> int:
     # operations and bytes each function must do and move on these inputs:
     # every input read once, every output written once; attention counts the
     # keys the mask keeps, since a masked key adds nothing to the output
-    n_bins, frames = cfg.num_bins, BATCH * n_frames
     kept_keys = int(serve_mask.sum())
+    fft_work = stft_work(cfg, BATCH, wav_len)
     work = {
-        "stft_mag": (frames * (rfft_flops(cfg.n_fft) + cfg.n_fft + 4 * n_bins),
-                     4 * (BATCH * wav_len + 3 * BATCH * n_bins * n_frames)),
+        "stft_mag": fft_work["stft"],
         "attention_fwd": (4 * heads * n_tok * dh * kept_keys,
                           4 * 4 * BATCH * heads * n_tok * dh + BATCH * n_tok),
-        "istft_polar": (frames * (rfft_flops(cfg.n_fft) + 2 * n_bins + 2 * cfg.n_fft)
-                        + BATCH * wav_len,
-                        4 * (2 * BATCH * n_bins * n_frames + BATCH * wav_len)),
+        "istft_polar": fft_work["istft"],
     }
     peaks = {"stft_mag": FP32_PEAK, "attention_fwd": TF32X3_PEAK, "istft_polar": FP32_PEAK}
     ms = {}
@@ -3048,9 +3422,15 @@ def main() -> int:
         export_run = exported(dev, smi, enhancer, wavs, wall * 1e3, dsp_run["round_ms"])
         tools_run = quality_tools(smi)
         bench_run = measurement_tools(smi, noisy)
+    geometry_run = geometry(dev, smi, rng, g)
     errs["attention_bwd"] = train["errs"]
     ms["attention_bwd"] = train["ms"]
     launches["attention_bwd"] = train["launches"]["attention_bwd"]
+    for name, e in geometry_run["errs"].items():
+        errs[name] = errs.get(name, []) + e
+    for name, e in geometry_run["attention"].items():
+        errs[name] = errs[name] + e
+    ms.update(geometry_run["ms"])
 
     print(f"chip_smoke.py: {time.perf_counter() - STARTED:.1f} s from start to result (the "
           f"kernels' build included); {smi}", flush=True)
@@ -3071,6 +3451,9 @@ def main() -> int:
          "tools_launches": tools_run["launches"][name],
          "bench_launches": bench_run["launches"][name],
          "bench_train_launches": bench_run["train"][name],
+         "geometry_serve_launches": geometry_run["serve"][name],
+         "dccrn_serve_launches": geometry_run["dccrn"][name],
+         "geometry_train_launches": geometry_run["train"][name],
          "max_abs_err": max(errs[name]),
          **ms[name]}
         for name, k in kernels.KERNELS.items()

@@ -1,9 +1,9 @@
 """Featurization in the train step: padded waveform batch -> normalized
 spectrogram batch (JAX ``data/pipeline.py``).
 
-On a CUDA device both STFTs (noisy and clean) run through kernel K1
-(``ops/cuda_stft.stft_mag``), two launches a step; on the CPU its plain
-version. Then phase, per-utterance min-max over the utterance's own frames,
+On a CUDA device both STFTs (noisy and clean) run through kernel K1, or K1g
+at a geometry K1 does not take (``ops/cuda_stft.stft_mag``), two launches a
+step; on the CPU its plain version. Then phase, per-utterance min-max over the utterance's own frames,
 and SpecAugment of the noisy input. No gradient flows through this.
 """
 

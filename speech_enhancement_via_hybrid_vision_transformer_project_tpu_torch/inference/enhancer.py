@@ -1,10 +1,11 @@
 """Batched and streaming audio enhancement (JAX ``inference/enhancer.py``).
 
 The per-batch pipeline: peak normalize -> STFT with magnitude (kernel K1 on
-CUDA) -> phase -> max-only magnitude normalize -> HybridViT (attention
-through kernel K2 on CUDA) -> mask or magnitude denorm -> do-no-harm blend
--> noisy-phase iSTFT (kernel K3 on CUDA) -> output denorm, optionally with
-PCM16 in and out. Waveforms are padded to length buckets; clips longer
+CUDA, or K1g at a geometry K1 does not take) -> phase -> max-only magnitude
+normalize -> HybridViT (attention through kernel K2 on CUDA) -> mask or
+magnitude denorm -> do-no-harm blend -> noisy-phase iSTFT (kernel K3 on
+CUDA, or K3g) -> output denorm, optionally with PCM16 in and out. The STFT
+geometry is the config's ``audio`` section. Waveforms are padded to length buckets; clips longer
 than the largest bucket go through chunked overlap-add streaming.
 
 On CUDA a batch is dispatched without waiting for the device: its input is

@@ -11,6 +11,13 @@ is the op ``torch.ops.sevit.attention_bwd``: on the CPU the plain version of
 ``_fused_bwd``'s einsums, on CUDA ``csrc/attention_bwd.cu`` (a dq pass and a
 dk/dv pass, each on the tensor cores in 3xTF32; the softmax weights
 recomputed from the forward's log-sum-exp, never stored).
+
+The kernels have instances for head dims 16, 32, 64 and 128. Any other head
+dim up to 128 runs the next larger instance (``kernel_head_dim``): q, k and v
+are zero-padded along D and the output cropped, and in the backward the
+output's gradient is padded and dq, dk and dv cropped. Zero columns leave
+``QK^T`` and the log-sum-exp as they are and give zero output and gradient
+columns. A head dim above 128 raises.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from . import kernels
 
@@ -83,13 +91,27 @@ def _check(q, k, v, mask):
         raise ValueError("attention: inputs on different devices")
 
 
+def kernel_head_dim(d: int) -> int:
+    """The head dim of the K2 instance that runs head dim ``d``: the
+    smallest of ``_HEAD_DIMS`` that holds it. Raises ``ValueError`` above
+    128. Needs no card."""
+    for inst in _HEAD_DIMS:
+        if d <= inst:
+            return inst
+    raise ValueError(f"attention kernel: head dim {d} > {_HEAD_DIMS[-1]}")
+
+
+def _pad_head_dim(t: torch.Tensor, dp: int) -> torch.Tensor:
+    """``t [..., D]`` with zero columns up to ``dp``."""
+    return t if t.shape[-1] == dp else F.pad(t, (0, dp - t.shape[-1])).contiguous()
+
+
 def _check_kernel_inputs(named, d):
     """What K2 takes, shapes and types only (no storage is read: these
     checks also run while ``torch.export`` traces)."""
     for name, t in named:
         kernels.check_input(f"attention {name}", t, 4, differentiable=True)
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"attention kernel: head dim {d} not in {_HEAD_DIMS}")
+    kernel_head_dim(d)
 
 
 def _check_aligned(named):
@@ -108,6 +130,8 @@ def _forward_kernel(q, k, v, mask, scale, with_lse: bool):
     _check_aligned(named)
     if mask is not None:
         mask = mask.contiguous()
+    dp = kernel_head_dim(d)
+    q, k, v = (_pad_head_dim(t, dp) for t in (q, k, v))
     out = torch.empty_like(q)
     lse = torch.empty(b * h, n, device=q.device, dtype=torch.float32) if with_lse else None
     if b * h and n:
@@ -116,8 +140,10 @@ def _forward_kernel(q, k, v, mask, scale, with_lse: bool):
                 "attention_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 None if mask is None else mask.data_ptr(), out.data_ptr(),
                 None if lse is None else lse.data_ptr(),
-                b * h, h, n, d, float(scale) * LOG2E,
+                b * h, h, n, dp, float(scale) * LOG2E,
             )
+    if dp != d:
+        out = out[..., :d].contiguous()
     return out, (q.new_empty(0) if lse is None else lse)
 
 
@@ -138,6 +164,8 @@ def _backward_kernel(q, k, v, out, lse, dout, mask, scale):
                          "forward ran without with_lse")
     if mask is not None:
         mask = mask.contiguous()
+    dp = kernel_head_dim(d)
+    q, k, v, out, dout = (_pad_head_dim(t, dp) for t in (q, k, v, out, dout))
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     delta = torch.empty(b * h, n, device=q.device, dtype=torch.float32)
     if b * h and n:
@@ -146,8 +174,10 @@ def _backward_kernel(q, k, v, out, lse, dout, mask, scale):
                 "attention_bwd", q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 dout.data_ptr(), lse.data_ptr(), None if mask is None else mask.data_ptr(),
                 delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                b * h, h, n, d, float(scale) * LOG2E, float(scale),
+                b * h, h, n, dp, float(scale) * LOG2E, float(scale),
             )
+    if dp != d:
+        dq, dk, dv = (t[..., :d].contiguous() for t in (dq, dk, dv))
     return dq, dk, dv
 
 
@@ -229,7 +259,8 @@ def attention(
     keys a masked row keeps. Its blocks list those keys in shared memory, 4
     bytes a key, so a mask over more than about 37,000 keys (head dim 64;
     fewer in the backward, whose A operands and tiles take more: 30,956)
-    does not fit and raises."""
+    does not fit and raises. A head dim that is not an instance runs the
+    next larger one (``kernel_head_dim``), under that instance's limits."""
     _check(q, k, v, mask)
     if kernels.uses_kernel(q):
         _check_kernel_inputs((("q", q), ("k", k), ("v", v)), q.shape[-1])

@@ -1,22 +1,33 @@
-"""STFT and iSTFT of the serving path: CUDA kernels K1 and K3 beside their
-plain PyTorch versions.
+"""STFT and iSTFT of the serving path: CUDA kernels K1 and K3, and K1g and
+K3g for every other geometry, beside their plain PyTorch versions.
 
 ``stft_mag`` replaces the JAX package's ``pallas_stft(return_mag=True)``
 (``ops/pallas_stft.py``) and ``istft_polar`` its
 ``pallas_istft(polar=True)``. Each calls its op, ``torch.ops.sevit.stft_mag``
 or ``torch.ops.sevit.istft_polar``, on both devices, with the STFT config as
 plain ints, a bool and strings. Dispatch is by the device of the input: on a
-CPU tensor the op runs the plain version, on a CUDA tensor it launches the
-kernel (``csrc/stft.cu``, ``csrc/istft.cu``) or raises. There is no
-fallback from one to the other.
+CPU tensor the op runs the plain version, on a CUDA tensor it launches a
+kernel or raises. There is no fallback from one to the other.
 
-Both kernels are shared-memory FFTs (``csrc/fft_stages.cuh``) that read one
-fp32 table built here in float64 (``fft_plan``). They take a power-of-two
-``n_fft`` from 128 to 2048 and a ``hop_length`` that is a multiple of 4 (K3:
-one that divides ``n_fft``); ``kernel_tile`` checks that and picks the frames
-each block transforms. K1 reads the unpadded signal: its center (reflect)
-padding is fused into the kernel's loads. The table and K3's window-sum
-denominator are device constants that the CUDA impls fetch when they run
+Which kernel a CUDA tensor gets is fixed by the config alone (``route``),
+before any launch:
+
+- K1 and K3 (``csrc/stft.cu``, ``csrc/istft.cu``) are shared-memory FFTs
+  (``csrc/fft_stages.cuh``) that read one fp32 table built here in float64
+  (``fft_plan``). They take a power-of-two ``n_fft`` from 128 to 2048, a
+  ``hop_length`` that is a multiple of 4 (K3: one that divides ``n_fft``
+  and fits in shared memory) and reflect padding; ``kernel_tile`` checks
+  that and picks the frames each block transforms.
+- K1g and K3g (``csrc/stft_dft.cu``, ``csrc/istft_dft.cu``) take every other
+  geometry: any ``n_fft`` and hop, reflect or zero (``constant``) padding.
+  They compute the windowed DFT as the TPU kernels do, a product against the
+  window-folded DFT matrices of ``ops/stft.py`` (``window_dft``,
+  ``inv_window_dft``), on the tensor cores in 3xTF32; the wrapper hands them
+  the matrices cut into column tiles (``dft_tiles``, ``idft_tiles``).
+
+K1 and K1g read the unpadded signal: the center padding is fused into their
+loads. The tables, the matrices and the iSTFT's window-sum denominator are
+device constants that the CUDA impls fetch when they run
 (``_device_const``); they never enter a traced graph.
 """
 
@@ -31,16 +42,37 @@ from . import kernels
 from .stft import (
     STFTConfig,
     implied_length,
+    inv_window_dft,
     istft_output_span,
     reconstruct,
     stft,
+    window_dft,
     window_sumsquare_denominator,
 )
 
-FFT_SIZES = (128, 256, 512, 1024, 2048)  # the kernels' power-of-two n_fft
+FFT_SIZES = (128, 256, 512, 1024, 2048)  # K1's and K3's power-of-two n_fft
 _TILE_POINTS = 4096  # complex points per shared-memory buffer of a block
 _MAX_TILE = 32  # frames per block
 _SMEM_LIMIT = 227 * 1024  # shared memory one H100 block may use
+# the column tiles of K1g's and K3g's matrices; the C entries refuse a launch
+# whose tiles are not their own BN and BK
+DFT_BLOCK_BINS = 32  # K1g: bins a block (their re and im columns)
+DFT_DEPTH = 32  # K1g: samples a step
+IDFT_BLOCK_SAMPLES = 64  # K3g: frame samples a block
+IDFT_DEPTH = 16  # K3g: bins a step
+PAD_MODES = ("reflect", "constant")  # K1g's center padding
+MAX_BATCH = 65535  # rows of one K1g or K3g launch (the grid's z)
+# (n_fft, hop, win, pad_mode) of common 16 kHz front ends that K1 and K3 do
+# not all take, which the port's checks run on both routes
+GEOMETRIES = (
+    (400, 100, 400, "reflect"),  # CMGAN on VoiceBank-DEMAND
+    (320, 160, 320, "reflect"),  # the 20 ms / 10 ms front end
+    (400, 160, 400, "reflect"),  # a hop that does not divide n_fft
+    (512, 100, 400, "reflect"),  # DCCRN: window 400, hop 100, FFT 512
+    (512, 100, 512, "reflect"),
+    (4096, 1024, 4096, "reflect"),  # the JAX package's largest tested n_fft
+    (512, 128, 512, "constant"),
+)
 
 
 def fft_plan(cfg: STFTConfig) -> np.ndarray:
@@ -67,32 +99,85 @@ def _smem_bytes(cfg: STFTConfig, tile: int, inverse: bool) -> int:
     return 8 * buf + 4 * (span + 3 * n_fft + 2)
 
 
-def kernel_tile(cfg: STFTConfig, *, inverse: bool) -> int:
-    """Frames per block of K1 (``inverse=False``) or K3, after checking
-    that the kernel takes ``cfg``; raises ``ValueError`` otherwise. Needs
-    no card: the wrappers call it before they launch."""
+def _fft_tile(cfg: STFTConfig, inverse: bool) -> tuple[int, str | None]:
+    """K1's (``inverse=False``) or K3's frames per block for ``cfg``, and
+    why the kernel does not take ``cfg`` (None where it does)."""
     n_fft, hop = cfg.n_fft, cfg.hop_length
     name = "istft_polar" if inverse else "stft_mag"
     if n_fft not in FFT_SIZES:
-        raise ValueError(f"{name} kernel: n_fft {n_fft} is not a power of two in {FFT_SIZES}")
+        return 0, f"{name} kernel: n_fft {n_fft} is not a power of two in {FFT_SIZES}"
     if hop <= 0 or hop % 4 or hop > n_fft:
-        raise ValueError(f"{name} kernel: hop_length {hop} must be a multiple of 4, <= n_fft")
+        return 0, f"{name} kernel: hop_length {hop} must be a multiple of 4, <= n_fft"
     if not inverse and cfg.center and cfg.pad_mode != "reflect":
-        raise ValueError(f"{name} kernel: pad_mode {cfg.pad_mode!r} is not reflect")
+        return 0, f"{name} kernel: pad_mode {cfg.pad_mode!r} is not reflect"
     tile = min(_MAX_TILE, _TILE_POINTS // (n_fft // 2))
     if inverse:
         if n_fft % hop:
-            raise ValueError(f"{name} kernel: hop_length {hop} must divide n_fft {n_fft}")
+            return 0, f"{name} kernel: hop_length {hop} must divide n_fft {n_fft}"
         tile = max(tile, 2 * (n_fft // hop))  # at least half the frames are not halo
     if _smem_bytes(cfg, tile, inverse) > _SMEM_LIMIT:
-        raise ValueError(f"{name} kernel: n_fft / hop_length = {n_fft // hop} needs "
-                         f"{_smem_bytes(cfg, tile, inverse)} bytes of shared memory")
+        return 0, (f"{name} kernel: n_fft / hop_length = {n_fft // hop} needs "
+                   f"{_smem_bytes(cfg, tile, inverse)} bytes of shared memory")
+    return tile, None
+
+
+def kernel_tile(cfg: STFTConfig, *, inverse: bool) -> int:
+    """Frames per block of K1 (``inverse=False``) or K3, after checking
+    that the FFT kernel takes ``cfg``; raises ``ValueError`` otherwise.
+    Needs no card."""
+    tile, refusal = _fft_tile(cfg, inverse)
+    if refusal:
+        raise ValueError(refusal)
     return tile
+
+
+def route(cfg: STFTConfig, *, inverse: bool) -> tuple[str, int]:
+    """The kernel a CUDA tensor gets for ``cfg``, by its ``kernels.KERNELS``
+    name, and its frames per block: the FFT kernel (``stft_mag``,
+    ``istft_polar``) and its tile where ``kernel_tile`` takes the config,
+    else K1g (``stft_dft``) or K3g (``istft_dft``) and 0. Fixed by the
+    config alone; needs no card."""
+    tile, refusal = _fft_tile(cfg, inverse)
+    if refusal is None:
+        return ("istft_polar" if inverse else "stft_mag"), tile
+    return ("istft_dft" if inverse else "stft_dft"), 0
+
+
+def _column_tiles(top: np.ndarray, bottom: np.ndarray, width: int, depth: int) -> np.ndarray:
+    """Two ``[K, C]`` matrices cut into ``ceil(C / width)`` column tiles,
+    each ``[k_pad, 2 * width]``: the tile's columns of ``top``, then of
+    ``bottom``, zero past column C - 1 and row K - 1 (``k_pad``: K rounded
+    up to ``depth``). Flat float32."""
+    k, c = top.shape
+    n_tiles, k_pad = -(-c // width), -(-k // depth) * depth
+    out = np.zeros((2, k_pad, n_tiles * width), np.float32)
+    out[0, :k, :c], out[1, :k, :c] = top, bottom
+    # [top/bottom, row, tile, column] -> [tile, row, top/bottom, column]
+    out = out.reshape(2, k_pad, n_tiles, width).transpose(2, 1, 0, 3)
+    return np.ascontiguousarray(out).reshape(-1)
+
+
+def dft_tiles(cfg: STFTConfig) -> np.ndarray:
+    """K1g's matrix: ``window_dft(cfg)`` ``[n_fft, 2F]`` cut into column
+    tiles of ``DFT_BLOCK_BINS`` bins, their re columns, then their im
+    columns (``_column_tiles``)."""
+    w, f = window_dft(cfg), cfg.num_bins
+    return _column_tiles(w[:, :f], w[:, f:], DFT_BLOCK_BINS, DFT_DEPTH)
+
+
+def idft_tiles(cfg: STFTConfig) -> np.ndarray:
+    """K3g's matrix: ``inv_window_dft(cfg)``'s ``Wa`` and ``Wb`` (each
+    ``[F, n_fft]``) cut into column tiles of ``IDFT_BLOCK_SAMPLES`` samples,
+    Wa's columns, then Wb's (``_column_tiles``)."""
+    return _column_tiles(*inv_window_dft(cfg), IDFT_BLOCK_SAMPLES, IDFT_DEPTH)
 
 
 @functools.lru_cache(maxsize=64)
 def _device_const(kind: str, cfg: STFTConfig, device: torch.device, n_frames: int = 0):
-    a = fft_plan(cfg) if kind == "plan" else window_sumsquare_denominator(cfg, n_frames)
+    if kind == "denom":
+        a = window_sumsquare_denominator(cfg, n_frames)
+    else:
+        a = {"plan": fft_plan, "dft": dft_tiles, "idft": idft_tiles}[kind](cfg)
     t = torch.from_numpy(np.ascontiguousarray(a)).to(device)
     if t.is_cuda:  # other streams may read it next (the enhancer's replicas run on their own)
         torch.cuda.current_stream(t.device).synchronize()
@@ -118,14 +203,25 @@ def stft_mag_plain(x: torch.Tensor, cfg: STFTConfig = STFTConfig()):
     return re, im, torch.sqrt(re * re + im * im)
 
 
-def _check_stft_kernel(x: torch.Tensor, cfg: STFTConfig) -> int:
-    """K1's argument checks (shapes and types only); returns its tile."""
+def _check_batch(name: str, b: int) -> None:
+    if b > MAX_BATCH:
+        raise ValueError(f"{name}: batch {b} > {MAX_BATCH} rows a launch")
+
+
+def _check_stft_kernel(x: torch.Tensor, cfg: STFTConfig) -> tuple[str, int]:
+    """The argument checks of the kernel that ``route`` picks (shapes and
+    types only); returns its name and, for K1, its tile."""
     kernels.check_input("stft_mag x", x, 2)
-    tile = kernel_tile(cfg, inverse=False)
-    pad = cfg.n_fft // 2 if cfg.center else 0
+    name, tile = route(cfg, inverse=False)
+    if name == "stft_dft":
+        if cfg.center and cfg.pad_mode not in PAD_MODES:
+            raise ValueError(f"stft_mag kernel: pad_mode {cfg.pad_mode!r} is not one of "
+                             f"{PAD_MODES}")
+        _check_batch("stft_mag", x.shape[0])
+    pad = cfg.n_fft // 2 if cfg.center and cfg.pad_mode == "reflect" else 0
     if x.shape[1] <= pad:
         raise ValueError(f"stft_mag: {x.shape[1]} samples cannot be reflect padded by {pad}")
-    return tile
+    return name, tile
 
 
 def _stft_plain(x, *cfg):
@@ -138,21 +234,24 @@ def _stft_plain(x, *cfg):
 
 def _stft_cuda(x, *cfg):
     cfg = STFTConfig(*cfg)
-    tile = _check_stft_kernel(x, cfg)
+    name, tile = _check_stft_kernel(x, cfg)
     b, length = x.shape
     n_frames = cfg.num_frames(length)
-    plan = _device_const("plan", cfg, x.device)
+    pad = cfg.n_fft // 2 if cfg.center else 0
+    table = _device_const("plan" if name == "stft_mag" else "dft", cfg, x.device)
     re, im, mag = (
         torch.empty(b, cfg.num_bins, n_frames, device=x.device, dtype=torch.float32)
         for _ in range(3)
     )
     if b:
+        ptrs = (x.data_ptr(), table.data_ptr(), re.data_ptr(), im.data_ptr(), mag.data_ptr())
         with torch.cuda.device(x.device):
-            kernels.launch(
-                "stft_mag", x.data_ptr(), plan.data_ptr(), re.data_ptr(),
-                im.data_ptr(), mag.data_ptr(), b, length,
-                cfg.n_fft // 2 if cfg.center else 0, n_frames, cfg.n_fft, cfg.hop_length, tile,
-            )
+            if name == "stft_mag":
+                kernels.launch(name, *ptrs, b, length, pad, n_frames, cfg.n_fft,
+                               cfg.hop_length, tile)
+            else:
+                kernels.launch(name, *ptrs, b, length, pad, int(cfg.pad_mode == "reflect"),
+                               n_frames, cfg.n_fft, cfg.hop_length, DFT_BLOCK_BINS, DFT_DEPTH)
     return re, im, mag
 
 
@@ -173,7 +272,7 @@ stft_mag_op = kernels.define_op(
 def stft_mag(x: torch.Tensor, cfg: STFTConfig = STFTConfig()):
     """STFT of ``x [B, L]`` with its magnitude: ``(re, im, mag)``, each
     ``[B, F, N]`` float32 (bins first), through the op ``sevit::stft_mag``.
-    CPU: plain version; CUDA: kernel K1."""
+    CPU: plain version; CUDA: kernel K1, or K1g where ``route`` says so."""
     if x.dim() != 2:
         raise ValueError(f"stft_mag: expected [B, L], got {tuple(x.shape)}")
     if kernels.uses_kernel(x):
@@ -197,14 +296,18 @@ def istft_polar_plain(
     return reconstruct(mag, phase, cfg, length=length)
 
 
-def _check_istft_kernel(mag: torch.Tensor, phase: torch.Tensor, cfg: STFTConfig) -> int:
-    """K3's argument checks (shapes and types only); returns its tile."""
+def _check_istft_kernel(mag: torch.Tensor, phase: torch.Tensor,
+                        cfg: STFTConfig) -> tuple[str, int]:
+    """The argument checks of the kernel that ``route`` picks (shapes and
+    types only); returns its name and, for K3, its tile."""
     kernels.check_input("istft_polar mag", mag, 3)
     kernels.check_input("istft_polar phase", phase, 3)
-    tile = kernel_tile(cfg, inverse=True)
+    name, tile = route(cfg, inverse=True)
     if mag.shape[1] != cfg.num_bins:
         raise ValueError(f"istft_polar: {mag.shape[1]} bins, config has {cfg.num_bins}")
-    return tile
+    if name == "istft_dft":
+        _check_batch("istft_polar", mag.shape[0])
+    return name, tile
 
 
 def _istft_plain(mag, phase, *cfg_length):
@@ -216,19 +319,25 @@ def _istft_plain(mag, phase, *cfg_length):
 def _istft_cuda(mag, phase, *cfg_length):
     *cfg, length = cfg_length
     cfg = STFTConfig(*cfg)
-    tile = _check_istft_kernel(mag, phase, cfg)
+    name, tile = _check_istft_kernel(mag, phase, cfg)
     b, _, n_frames = mag.shape
     offset, n_out = istft_output_span(cfg, n_frames, length)
-    plan = _device_const("plan", cfg, mag.device)
+    table = _device_const("plan" if name == "istft_polar" else "idft", cfg, mag.device)
     denom = _device_const("denom", cfg, mag.device, n_frames)
     y = torch.empty(b, n_out, device=mag.device, dtype=torch.float32)
     if b and n_out:
         with torch.cuda.device(mag.device):
-            kernels.launch(
-                "istft_polar", mag.data_ptr(), phase.data_ptr(), plan.data_ptr(),
-                denom.data_ptr(), y.data_ptr(), b, n_frames, cfg.n_fft,
-                cfg.hop_length, offset, n_out, tile,
-            )
+            if name == "istft_polar":
+                kernels.launch(name, mag.data_ptr(), phase.data_ptr(), table.data_ptr(),
+                               denom.data_ptr(), y.data_ptr(), b, n_frames, cfg.n_fft,
+                               cfg.hop_length, offset, n_out, tile)
+            else:  # K3g's frames go through a scratch [B, N, n_fft]
+                frames = torch.empty(b, n_frames, cfg.n_fft, device=mag.device,
+                                     dtype=torch.float32)
+                kernels.launch(name, mag.data_ptr(), phase.data_ptr(), table.data_ptr(),
+                               denom.data_ptr(), frames.data_ptr(), y.data_ptr(), b, n_frames,
+                               cfg.n_fft, cfg.hop_length, offset, n_out, IDFT_BLOCK_SAMPLES,
+                               IDFT_DEPTH)
     return y
 
 
@@ -253,7 +362,7 @@ def istft_polar(
     """Waveform ``[B, length]`` from magnitude and phase ``[B, F, N]``
     (librosa ``istft`` semantics: window-sum normalize, center crop,
     ``length`` trim or zero pad), through the op ``sevit::istft_polar``.
-    CPU: plain version; CUDA: kernel K3."""
+    CPU: plain version; CUDA: kernel K3, or K3g where ``route`` says so."""
     if mag.dim() != 3 or mag.shape != phase.shape:
         raise ValueError(
             f"istft_polar: expected mag and phase [B, F, N], got "
@@ -278,7 +387,8 @@ def griffin_lim_polar(mag: torch.Tensor, phase: torch.Tensor,
     the implied length, then ``stft_mag`` and ``phase = atan2(im, re)``;
     the spectrum's magnitude is never formed again (K1 computes it, unused).
     ``mag, phase [..., F, N]`` -> ``[..., length]``. The rounds launch K3
-    ``n_iter + 1`` and K1 ``n_iter`` times on CUDA tensors; on CPU tensors
+    (or K3g) ``n_iter + 1`` and K1 (or K1g) ``n_iter`` times on CUDA
+    tensors; on CPU tensors
     they run the kernels' plain versions."""
     lead, fn = mag.shape[:-2], mag.shape[-2:]
     mag = mag.float().reshape(-1, *fn).contiguous()

@@ -17,11 +17,14 @@ Each kernel has a ``Kernel`` record with a plain launch counter that
 ``launch`` increments once per launch, so a run can show that its main path
 went through the kernel.
 
-Each kernel is also an operator of the ``sevit`` namespace of
-``torch.library`` (``define_op``), so that ``torch.export`` records it as one
-call, ``torch.ops.sevit.<name>``, on either device: its CUDA impl launches
-the kernel, its CPU impl is the kernel's plain version, and its fake impl
-gives the outputs' shapes and dtypes from the arguments alone. A meta tensor
+Each kernel is also reached through an operator of the ``sevit`` namespace
+of ``torch.library`` (``define_op``), so that ``torch.export`` records it as
+one call, ``torch.ops.sevit.<name>``, on either device: its CUDA impl
+launches the kernel, its CPU impl is the kernel's plain version, and its fake
+impl gives the outputs' shapes and dtypes from the arguments alone. The STFT
+kernels share two ops: ``sevit::stft_mag`` launches K1 (``stft_mag``) or K1g
+(``stft_dft``), ``sevit::istft_polar`` K3 (``istft_polar``) or K3g
+(``istft_dft``), as the STFT config decides (``cuda_stft.route``). A meta tensor
 is refused rather than given shapes as if it had been computed. The ops are
 defined when ``cuda_stft`` and ``cuda_attention`` are imported (``import``
 of the port's ``ops`` package does both); a program that ``torch.export``
@@ -101,6 +104,22 @@ KERNELS = {
             # mag, phase, plan, denom, y, batch, n_frames, n_fft, hop,
             # offset, out_samples, tile, stream
             (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+        ),
+        Kernel(
+            "stft_dft", "sevit_stft_dft", "csrc/stft_dft.cu",
+            "speech_enhancement_via_hybrid_vision_transformer_project_tpu/"
+            "ops/pallas_stft.py:31",
+            # x, dft tiles, re, im, mag, batch, length, pad, reflect, n_frames,
+            # n_fft, hop, tile bins, tile depth, stream
+            (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+        ),
+        Kernel(
+            "istft_dft", "sevit_istft_dft", "csrc/istft_dft.cu",
+            "speech_enhancement_via_hybrid_vision_transformer_project_tpu/"
+            "ops/pallas_stft.py:185",
+            # mag, phase, idft tiles, denom, frames, y, batch, n_frames, n_fft,
+            # hop, offset, out_samples, tile samples, tile depth, stream
+            (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
         ),
     )
 }

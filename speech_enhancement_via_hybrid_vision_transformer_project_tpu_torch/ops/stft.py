@@ -10,10 +10,13 @@ there, not these functions.
 ``method=`` on ``stft``, ``istft``, ``spectrogram`` and ``reconstruct``, as in
 the JAX package: ``"matmul"`` (the default, differentiable), ``"fft"``
 (``torch.fft``, a cross-check), and ``"auto"`` or ``"pallas"``, which name the
-hand-written kernels (K1 ``stft_mag``, K3 ``istft_polar``): a CUDA tensor
-launches them, a CPU tensor runs their plain versions. A kernel's refusal
-(an unsupported config, a tensor that needs grad) is raised, never replaced
-by the matmul path.
+hand-written kernels (``stft_mag``, ``istft_polar``): a CUDA tensor launches
+them, a CPU tensor runs their plain versions. Every geometry has a kernel:
+the FFT kernels K1 and K3 where they take the config, K1g and K3g (DFT
+products on the tensor cores) elsewhere (``cuda_stft.route``). A kernel's
+refusal (a pad mode other than reflect or constant, a signal too short to
+reflect pad, a tensor that needs grad) is raised, never replaced by the
+matmul path.
 
 Float32 matmuls on a CUDA device must not run in TF32 for parity: the
 port's entry points set ``torch.backends.cuda.matmul.allow_tf32 = False``.
@@ -337,9 +340,9 @@ def griffin_lim(mag: torch.Tensor, cfg: STFTConfig = STFTConfig(), *, n_iter: in
     from ``generator``, by default one seeded 0 on ``mag``'s device).
 
     A CPU tensor runs ``griffin_lim_plain``. A CUDA tensor runs each round
-    as K3 (``istft_polar``) then K1 (``stft_mag``), keeping ``mag`` and the
-    new phase ``atan2(im, re)``: ``n_iter`` K1 and ``n_iter + 1`` K3
-    launches. The polar form equals the plain rescale wherever
+    as ``istft_polar`` then ``stft_mag``, keeping ``mag`` and the new phase
+    ``atan2(im, re)``: ``n_iter`` launches of K1 (or K1g) and ``n_iter + 1``
+    of K3 (or K3g), as ``cuda_stft.route`` picks them. The polar form equals the plain rescale wherever
     ``|X| >= 1e-16``; where a frame's STFT is exactly 0 and ``mag`` is not,
     the plain version gives 0 and the kernels give ``mag`` at phase 0."""
     if phase is None:

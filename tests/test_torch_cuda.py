@@ -309,7 +309,8 @@ def test_train_step_cuda_matches_cpu(mode, mask_padding, dev):
         if device == "cuda":
             torch.cuda.synchronize()
             assert {k: r.launches for k, r in kernels.KERNELS.items()} == {
-                "stft_mag": 2, "attention_fwd": 2, "attention_bwd": 2, "istft_polar": 0}
+                "stft_mag": 2, "attention_fwd": 2, "attention_bwd": 2, "istft_polar": 0,
+                "stft_dft": 0, "istft_dft": 0}
         res[device] = ({k: float(v) for k, v in metrics.items()}, cap.grads,
                        {k: v.cpu() for k, v in model.state_dict().items() if "running" in k})
     (lc, gc, sc), (lp, gp, sp) = res["cuda"], res["cpu"]
@@ -323,6 +324,10 @@ def test_train_step_cuda_matches_cpu(mode, mask_padding, dev):
 
 
 def test_kernels_refuse_what_they_do_not_take(dev, gen):
+    """What the kernels refuse. A head dim that is no instance (48) and an
+    n_fft that is no power of two (500) were refused before K2's padding
+    and K1g and K3g: they now run on the next instance and on K1g and K3g,
+    and D = 136 is refused."""
     x = torch.randn(2, 4000, generator=gen).to(dev)
     with pytest.raises(RuntimeError, match="backward"):
         cuda_stft.stft_mag(x.clone().requires_grad_())
@@ -333,16 +338,27 @@ def test_kernels_refuse_what_they_do_not_take(dev, gen):
     with pytest.raises(ValueError, match="contiguous"):
         cuda_attention.attention(q_strided, q, q, scale=0.1)
     q48 = torch.randn(1, 2, 16, 48, generator=gen).to(dev)
+    before = kernels.KERNELS["attention_fwd"].launches
+    o = cuda_attention.attention(q48, q48, q48, scale=0.1)
+    assert kernels.KERNELS["attention_fwd"].launches == before + 1
+    assert float((o - cuda_attention.attention_plain(q48, q48, q48, scale=0.1)).abs().max()) < 2e-5
+    q136 = torch.randn(1, 2, 16, 136, generator=gen).to(dev)
     with pytest.raises(ValueError, match="head dim"):
-        cuda_attention.attention(q48, q48, q48, scale=0.1)
+        cuda_attention.attention(q136, q136, q136, scale=0.1)
     with pytest.raises(ValueError, match="devices"):
         cuda_stft.istft_polar(torch.rand(1, 257, 9).to(dev), torch.rand(1, 257, 9))
     odd = STFTConfig(n_fft=500, hop_length=124, win_length=500)
-    with pytest.raises(ValueError, match="power of two"):
-        cuda_stft.stft_mag(x, odd)
-    m = torch.rand(1, 251, 9).to(dev)
-    with pytest.raises(ValueError, match="power of two"):
-        cuda_stft.istft_polar(m, m, odd)
+    before = {n: kernels.KERNELS[n].launches for n in ("stft_dft", "istft_dft")}
+    out = cuda_stft.stft_mag(x, odd)
+    for o, r in zip(out, cuda_stft.stft_mag_plain(x, odd)):
+        assert float((o - r).abs().max()) < 2e-4
+    m = out[2].contiguous()
+    y = cuda_stft.istft_polar(m, m, odd)
+    assert float((y - cuda_stft.istft_polar_plain(m, m, odd)).abs().max()) < 2e-5
+    assert {n: kernels.KERNELS[n].launches - c for n, c in before.items()} == {
+        "stft_dft": 1, "istft_dft": 1}
+    with pytest.raises(ValueError, match="pad_mode"):
+        cuda_stft.stft_mag(x, STFTConfig(pad_mode="replicate"))
 
 
 def test_enhancer_cuda_matches_cpu(dev, gen):
@@ -360,6 +376,8 @@ def test_enhancer_cuda_matches_cpu(dev, gen):
                         ).enhance_batch(wavs)
     # the serving path runs every forward kernel, and no backward
     launched = {name: k.launches for name, k in kernels.KERNELS.items()}
+    # at 512/128 K1g and K3g launch nothing
+    assert launched.pop("stft_dft") == launched.pop("istft_dft") == 0
     assert launched.pop("attention_bwd") == 0 and min(launched.values()) >= 1
     for a, b in zip(out, ref):
         assert a.shape == b.shape
@@ -674,7 +692,8 @@ def test_export_program_on_cuda_holds_the_kernel_ops(io_dtype, dev, tmp_path):
     program = load_program(export_program(tmp_path / "core.pt2", core, (x, lengths)))
     targets = [str(n.target) for n in program.graph.nodes if n.op == "call_function"]
     calls = {name: targets.count(f"sevit.{name}.default") for name in kernels.KERNELS}
-    assert calls == {"stft_mag": 1, "attention_fwd": 2, "attention_bwd": 0, "istft_polar": 1}
+    assert calls == {"stft_mag": 1, "attention_fwd": 2, "attention_bwd": 0, "istft_polar": 1,
+                     "stft_dft": 0, "istft_dft": 0}
     assert not [t for t in targets if "softmax" in t or "matmul" in t or t.startswith("aten.cos")]
     with torch.inference_mode():
         want = core(x, lengths)
@@ -728,4 +747,87 @@ def test_bench_prints_one_json_line_on_cuda(dev, capsys):
     assert line["value"] > 0 and line["device_audio_s_per_s"] > 0
     assert line["mfu_pct"] is None or 0 < line["mfu_pct"] <= 100
     assert line["launches_per_step"] == {"stft_mag": 1.0, "attention_fwd": 6.0,
-                                         "attention_bwd": 0.0, "istft_polar": 1.0}
+                                         "attention_bwd": 0.0, "istft_polar": 1.0,
+                                         "stft_dft": 0.0, "istft_dft": 0.0}
+
+
+# (n_fft, hop, win, pad_mode): the geometries K1 and K3 do not all take
+GEOMETRIES = cuda_stft.GEOMETRIES
+
+
+@pytest.mark.parametrize("geom", GEOMETRIES, ids=[f"{n}-{h}-{w}-{p}" for n, h, w, p in GEOMETRIES])
+def test_each_geometry_runs_its_route(geom, dev, gen):
+    """The kernel ``route`` names runs, once, within K1's 2e-3 (STFT, as
+    chip_smoke.py phase 16; the plain version's fp32 sums of up to 4096
+    products) and K3's 2e-5 (iSTFT at the implied length) of the plain
+    version; the other kernels do not run. Rows: several frame tiles, and
+    the shortest signal reflect padding allows."""
+    n_fft, hop, win, pad_mode = geom
+    cfg = STFTConfig(n_fft=n_fft, hop_length=hop, win_length=win, pad_mode=pad_mode)
+    for shape in ((3, 20000), (2, n_fft // 2 + 1)):
+        x = torch.randn(shape, generator=gen).to(dev)
+        kernels.reset_launch_counts()
+        out = cuda_stft.stft_mag(x, cfg)
+        torch.cuda.synchronize()
+        assert {n: k.launches for n, k in kernels.KERNELS.items() if k.launches} == {
+            cuda_stft.route(cfg, inverse=False)[0]: 1}
+        for o, r in zip(out, cuda_stft.stft_mag_plain(x, cfg)):
+            assert o.shape == r.shape and float((o - r).abs().max()) < 2e-3
+    n = cfg.num_frames(20000)
+    mag = torch.rand(3, cfg.num_bins, n, generator=gen).to(dev)
+    ph = (torch.rand(3, cfg.num_bins, n, generator=gen) * 2 * np.pi - np.pi).to(dev)
+    kernels.reset_launch_counts()
+    y = cuda_stft.istft_polar(mag, ph, cfg, length=(n - 1) * hop)
+    torch.cuda.synchronize()
+    assert {n: k.launches for n, k in kernels.KERNELS.items() if k.launches} == {
+        cuda_stft.route(cfg, inverse=True)[0]: 1}
+    r = cuda_stft.istft_polar_plain(mag, ph, cfg, length=(n - 1) * hop)
+    assert y.shape == r.shape and float((y - r).abs().max()) < 2e-5
+
+
+@pytest.mark.parametrize("d", [24, 48, 80, 96, 112])
+def test_attention_at_padded_head_dims(d, dev, gen):
+    """A head dim between instances runs the next one, zero-padded: the
+    forward within 2e-5 of the plain version, the backward within 1e-4 of
+    each gradient's largest, under a mask with a fully masked row."""
+    q, k, v, dout = (torch.randn(2, 3, 200, d, generator=gen).to(dev) for _ in range(4))
+    mask = torch.rand(2, 200, generator=gen) > 0.3
+    mask[1] = False
+    mask = mask.to(dev)
+    scale = d**-0.5
+    kernels.reset_launch_counts()
+    out = cuda_attention.attention(q, k, v, scale=scale, mask=mask)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    grads = torch.autograd.grad(cuda_attention.attention(*leaves, scale=scale, mask=mask),
+                                leaves, dout)
+    torch.cuda.synchronize()
+    assert kernels.KERNELS["attention_fwd"].launches == 2
+    assert kernels.KERNELS["attention_bwd"].launches == 1
+    assert out.shape == q.shape
+    ref = cuda_attention.attention_plain(q, k, v, scale=scale, mask=mask)
+    assert float((out - ref).abs().max()) < 2e-5
+    for g, r in zip(grads, cuda_attention.attention_bwd_plain(q, k, v, dout, scale=scale,
+                                                              mask=mask)):
+        assert g.shape == r.shape
+        assert float((g - r).abs().max()) <= 1e-4 * max(float(r.abs().max()), 1.0)
+
+
+def test_enhancer_at_400_100_cuda_matches_cpu(dev, gen):
+    """A small mask-head model at n_fft 400 / hop 100 behind the enhancer:
+    K1g, K2 and K3g run, the waveforms agree within 2e-4."""
+    model = init_weights(HybridViT(embed_dim=64, num_heads=4, num_layers=2, mlp_ratio=2.0,
+                                   encoder_channels=(16, 32, 64), decoder_channels=(32, 16, 8, 1),
+                                   pos_embed_type="factored_2d", head_type="fullres_mask",
+                                   head_channels=8), gen)
+    rng = np.random.default_rng(0)
+    wavs = [(0.3 * rng.standard_normal(n)).astype(np.float32) for n in (16000, 9000)]
+    cfg = {"audio": {"n_fft": 400, "hop_length": 100, "win_length": 400},
+           "model": {"output_mode": "mask"}}
+    ref = AudioEnhancer(model, cfg, device="cpu", mask_padding=True).enhance_batch(wavs)
+    kernels.reset_launch_counts()
+    out = AudioEnhancer(model, cfg, device=dev, mask_padding=True).enhance_batch(wavs)
+    torch.cuda.synchronize()
+    assert {n: k.launches for n, k in kernels.KERNELS.items() if k.launches} == {
+        "stft_dft": 1, "attention_fwd": 2, "istft_dft": 1}
+    for a, b in zip(out, ref):
+        assert a.shape == b.shape and float(np.abs(a - b).max()) < 2e-4

@@ -231,20 +231,32 @@ def test_kernel_tiles_of_the_repo_configs():
 
 
 def test_wrappers_check_sizes_before_a_launch(monkeypatch):
-    """A CUDA-typed call with a non-power-of-two n_fft, a signal too short
-    to reflect pad, or another pad mode raises before it reaches a kernel:
-    the dispatch is forced to the kernel path on CPU tensors, so the checks
-    run without a card."""
+    """A CUDA-typed call checks its sizes before it reaches a kernel: the
+    dispatch is forced to the kernel path on CPU tensors, so the checks run
+    without a card. A signal too short to reflect pad raises. A
+    non-power-of-two n_fft and another pad mode, once refused, now pass the
+    checks and are routed to K1g and K3g: the CUDA impls, with the launch
+    recorded, launch those."""
+    import contextlib
+
     from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.ops import kernels
 
     monkeypatch.setattr(kernels, "uses_kernel", lambda t: True)
-    monkeypatch.setattr(kernels, "launch", lambda *a: pytest.fail("launched"))
-    cfg = STFTConfig(n_fft=500, hop_length=124, win_length=500)
-    with pytest.raises(ValueError, match="power of two"):
-        cuda_stft.stft_mag(torch.zeros(1, 4000), cfg)
-    with pytest.raises(ValueError, match="power of two"):
-        cuda_stft.istft_polar(torch.zeros(1, 251, 30), torch.zeros(1, 251, 30), cfg)
+    launched = []
+    monkeypatch.setattr(kernels, "launch", lambda name, *a: launched.append(name))
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
     with pytest.raises(ValueError, match="reflect padded"):
         cuda_stft.stft_mag(torch.zeros(1, 256), STFTConfig())
-    with pytest.raises(ValueError, match="not reflect"):
-        cuda_stft.stft_mag(torch.zeros(1, 4000), STFTConfig(pad_mode="constant"))
+    odd = STFTConfig(n_fft=500, hop_length=124, win_length=500)
+    zero_pad = STFTConfig(pad_mode="constant")
+    x, m = torch.zeros(1, 4000), torch.zeros(1, 251, 30)
+    assert cuda_stft.stft_mag(x, odd)[0].shape == (1, 251, odd.num_frames(4000))
+    assert cuda_stft.istft_polar(m, m, odd).shape == (1, 29 * 124)
+    assert cuda_stft.stft_mag(x, zero_pad)[0].shape == (1, 257, zero_pad.num_frames(4000))
+    assert launched == []  # the ops on CPU tensors run the plain versions
+    cuda_stft._stft_cuda(x, *cuda_stft._cfg_args(odd))
+    cuda_stft._istft_cuda(m, m, *cuda_stft._cfg_args(odd), None)
+    cuda_stft._stft_cuda(x, *cuda_stft._cfg_args(zero_pad))
+    assert launched == ["stft_dft", "istft_dft", "stft_dft"]
+    assert [cuda_stft.route(c, inverse=i)[0] for c in (odd, zero_pad) for i in (False, True)] == [
+        "stft_dft", "istft_dft", "stft_dft", "istft_polar"]

@@ -79,12 +79,13 @@ torch.set_num_threads(2)
 LEN = 63 * 128  # the 64-frame bucket
 
 
-def make_batch(rng, int16: bool):
-    """Three rows of the 64-frame bucket: a full clip, a short one, and a
-    padding row (valid False, length 0), as the loader pads them."""
-    lengths = np.array([LEN, 5000, 0], np.int32)
-    noisy = np.zeros((3, LEN), np.float32)
-    clean = np.zeros((3, LEN), np.float32)
+def make_batch(rng, int16: bool, length: int = LEN):
+    """Three rows of the 64-frame bucket (``length`` samples: 63 hops): a
+    full clip, a short one, and a padding row (valid False, length 0), as
+    the loader pads them."""
+    lengths = np.array([length, 5000, 0], np.int32)
+    noisy = np.zeros((3, length), np.float32)
+    clean = np.zeros((3, length), np.float32)
     for i, n in enumerate(lengths[:2]):
         clean[i, :n] = 0.3 * np.sin(np.arange(n) * 0.05 * (i + 1))
         noisy[i, :n] = clean[i, :n] + 0.1 * rng.standard_normal(n)
@@ -112,10 +113,11 @@ _GRAD_CAPTURE = optax.GradientTransformation(
 )
 
 
-def _jax_step(jm, variables, batch, loss_kw, **kw):
+def _jax_step(jm, variables, batch, loss_kw, stft_kw=None, **kw):
     with jax.enable_x64(True):
-        step, _ = j_make_step_fns(jm, _GRAD_CAPTURE, JLossConfig(**loss_kw), JSTFTConfig(),
-                                  JSpecAugmentConfig(), augment=False, **kw)
+        step, _ = j_make_step_fns(jm, _GRAD_CAPTURE, JLossConfig(**loss_kw),
+                                  JSTFTConfig(**(stft_kw or {})), JSpecAugmentConfig(),
+                                  augment=False, **kw)
         state = TrainState(params=variables["params"], batch_stats=variables["batch_stats"],
                            opt_state=_GRAD_CAPTURE.init(variables["params"]),
                            step=jnp.asarray(0, jnp.int32))
@@ -127,14 +129,14 @@ def _jax_step(jm, variables, batch, loss_kw, **kw):
 
 
 @contextlib.contextmanager
-def _model_input_from_jax(batch):
+def _model_input_from_jax(batch, stft_kw=None):
     """The port's train step with the JAX featurizer's noisy spectrogram
     (float32 in both steps, also under ``jax.enable_x64``) as the model's
     input; every other featurized tensor stays the port's own."""
     with jax.enable_x64(True):
         spec = torch.from_numpy(np.array(j_featurize_batch(
             *(jnp.asarray(batch[k]) for k in ("noisy_audio", "clean_audio", "length")),
-            JSTFTConfig()).noisy_spec))
+            JSTFTConfig(**(stft_kw or {}))).noisy_spec))
 
     def featurize(*args, **kwargs):
         return port_featurize(*args, **kwargs)._replace(noisy_spec=spec)
@@ -144,27 +146,30 @@ def _model_input_from_jax(batch):
 
 
 def check_train_step(head, mode, mask_padding, pos, fused, int16, rng, jax_kw=None,
-                     port_kw=None, same_model_input=False):
+                     port_kw=None, same_model_input=False, stft_kw=None):
     """``jax_kw``/``port_kw``: more keyword arguments of the JAX and the
     port model (compute dtype, remat, attention type). With
     ``same_model_input`` the port's step feeds the model the JAX
-    featurizer's noisy spectrogram (see ``test_torch_bf16.py``)."""
+    featurizer's noisy spectrogram (see ``test_torch_bf16.py``).
+    ``stft_kw``: the STFT geometry of both steps (default 512/128)."""
     kw = dict(SMALL, head_type=head, head_channels=8, pos_embed_type=pos)
     jm = JHybridViT(**kw, use_pallas_attention=fused, **(jax_kw or {}))
-    variables = _jax_variables(jm, np.zeros((1, 257, 64, 1), np.float32), rng)
-    batch = make_batch(rng, int16)
+    stft_cfg = STFTConfig(**(stft_kw or {}))
+    variables = _jax_variables(jm, np.zeros((1, stft_cfg.num_bins, 64, 1), np.float32), rng)
+    batch = make_batch(rng, int16, 63 * stft_cfg.hop_length)
     # the SI-SDR term in mask mode (its magnitude-mode use warns, ROADMAP section 3)
     loss_kw = dict(log_l1_weight=0.05, si_sdr_weight=0.01 if mode == "mask" else 0.0)
-    ref, ref_metrics = _jax_step(jm, variables, batch, loss_kw, use_attention_mask=mask_padding,
-                                 output_mode=mode)
+    ref, ref_metrics = _jax_step(jm, variables, batch, loss_kw, stft_kw,
+                                 use_attention_mask=mask_padding, output_mode=mode)
 
     model = HybridViT(**kw, **(port_kw or {}))
     model.load_state_dict(flax_to_state_dict(variables))
     names = [n for n, _ in model.named_parameters()]
     cap = _Capture(list(model.parameters()))
-    step, _ = make_step_fns(model, cap, LossConfig(**loss_kw), STFTConfig(), SpecAugmentConfig(),
+    step, _ = make_step_fns(model, cap, LossConfig(**loss_kw), stft_cfg, SpecAugmentConfig(),
                             augment=False, use_attention_mask=mask_padding, output_mode=mode)
-    with _model_input_from_jax(batch) if same_model_input else contextlib.nullcontext():
+    with (_model_input_from_jax(batch, stft_kw) if same_model_input
+          else contextlib.nullcontext()):
         metrics = step({k: torch.from_numpy(v) for k, v in batch.items()})
 
     assert set(metrics) == set(ref_metrics)
