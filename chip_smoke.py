@@ -207,25 +207,35 @@ which raises on failure:
     g. ``bench_scaling`` over NCCL at the ranks the visible cards allow.
 16. geometry (its wall time printed): every STFT geometry and head dim the
     JAX package runs. 1. At 400/100/400, 320/160/320, 400/160/400,
-    512/100/400, 512/100/512, 4096/1024/4096 and 512/128/512 with zero
-    padding (``cuda_stft.GEOMETRIES``), the kernel ``cuda_stft.route`` picks
-    (K1 or K1g, K3 or K3g) launches once, and nothing else, against its
-    plain version within K1's and K3's limits, on the serving batch's 32
-    rows of 51100 samples and on the shortest row reflect padding allows. 2. K2 at head dims 24, 48, 80, 96 and 112 (the
-    next instance, zero-padded), [32, 8, 384, D] under the train mask:
-    forward within ``TOL_ATTN``, backward within ``TOL_BWD``; D = 136 raises.
-    3. The 28M serving recipe at 400/100/400, 32 x 3 s PCM16 through
+    512/100/400, 512/100/512, 4096/1024/4096, 512/128/512 with zero
+    padding, 384/96/384 (a radix-3 stage) and 450/100/450 (odd M) under
+    reflect and edge padding (``cuda_stft.GEOMETRIES``), the kernel
+    ``cuda_stft.route`` picks (K1 on the mixed radices or K1g, K3 or K3g)
+    launches once, and nothing
+    else, against its plain version within K1's and K3's limits, on the
+    serving batch's 32 rows of 51100 samples, on the shortest row one
+    reflection pads, and on rows of n_fft/2 and 100 samples (padded first,
+    as ``jnp.pad`` pads). 2. K2 at head dims 24, 48, 80, 96 and 112 (the
+    next instance, zero-padded) and 192 and 256 (the sliced instance),
+    [32, 8, 384, D] under the train mask: forward within ``TOL_ATTN``,
+    backward within ``TOL_BWD``; the sliced forward's device time. 3. The
+    28M serving recipe at 400/100/400, 32 x 3 s PCM16 through
     ``AudioEnhancer``: a 1 s clip cuda vs cpu within ``TOL_WAVE``, launches
-    K1g 1, K2 6, K3g 1; wall and busy ms a batch. 4. The DCCRN geometry
-    512/100/400 through the same enhancer: K1 1, K2 6, K3g 1. 5. The
-    recipe's train step at 400/100/400: depth 1 cuda vs cpu at phase 9's
-    limits; at full width, batch 16, K1g 2, K2 6 and its backward 6. 6. A
-    model with D = 48 (embed 384, 8 heads, depth 2): cuda vs cpu within
-    ``TOL_WAVE``. 7. K1g and K3g at the serving batch's geometry beside their
-    plain versions, ``torch.stft`` + ``abs`` and ``torch.istft`` of
-    ``torch.polar``, each timed output against the plain version's, and
-    their bounds: the function's, as K1's and K3's (an FFT's operations at
-    the fp32 peak, or the bytes), not the dense product the kernels do.
+    K1 1, K2 6, K3 1; wall ms a batch.
+    4. The DCCRN geometry 512/100/400 through the same enhancer: K1 1, K2 6,
+    K3g 1. 5. The recipe's train step at 400/100/400: depth 1 cuda vs cpu at
+    phase 9's limits; at full width, batch 16, K1 2, K2 6 and its backward 6.
+    6. A model with D = 48 (embed 384, 8 heads, depth 2): cuda vs cpu within
+    ``TOL_WAVE``. 7. ``griffin_lim`` at 4096/1024 on [4, 2049, 50]: K1g 4 and
+    K3g 5 launches, the spectral convergence falling. 8. K1 and K3 at
+    400/100 and 320/160, K1g at 4096/1024 and K3g at 4096/1024, 400/160 and
+    512/100/400 (the geometries they still serve), each beside its plain
+    version, ``torch.stft`` + ``abs`` or ``torch.istft`` of ``torch.polar``,
+    each timed output against the plain version's, and its bound: the
+    function's (an FFT's operations at the fp32 peak, or the bytes), not the
+    dense product K1g and K3g do. Part 8 runs in a fresh process
+    (``geometry_times``), with the same batch's busy ms and K1's and K3's
+    device ms in it: late in this script the profiler loses records.
 
 ``python3 chip_smoke.py --cards N`` (a machine with N >= 2 cards) builds the
 kernels and runs phase 11 alone over NCCL, one rank a card: N data ranks,
@@ -252,7 +262,9 @@ process, ``tools_launches`` a file in phase 14c's ``tune_blend`` run,
 a step of phase 15e's ``bench_train``, ``geometry_serve_launches`` in one
 phase 16 batch at 400/100/400, ``dccrn_serve_launches`` in one at
 512/100/400, ``geometry_train_launches`` in one phase 16 train step at
-400/100/400), and the result JSON.
+400/100/400, ``geometry_gl_launches`` in phase 16's Griffin-Lim call at
+4096/1024; K1's and K3's times at 400/100 and 320/160 and K3g's at its
+other geometries under ``at_<geometry>``), and the result JSON.
 """
 
 from __future__ import annotations
@@ -376,10 +388,12 @@ def device_times(run, attempts: int = 3, need=()) -> dict[str, float]:
     summed by name, as ``torch.profiler`` records it. Now and then the
     profiler hands back an empty trace, or, late in a long process, one
     without the records of the first work ``run()`` enqueues (a serving
-    batch's host-to-device copy and K1g); then ``run()`` is profiled again,
-    up to ``attempts`` times in all, until each of ``need`` (``kernel_ms``
-    names that ``run()`` launches) has a record. The last trace is returned
-    whatever it lacks."""
+    batch's host-to-device copy and its STFT kernel); then ``run()`` is
+    profiled again, up to ``attempts`` times in all, until each of ``need``
+    (``kernel_ms`` names that ``run()`` launches) has a record. The last
+    trace is returned whatever it lacks. (A warm-up step on a profiler
+    schedule fared worse on an H100: whole traces came back empty, late in
+    this script and in a fresh process alike.)"""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2285,6 +2299,7 @@ def dispatcher_cost(dev: torch.device) -> dict:
     scale = 64**-0.5
     out, lse = A._forward_kernel(q, k, v, None, scale, True)
     plan = C._device_const("plan", cfg, dev)
+    radices = C.pack_radices(C.fft_stages(cfg.n_fft // 2))
     offset, n_out = istft_output_span(cfg, nf, None)
     denom = C._device_const("denom", cfg, dev, nf)
     spec = [torch.empty(1, cfg.num_bins, nf, device=dev) for _ in range(3)]
@@ -2296,8 +2311,8 @@ def dispatcher_cost(dev: torch.device) -> dict:
     ways = {
         "stft_mag": (
             (C.stft_mag_op, (x, *cfg_args)), (C._stft_cuda, (x, *cfg_args)),
-            (xp, pp, rp, ip, mp, 1, 4096, cfg.n_fft // 2, nf, cfg.n_fft, cfg.hop_length,
-             C.kernel_tile(cfg, inverse=False))),
+            (xp, pp, rp, ip, mp, 1, 4096, cfg.n_fft // 2, 1, nf, cfg.n_fft, cfg.hop_length,
+             C.kernel_tile(cfg, inverse=False), radices)),
         "attention_fwd": (
             (A.attention_fwd_op, (q, k, v, None, scale, False)),
             (A._forward_kernel, (q, k, v, None, scale, False)),
@@ -2311,7 +2326,7 @@ def dispatcher_cost(dev: torch.device) -> dict:
             (C.istft_polar_op, (mag, ph, *cfg_args, None)),
             (C._istft_cuda, (mag, ph, *cfg_args, None)),
             (magp, php, pp, dp, yp, 1, nf, cfg.n_fft, cfg.hop_length, offset, n_out,
-             C.kernel_tile(cfg, inverse=True))),
+             C.kernel_tile(cfg, inverse=True), radices)),
     }
     cost = {}
     for name, ((op, op_args), (impl, impl_args), launch_args) in ways.items():
@@ -2817,13 +2832,28 @@ def measurement_tools(smi: str, noisy: Path) -> dict:
             "mfu_pct": line["mfu_pct"], "train_mfu_pct": train["mfu_pct"]}
 
 
-# phase 16: head dims that are no K2 instance (its STFT geometries are
-# cuda_stft.GEOMETRIES)
-PADDED_HEAD_DIMS = (24, 48, 80, 96, 112)
+# phase 16: head dims that are no K2 instance, 192 and 256 on its sliced
+# instance (its STFT geometries are cuda_stft.GEOMETRIES)
+PADDED_HEAD_DIMS = (24, 48, 80, 96, 112, 192, 256)
 AUDIO_400 = {"n_fft": 400, "hop_length": 100, "win_length": 400}  # CMGAN's 16 kHz front end
 AUDIO_DCCRN = {"n_fft": 512, "hop_length": 100, "win_length": 400}
 # the CUDA functions of K1g and K3g, as kernel_ms names them
 DFT_FUNCS = {"stft_dft": ("stft_dft",), "istft_dft": ("istft_dft_frames", "istft_dft_ola")}
+# K1g's and K3g's timed geometries: the largest the JAX package tests (both),
+# and two whose hop does not divide n_fft (K3g)
+DFT_TIMED = {"stft_dft": ((4096, 1024, 4096),),
+             "istft_dft": ((4096, 1024, 4096), (400, 160, 400), (512, 100, 400))}
+GL_ITERS_4096 = 4  # Griffin-Lim rounds at 4096/1024: K1g and K3g through an entry point
+# phase 16's times, in a fresh process: late in this script the profiler loses
+# the first work of profiled regions, never in a short process
+TIMES_CHILD = r"""
+import json, sys
+import torch
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+import chip_smoke
+print(json.dumps(chip_smoke.geometry_times(json.loads(sys.argv[1]), sys.argv[2])))
+"""
 
 
 def dft_ms(times: dict[str, float], name: str, calls: int) -> float | None:
@@ -2838,11 +2868,76 @@ def ms_or_not(x) -> str:
     return "not measured" if x is None else f"{x:.4f}"
 
 
+def time_stft_kernel(dev, g, name: str, cfg, smi: str, wav_len: int = 51100) -> dict:
+    """Phase 16's times of the STFT kernel ``name`` (K1, K1g, K3 or K3g) at
+    ``cfg`` on the serving batch's 32 rows of ``wav_len`` samples (or their
+    spectra), beside its plain version, ``torch.stft`` + ``abs`` or
+    ``torch.istft`` of ``torch.polar``, and its bound: the function's, an
+    FFT's operations or the bytes (``stft_work``), whichever kernel computes
+    it. Each timed output is held against the plain version's."""
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.ops import cuda_stft
+
+    inverse = name.startswith("istft")
+    if cuda_stft.route(cfg, inverse=inverse)[0] != name:
+        raise AssertionError(f"{name} is not the route of {cfg}")
+    n_frames, f_bins, n_fresh = cfg.num_frames(wav_len), cfg.num_bins, 8
+    win = torch.from_numpy(cfg.padded_window()).to(dev)
+    if inverse:
+        inputs = [(torch.rand(BATCH, f_bins, n_frames, generator=g).to(dev),
+                   (torch.rand(BATCH, f_bins, n_frames, generator=g) * 6.28 - 3.14).to(dev))
+                  for _ in range(n_fresh)]
+        kern = lambda m, p: cuda_stft.istft_polar(m, p, cfg, length=wav_len)  # noqa: E731
+        plain = lambda m, p: cuda_stft.istft_polar_plain(m, p, cfg, length=wav_len)  # noqa: E731
+        lib_call = lambda m, p: torch.istft(  # noqa: E731
+            torch.polar(m, p), cfg.n_fft, cfg.hop_length, win_length=cfg.n_fft, window=win,
+            center=True, length=wav_len)
+    else:
+        inputs = [(torch.randn(BATCH, wav_len, generator=g).to(dev),) for _ in range(n_fresh)]
+        kern = lambda x: cuda_stft.stft_mag(x, cfg)  # noqa: E731
+        plain = lambda x: cuda_stft.stft_mag_plain(x, cfg)  # noqa: E731
+        lib_call = lambda x: torch.stft(  # noqa: E731
+            x, cfg.n_fft, cfg.hop_length, win_length=cfg.n_fft, window=win, center=True,
+            pad_mode="reflect", return_complex=True).abs()
+    tol = TOL_ISTFT if inverse else TOL_STFT
+    timed_err = max(max_err(kern(*args), plain(*args)) for args in inputs)
+    if timed_err > tol:
+        raise AssertionError(f"{name} at {cfg} on the timed inputs disagrees with its plain "
+                             f"version: {timed_err} > {tol}")
+    p1, k1, l1, l2, k2, p2 = (median_ms(f, inputs)
+                              for f in (plain, kern, lib_call, lib_call, kern, plain))
+    flops, nbytes = stft_work(cfg, BATCH, wav_len)["istft" if inverse else "stft"]
+    b_ms, b_by = bound(flops, nbytes, FP32_PEAK)
+    for args in inputs:  # warm-up
+        kern(*args)
+    times = device_times(lambda: [kern(*args) for args in inputs],
+                         need=DFT_FUNCS.get(name, (name,)))
+    dev_ms = (dft_ms(times, name, len(inputs)) if name in DFT_FUNCS
+              else (kernel_ms(times, name) / len(inputs) or None))
+    m = {"ms": min(k1, k2), "plain_ms": min(p1, p2), "library_ms": min(l1, l2),
+         "bound_ms": b_ms, "bound_by": b_by, "device_ms": dev_ms, "max_abs_err": timed_err}
+    lib_dev = device_ms(lib_call, inputs)
+    share = "not measured" if dev_ms is None else f"{b_ms / dev_ms:.1%}"
+    print(f"{name} at {cfg.n_fft}/{cfg.hop_length}/{cfg.win_length}, "
+          f"{'mag/phase' if inverse else 'x'} of {BATCH} rows of {wav_len} samples: per call "
+          f"{m['ms']:.4f} ms (device {ms_or_not(dev_ms)}), plain {m['plain_ms']:.4f} ms (device "
+          f"{device_ms(plain, inputs):.4f}), library {m['library_ms']:.4f} ms (device "
+          f"{lib_dev:.4f}); bound {b_ms:.4f} ms by {b_by} ({flops / 1e9:.3f} GFLOP of an FFT at "
+          f"{FP32_PEAK / 1e12:g} TFLOP/s, {nbytes / 1e6:.2f} MB at {HBM_RATE / 1e12:g} TB/s); "
+          f"share of bound {b_ms / m['ms']:.1%} per call, {share} on the device; outputs "
+          f"against the plain version's max abs err {timed_err:.3g} (tolerance {tol}) (per "
+          f"call: median of 5 runs over {n_fresh} fresh inputs; device: mean over them; {smi})",
+          flush=True)
+    m["library_device_ms"] = lib_dev
+    return m
+
+
 def geometry(dev: torch.device, smi: str, rng: np.random.Generator, g: torch.Generator) -> dict:
-    """Phase 16. Returns K1g's and K3g's errors and times (``errs``,
-    ``ms``), K2's errors at the padded head dims (``attention``), and the
-    launches of a 400/100 serving batch (``serve``), a DCCRN batch
-    (``dccrn``) and a 400/100 train step (``train``)."""
+    """Phase 16. Returns the STFT kernels' errors (``errs``) and K1g's and
+    K3g's times at the geometries they still serve (``ms``), K1's and K3's
+    at 400/100 (``fft_ms``), K2's errors at the padded head dims
+    (``attention``), and the launches of a 400/100 serving batch
+    (``serve``), a DCCRN batch (``dccrn``), a 400/100 train step (``train``)
+    and a Griffin-Lim call at 4096/1024 (``gl``)."""
     from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.inference import (
         AudioEnhancer,
     )
@@ -2856,7 +2951,7 @@ def geometry(dev: torch.device, smi: str, rng: np.random.Generator, g: torch.Gen
         cuda_attention, cuda_stft, kernels,
     )
     from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.ops.stft import (
-        STFTConfig, frame_signal, implied_length, window_dft,
+        STFTConfig, frame_signal, griffin_lim, implied_length, window_dft,
     )
     from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.ops.cuda_stft import (
         GEOMETRIES,
@@ -2871,8 +2966,8 @@ def geometry(dev: torch.device, smi: str, rng: np.random.Generator, g: torch.Gen
         batch_to_device,
     )
 
-    phase("geometry: K1g and K3g for the STFT geometries K1 and K3 do not take, K2 at any head "
-          "dim up to 128")
+    phase("geometry: every STFT geometry (K1 and K3 on the mixed radices, K1g and K3g for the "
+          "rest) and head dim (K2 padded, sliced above 128)")
     t_phase = time.perf_counter()
 
     def ran(what: str, want: dict) -> dict:
@@ -2886,19 +2981,23 @@ def geometry(dev: torch.device, smi: str, rng: np.random.Generator, g: torch.Gen
         return init_weights(create_hybrid_vit(config), torch.Generator().manual_seed(0))
 
     # 1. each geometry's kernels against their plain versions, on the serving
-    # batch's 32 rows of 51100 samples (bucket 512 at hop 100) and on the
-    # shortest row reflect padding allows
+    # batch's 32 rows of 51100 samples (bucket 512 at hop 100), on the
+    # shortest row one reflection pads, and on rows of n_fft/2 and of 100
+    # samples, which the wrapper pads first as jnp.pad does
     errs = {name: [] for name in ("stft_mag", "stft_dft", "istft_polar", "istft_dft")}
     for n_fft, hop, win, pad_mode in GEOMETRIES:
         cfg = STFTConfig(n_fft=n_fft, hop_length=hop, win_length=win, pad_mode=pad_mode)
         fwd, inv = (cuda_stft.route(cfg, inverse=i)[0] for i in (False, True))
         got_errs = []
-        for shape in ((BATCH, 51100), (2, n_fft // 2 + 1)):
+        for shape in ((BATCH, 51100), (2, n_fft // 2 + 1), (2, n_fft // 2), (2, 100)):
             x = torch.randn(shape, generator=g).to(dev)
             kernels.reset_launch_counts()
             out = cuda_stft.stft_mag(x, cfg)
-            ran(f"stft_mag at {n_fft}/{hop}/{win} {pad_mode}", {fwd: 1})
+            ran(f"stft_mag at {n_fft}/{hop}/{win} {pad_mode}, {shape[1]} samples", {fwd: 1})
             plain = cuda_stft.stft_mag_plain(x, cfg)
+            if any(o.shape != p.shape for o, p in zip(out, plain)):
+                raise AssertionError(f"stft_mag at {n_fft}/{hop}: shapes {out[0].shape}, plain "
+                                     f"{plain[0].shape}")
             got_errs.append(max_err(out, plain))
             if n_fft == 4096 and shape[0] == BATCH:  # the longest sums, against float64
                 spec = frame_signal(x[:1].double().cpu(), cfg) @ torch.from_numpy(
@@ -2917,13 +3016,15 @@ def geometry(dev: torch.device, smi: str, rng: np.random.Generator, g: torch.Gen
         y = cuda_stft.istft_polar(mag, ph, cfg, length=length)
         ran(f"istft_polar at {n_fft}/{hop}/{win} {pad_mode}", {inv: 1})
         errs[inv].append(max_err([y], [cuda_stft.istft_polar_plain(mag, ph, cfg, length=length)]))
-        print(f"{n_fft}/{hop}/{win} {pad_mode}: {fwd} max abs err {got_errs} (tolerance "
-              f"{TOL_STFT}); {inv} {errs[inv][-1]:.3g} (tolerance {TOL_ISTFT})", flush=True)
+        print(f"{n_fft}/{hop}/{win} {pad_mode}: {fwd} max abs err {got_errs} at 51100, "
+              f"{n_fft // 2 + 1}, {n_fft // 2} and 100 samples (tolerance {TOL_STFT}); {inv} "
+              f"{errs[inv][-1]:.3g} (tolerance {TOL_ISTFT})", flush=True)
     for name, e in errs.items():
         if e and max(e) > (TOL_ISTFT if name.startswith("istft") else TOL_STFT):
             raise AssertionError(f"{name} disagrees with its plain version: {e}")
 
-    # 2. K2 at head dims between its instances, under the train batch's mask
+    # 2. K2 at head dims between its instances and above 128 (the sliced
+    # instance), under the train batch's mask
     heads, n_tok = 8, 16 * 24
     lengths = np.linspace(1.5 * SR, 383 * 128, BATCH).astype(np.int64)
     train_mask = patch_validity_mask(torch.from_numpy(lengths), 257, 384, 128).to(dev)
@@ -2944,19 +3045,24 @@ def geometry(dev: torch.device, smi: str, rng: np.random.Generator, g: torch.Gen
         attn["attention_bwd"].append(max_err(grads, ref))
         bwd_rel.append(max(float((a - r).abs().max() / r.abs().max())
                            for a, r in zip(grads, ref)))
-        print(f"attention at D = {d} (the {cuda_attention.kernel_head_dim(d)} instance, "
-              f"zero-padded), q/k/v [{BATCH}, {heads}, {n_tok}, {d}] under the train mask: "
-              f"forward max abs err {attn['attention_fwd'][-1]:.3g} (tolerance {TOL_ATTN}), "
-              f"backward {bwd_rel[-1]:.3g} of the largest |grad| (tolerance {TOL_BWD}), "
+        dp = cuda_attention.kernel_head_dim(d)
+        inst = f"the {dp} instance" if dp <= 128 else f"the sliced instance, {dp // 128} slices"
+        print(f"attention at D = {d} ({inst}, zero-padded to {dp}), q/k/v [{BATCH}, {heads}, "
+              f"{n_tok}, {d}] under the train mask: forward max abs err "
+              f"{attn['attention_fwd'][-1]:.3g} (tolerance {TOL_ATTN}), backward "
+              f"{bwd_rel[-1]:.3g} of the largest |grad| (tolerance {TOL_BWD}), "
               f"{attn['attention_bwd'][-1]:.3g} abs", flush=True)
     if max(attn["attention_fwd"]) > TOL_ATTN or max(bwd_rel) > TOL_BWD:
         raise AssertionError(f"K2 at a padded head dim disagrees with its plain version: {attn}")
-    try:
-        cuda_attention.attention(*(torch.zeros(1, 1, 4, 136, device=dev) for _ in range(3)),
-                                 scale=0.1)
-        raise AssertionError("attention at D = 136 did not raise")
-    except ValueError as e:
-        print(f"attention at D = 136 raises before a launch: {e}", flush=True)
+    for d in (256,):  # the sliced instance's time beside the D = 64 instance's phase 7 time
+        qkv = [tuple(torch.randn(BATCH, heads, n_tok, d, generator=g).to(dev) for _ in range(3))
+               for _ in range(4)]
+        fwd_ms = device_ms(lambda q, k, v: cuda_attention.attention(q, k, v, scale=d**-0.5,
+                                                                    mask=train_mask), qkv)
+        print(f"attention at D = {d} (sliced), [{BATCH}, {heads}, {n_tok}, {d}] under the train "
+              f"mask: {fwd_ms:.4f} ms on the device a call; registers and spills "
+              f"{cuda_attention.kernel_info(d, n_tok)}, backward "
+              f"{cuda_attention.bwd_kernel_info(d)}; {smi}", flush=True)
 
     # 3. the 28M serving recipe at 400/100/400, 32 x 3 s PCM16 (bucket 512)
     serve_cfg = {"audio": AUDIO_400, "model": {"output_mode": "mask", "head": "fullres_mask",
@@ -2977,8 +3083,8 @@ def geometry(dev: torch.device, smi: str, rng: np.random.Generator, g: torch.Gen
             raise AssertionError(f"the 28M enhancer at {name} differs between cuda and cpu")
     wavs = [speechlike(int(SECONDS * SR), rng) for _ in range(BATCH)]
     launched, outs = {}, {}
-    # 4. the DCCRN geometry through the same enhancer: K1 (FFT) and K3g
-    for name, want in (("400/100/400", {"stft_dft": 1, "attention_fwd": 6, "istft_dft": 1}),
+    # 4. the DCCRN geometry through the same enhancer: K1 and K3g
+    for name, want in (("400/100/400", {"stft_mag": 1, "attention_fwd": 6, "istft_polar": 1}),
                        ("512/100/400", {"stft_mag": 1, "attention_fwd": 6, "istft_dft": 1})):
         torch.cuda.synchronize()
         kernels.reset_launch_counts()
@@ -2995,22 +3101,10 @@ def geometry(dev: torch.device, smi: str, rng: np.random.Generator, g: torch.Gen
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     wall = statistics.median(walls)
-    profiled = []
-    times = device_times(lambda: profiled.append(enhancer.enhance_batch(wavs)),
-                         need=("stft_dft", "istft_dft_frames", "istft_dft_ola"))
-    path_ms = {name: dft_ms(times, name, 1) for name in DFT_FUNCS}
-    # the profiled batches ran the kernels whatever the trace holds: each
-    # equals the counted batch's output
-    prof_err = max(float(np.abs(a - b).max()) for p in profiled
-                   for a, b in zip(p, outs["400/100/400"]))
-    if prof_err > TOL_WAVE:
-        raise AssertionError(f"a profiled 400/100 batch differs from the counted one: {prof_err}")
     print(f"28M serving recipe at 400/100/400: enhance_batch of {BATCH} x {SECONDS:g} s PCM16 "
-          f"in {wall * 1e3:.1f} ms (median of 5) = {BATCH * SECONDS / wall:.1f} audio-s/s; busy "
-          f"{sum(times.values()):.2f} ms on the device (profiler, one batch), K1g "
-          f"{ms_or_not(path_ms['stft_dft'])} ms, K3g {ms_or_not(path_ms['istft_dft'])} ms, K2 "
-          f"{kernel_ms(times, 'attention_fwd'):.4f} ms; launches {launched['400/100/400']}; "
-          f"DCCRN 512/100/400 launches {launched['512/100/400']}; {smi}", flush=True)
+          f"in {wall * 1e3:.1f} ms (median of 5) = {BATCH * SECONDS / wall:.1f} audio-s/s; "
+          f"launches {launched['400/100/400']}; DCCRN 512/100/400 launches "
+          f"{launched['512/100/400']}; {smi}", flush=True)
 
     # 5. the recipe's train step at 400/100/400: cuda vs cpu at depth 1, and
     # one full-width step at batch 16 in the 384-frame bucket
@@ -3027,7 +3121,7 @@ def geometry(dev: torch.device, smi: str, rng: np.random.Generator, g: torch.Gen
     kernels.reset_launch_counts()
     loss = float(step(batch)["total"])
     train = ran("the recipe's train step at 400/100/400",
-                {"stft_dft": 2, "attention_fwd": 6, "attention_bwd": 6})
+                {"stft_mag": 2, "attention_fwd": 6, "attention_bwd": 6})
     if not np.isfinite(loss):
         raise AssertionError(f"the train step at 400/100/400: loss {loss}")
     print(f"recipe train step at 400/100/400, batch {TRAIN_BATCH} x "
@@ -3054,70 +3148,102 @@ def geometry(dev: torch.device, smi: str, rng: np.random.Generator, g: torch.Gen
     if d48_err > TOL_WAVE:
         raise AssertionError("the D = 48 model differs between cuda and cpu")
 
-    # 7. times: K1g and K3g at the serving batch's geometry, beside their plain
-    # versions, torch.stft + abs and torch.istft of torch.polar
-    cfg = audio_config(serve_cfg)
-    wav_len, n_frames = 51100, cfg.num_frames(51100)
-    f_bins = cfg.num_bins
-    n_fresh = 8
-    xs = [(torch.randn(BATCH, wav_len, generator=g).to(dev),) for _ in range(n_fresh)]
-    mp = [(torch.rand(BATCH, f_bins, n_frames, generator=g).to(dev),
-           (torch.rand(BATCH, f_bins, n_frames, generator=g) * 6.28 - 3.14).to(dev))
-          for _ in range(n_fresh)]
-    win = torch.from_numpy(cfg.padded_window()).to(dev)
-    timed = {
-        "stft_dft": (
-            lambda x: cuda_stft.stft_mag(x, cfg), lambda x: cuda_stft.stft_mag_plain(x, cfg),
-            lambda x: torch.stft(x, cfg.n_fft, cfg.hop_length, window=win, center=True,
-                                 pad_mode="reflect", return_complex=True).abs(),
-            xs),
-        "istft_dft": (
-            lambda m, p: cuda_stft.istft_polar(m, p, cfg, length=wav_len),
-            lambda m, p: cuda_stft.istft_polar_plain(m, p, cfg, length=wav_len),
-            lambda m, p: torch.istft(torch.polar(m, p), cfg.n_fft, cfg.hop_length, window=win,
-                                     center=True, length=wav_len),
-            mp),
-    }
-    # the function's work, as K1's and K3's: an FFT's operations, not the
-    # dense product these kernels do (2 * frames * n_fft * 2F, 5.27 GFLOP)
-    fft_work = stft_work(cfg, BATCH, wav_len)
-    work = {"stft_dft": fft_work["stft"], "istft_dft": fft_work["istft"]}
-    ms = {}
-    for name, (kern, plain, lib_call, inputs) in timed.items():
-        # the timed inputs are the main path's shapes: each output against the
-        # plain version's
-        timed_err = max(max_err(kern(*args), plain(*args)) for args in inputs)
-        tol = TOL_ISTFT if name == "istft_dft" else TOL_STFT
-        errs[name].append(timed_err)
-        if timed_err > tol:
-            raise AssertionError(f"{name} on the timed inputs disagrees with its plain "
-                                 f"version: {timed_err} > {tol}")
-        p1, k1, l1, l2, k2, p2 = (median_ms(f, inputs)
-                                  for f in (plain, kern, lib_call, lib_call, kern, plain))
-        flops, nbytes = work[name]
-        b_ms, b_by = bound(flops, nbytes, FP32_PEAK)
-        for args in inputs:  # warm-up
-            kern(*args)
-        dev_ms = dft_ms(device_times(lambda: [kern(*args) for args in inputs],
-                                     need=DFT_FUNCS[name]), name, len(inputs))
-        ms[name] = {"ms": min(k1, k2), "plain_ms": min(p1, p2), "library_ms": min(l1, l2),
-                    "bound_ms": b_ms, "bound_by": b_by, "device_ms": dev_ms,
-                    "path_device_ms": path_ms[name]}
-        m = ms[name]
-        share = "not measured" if dev_ms is None else f"{b_ms / dev_ms:.1%}"
-        print(f"{name} at 400/100/400, {'x' if name == 'stft_dft' else 'mag/phase'} of the "
-              f"serving batch: per call {m['ms']:.4f} ms (device {ms_or_not(dev_ms)}), plain "
-              f"{m['plain_ms']:.4f} ms (device {device_ms(plain, inputs):.4f}), library "
-              f"{m['library_ms']:.4f} ms (device {device_ms(lib_call, inputs):.4f}); bound "
-              f"{b_ms:.4f} ms by {b_by} ({flops / 1e9:.3f} GFLOP of an FFT at "
-              f"{FP32_PEAK / 1e12:g} TFLOP/s, {nbytes / 1e6:.2f} MB at {HBM_RATE / 1e12:g} "
-              f"TB/s); share of bound {b_ms / m['ms']:.1%} per call, {share} on the device; "
-              f"outputs against the plain version's max abs err {timed_err:.3g} (tolerance "
-              f"{tol}) (per call: median of 5 runs over {n_fresh} fresh inputs; device: mean "
-              f"over them; {smi})", flush=True)
+    # 7. Griffin-Lim at 4096/1024 through its entry point: K1g and K3g, the
+    # spectral convergence falling from round 1 to the last
+    gl_cfg = STFTConfig(n_fft=4096, hop_length=1024, win_length=4096)
+    target = cuda_stft.stft_mag(torch.randn(4, 51100, generator=g).to(dev), gl_cfg)[2]
+    phase0 = torch.rand(target.shape, generator=g).to(dev) * 2 * np.pi
+
+    def convergence(y):
+        spec = cuda_stft.stft_mag(y, gl_cfg)[2]
+        return float((spec - target).norm() / target.norm())
+
+    one = griffin_lim(target, gl_cfg, n_iter=1, phase=phase0)
+    kernels.reset_launch_counts()
+    last = griffin_lim(target, gl_cfg, n_iter=GL_ITERS_4096, phase=phase0)
+    gl = ran(f"griffin_lim at 4096/1024, {GL_ITERS_4096} rounds",
+             {"stft_dft": GL_ITERS_4096, "istft_dft": GL_ITERS_4096 + 1})
+    sc1, sc_last = convergence(one), convergence(last)
+    print(f"griffin_lim at 4096/1024 on [4, 2049, 50], {GL_ITERS_4096} rounds: launches {gl}, "
+          f"output {tuple(last.shape)}, spectral convergence {sc1:.4f} after 1 round, "
+          f"{sc_last:.4f} after {GL_ITERS_4096}", flush=True)
+    if not torch.isfinite(last).all() or not sc_last < sc1:
+        raise AssertionError("griffin_lim at 4096/1024: output not finite, or the spectral "
+                             "convergence did not fall")
+
+    # 8. times, in a fresh process (TIMES_CHILD): the 400/100 batch's busy time
+    # and K1's and K3's share of it; K1 and K3 at 400/100 and 320/160, K1g and
+    # K3g at the geometries they still serve
+    child = subprocess.run([sys.executable, "-c", TIMES_CHILD, json.dumps(serve_cfg), smi],
+                           cwd=ROOT, capture_output=True, text=True, timeout=900)
+    lines = child.stdout.strip().splitlines()
+    print("\n".join(lines[:-1]), flush=True)
+    if child.returncode != 0:
+        raise AssertionError(f"phase 16's times in a fresh process failed:\n"
+                             f"{child.stdout[-3000:]}{child.stderr[-3000:]}")
+    timed = json.loads(lines[-1])
+    for name, e in timed["errs"].items():
+        errs[name] += e
     print(f"geometry phase: {time.perf_counter() - t_phase:.1f} s; {smi}", flush=True)
-    return {"errs": errs, "ms": ms, "attention": attn, "serve": launched["400/100/400"],
-            "dccrn": launched["512/100/400"], "train": train}
+    return {"errs": errs, "ms": timed["ms"], "dft_others": timed["dft_others"],
+            "fft_ms": timed["fft_ms"], "attention": attn, "serve": launched["400/100/400"],
+            "dccrn": launched["512/100/400"], "train": train, "gl": gl}
+
+
+def geometry_times(serve_cfg: dict, smi: str) -> dict:
+    """Phase 16's times, run in a fresh process (``TIMES_CHILD``). The 28M
+    serving recipe at 400/100 on a 32 x 3 s PCM16 batch of seeded weights:
+    busy ms on the device and K1's and K3's device ms in it (``path``); K1
+    and K3 at 400/100 and 320/160 (``fft_ms``), K1g and K3g at the geometries
+    they still serve (``ms`` at the first, ``dft_others``), each timed output's
+    error against the plain version's (``errs``)."""
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.inference import (
+        AudioEnhancer,
+    )
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.models import (
+        create_hybrid_vit, init_weights,
+    )
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.ops import kernels
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.ops.stft import (
+        STFTConfig,
+    )
+
+    kernels.build()
+    dev, g, rng = torch.device("cuda"), torch.Generator().manual_seed(16), np.random.default_rng(16)
+    model = init_weights(create_hybrid_vit(serve_cfg), torch.Generator().manual_seed(0))
+    enhancer = AudioEnhancer(model, serve_cfg, device=dev, io_dtype="int16", mask_padding=True)
+    wavs = [speechlike(int(SECONDS * SR), rng) for _ in range(BATCH)]
+    enhancer.enhance_batch(wavs)
+    times = device_times(lambda: enhancer.enhance_batch(wavs), need=("stft_mag", "istft_polar"))
+    path = {name: kernel_ms(times, name) for name in ("stft_mag", "istft_polar")}
+    if not all(path.values()):
+        raise AssertionError(f"the 400/100 batch's profile lacks K1 or K3: {path}")
+    print(f"28M serving recipe at 400/100/400, {BATCH} x {SECONDS:g} s PCM16, in a fresh "
+          f"process: busy {sum(times.values()):.2f} ms on the device (profiler, one batch), K1 "
+          f"{path['stft_mag']:.4f} ms, K3 {path['istft_polar']:.4f} ms, K2 "
+          f"{kernel_ms(times, 'attention_fwd'):.4f} ms; {smi}", flush=True)
+    fft_ms, ms, dft_others = {}, {}, {}
+    errs = {name: [] for name in ("stft_mag", "istft_polar", "stft_dft", "istft_dft")}
+    for n_fft, hop, win in ((400, 100, 400), (320, 160, 320)):
+        cfg = STFTConfig(n_fft=n_fft, hop_length=hop, win_length=win)
+        fft_ms[f"{n_fft}/{hop}/{win}"] = {name: time_stft_kernel(dev, g, name, cfg, smi)
+                                          for name in ("stft_mag", "istft_polar")}
+    for name in ("stft_mag", "istft_polar"):
+        fft_ms["400/100/400"][name]["path_device_ms"] = path[name]
+    for name, geoms in DFT_TIMED.items():
+        for i, (n_fft, hop, win) in enumerate(geoms):
+            m = time_stft_kernel(dev, g, name, STFTConfig(n_fft=n_fft, hop_length=hop,
+                                                          win_length=win), smi)
+            if i == 0:
+                ms[name] = m
+            else:
+                dft_others.setdefault(name, {})[f"{n_fft}/{hop}/{win}"] = m
+    for name, m in ms.items():
+        errs[name].append(m.pop("max_abs_err"))
+    for name, by_geom in dft_others.items():
+        for m in by_geom.values():
+            errs[name].append(m.pop("max_abs_err"))
+    return {"fft_ms": fft_ms, "ms": ms, "dft_others": dft_others, "errs": errs}
 
 
 def main() -> int:
@@ -3168,8 +3294,9 @@ def main() -> int:
     print(f"built {sorted(p.name for p in libs.values())} from csrc/*.cu (one nvcc each, "
           f"in parallel) in {time.perf_counter() - t0:.1f} s", flush=True)
     # every instance runs: 64 at the repo's configs, 16, 32 and 128 for the
-    # head dims between them (zero-padded; phase 16)
-    for d in cuda_attention._HEAD_DIMS:
+    # head dims between them (zero-padded; phase 16), the sliced one above
+    # 128 (256: two slices; phase 16)
+    for d in cuda_attention._HEAD_DIMS + (256,):
         print(f"attention_fwd at head dim {d}, 384 keys, masked: "
               f"{cuda_attention.kernel_info(d, 384)}; attention_bwd, registers and local "
               f"(spill) bytes a thread of each pass: {cuda_attention.bwd_kernel_info(d)}",
@@ -3431,6 +3558,14 @@ def main() -> int:
     for name, e in geometry_run["attention"].items():
         errs[name] = errs[name] + e
     ms.update(geometry_run["ms"])
+    # K1's and K3's times at the mixed-radix geometries, K3g's at its other ones
+    for geom, by_kernel in geometry_run["fft_ms"].items():
+        for name, m in by_kernel.items():
+            errs[name].append(m.pop("max_abs_err"))
+            ms[name][f"at_{geom}"] = m
+    for name, by_geom in geometry_run["dft_others"].items():
+        for geom, m in by_geom.items():
+            ms[name][f"at_{geom}"] = m
 
     print(f"chip_smoke.py: {time.perf_counter() - STARTED:.1f} s from start to result (the "
           f"kernels' build included); {smi}", flush=True)
@@ -3454,6 +3589,7 @@ def main() -> int:
          "geometry_serve_launches": geometry_run["serve"][name],
          "dccrn_serve_launches": geometry_run["dccrn"][name],
          "geometry_train_launches": geometry_run["train"][name],
+         "geometry_gl_launches": geometry_run["gl"][name],
          "max_abs_err": max(errs[name]),
          **ms[name]}
         for name, k in kernels.KERNELS.items()

@@ -54,6 +54,17 @@
 // - For training, a second instance also writes each row's log-sum-exp,
 //   m + log2 l in log2 units, from which the backward (attention_bwd.cu)
 //   recomputes the weights.
+// - A head dim above 128 (SLICED, the D = 128 instance's tiles and
+//   registers): q, k and v are zero-padded to whole 128-column slices, and
+//   the grid gets a third dimension, the output's slice. Each block walks
+//   its keys tile by tile and, within a tile, the slices of Q and K one
+//   step at a time (its own output slice last), summing S = sum_s Q_s K_s^T
+//   in registers; Q's fragments are read and split per step (L1 holds the
+//   block's rows), not kept. At the last slice it loads its slice of V
+//   with that step's K, and the softmax and O += P V_z run as above. Every
+//   block of a row recomputes the same S, so the QK^T work grows with the
+//   number of slices (2x at D = 256); the registers stay the D = 128
+//   instance's (O of 128 columns), and no block holds all of D.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -84,15 +95,15 @@ constexpr size_t tile_bytes() {
 // instance, so that the serving path (lse null) pays nothing for it.
 // Two blocks (eight warps) an SM. A cap of 168 registers for three blocks
 // makes the D = 64 instance spill, and it ran slower on an H100.
-template <int D, bool LSE>
+template <int D, bool LSE, bool SLICED>
 __global__ void __launch_bounds__(THREADS, 2)
-attention_fwd_kernel(const float* __restrict__ q,   // [G, N, D]
-                     const float* __restrict__ k,   // [G, N, D]
-                     const float* __restrict__ v,   // [G, N, D]
+attention_fwd_kernel(const float* __restrict__ q,   // [G, N, D * slices]
+                     const float* __restrict__ k,   // [G, N, D * slices]
+                     const float* __restrict__ v,   // [G, N, D * slices]
                      const unsigned char* __restrict__ key_mask,  // [B, N] or null
-                     float* __restrict__ out,       // [G, N, D]
+                     float* __restrict__ out,       // [G, N, D * slices]
                      float* __restrict__ lse,       // [G, N] when LSE
-                     int heads, int n, float qscale) {
+                     int heads, int n, float qscale, int slices) {
   constexpr int BK = tile_keys<D>();
   constexpr int LDK = D + 8, LDV = D + 4;
   constexpr int KS = D / 8;   // k-steps of S = Q K^T
@@ -100,6 +111,10 @@ attention_fwd_kernel(const float* __restrict__ q,   // [G, N, D]
   constexpr int DT = D / 8;   // 8-wide column tiles of O
   constexpr int CH = D / 4;   // 16-byte chunks of a K or V row
   constexpr bool Q_SPLIT = D <= 64;  // Q's hi/lo kept, not recomputed per tile
+  static_assert(!SLICED || D == 128, "slices of 128 columns");
+  const int ns = SLICED ? slices : 1;  // 128-column slices of the head dim
+  const int ld = D * ns;               // row stride of q, k, v and out
+  const int zo = SLICED ? static_cast<int>(blockIdx.z) * D : 0;  // the output slice's column
 
   extern __shared__ float4 smem[];
   float* ks = reinterpret_cast<float*>(smem);  // [2][BK][LDK]
@@ -107,7 +122,7 @@ attention_fwd_kernel(const float* __restrict__ q,   // [G, N, D]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const long base = static_cast<long>(blockIdx.y) * n * D;
+  const long base = static_cast<long>(blockIdx.y) * n * ld;
   const unsigned char* mrow =
       key_mask ? key_mask + static_cast<long>(blockIdx.y / heads) * n : nullptr;
 
@@ -126,8 +141,15 @@ attention_fwd_kernel(const float* __restrict__ q,   // [G, N, D]
     }
   }
 
-  auto load_tile = [&](int tile, int buf) {
-    const int j0 = tile * BK;
+  // step st walks key tile st / ns and, of Q and K, slice slice_at(st % ns):
+  // the block's output slice comes last, and only then is V (its slice)
+  // loaded, into the same buffer as that step's K
+  auto slice_at = [&](int i) { return SLICED ? (static_cast<int>(blockIdx.z) + 1 + i) % ns : 0; };
+  auto load_tile = [&](int st, int buf) {
+    const int i_s = SLICED ? st % ns : 0;
+    const int j0 = (SLICED ? st / ns : st) * BK;
+    const int ko = slice_at(i_s) * D;
+    const bool with_v = i_s == ns - 1;
     float* kd = ks + buf * BK * LDK;
     float* vd = vs + buf * BK * LDV;
     static_assert(BK * CH % THREADS == 0, "whole rounds of 16-byte copies");
@@ -138,8 +160,8 @@ attention_fwd_kernel(const float* __restrict__ q,   // [G, N, D]
       const int p = j0 + r;
       const bool in = p < count;
       const long key = in ? (kept ? kept[p] : p) : 0;
-      cp_async16(kd + r * LDK + c * 4, k + base + key * D + c * 4, in);
-      cp_async16(vd + r * LDV + c * 4, v + base + key * D + c * 4, in);
+      cp_async16(kd + r * LDK + c * 4, k + base + key * ld + ko + c * 4, in);
+      if (with_v) cp_async16(vd + r * LDV + c * 4, v + base + key * ld + zo + c * 4, in);
     }
     cp_async_commit();
   };
@@ -147,17 +169,21 @@ attention_fwd_kernel(const float* __restrict__ q,   // [G, N, D]
   // Q's A fragments: rows g and g + 8 of the warp's 16, columns 2t and
   // 2t + 1 of each k-step (a0, a2 and a1, a3).
   const int ra = blockIdx.x * BM + warp * 16 + g, rb = ra + 8;
-  float qf[KS][4];
+  // (SLICED: read per step instead, at the step's slice)
+  auto q_frag = [&](int col, float (&f)[4]) {
+    const float2 x = ra < n ? *reinterpret_cast<const float2*>(q + base + static_cast<long>(ra) * ld + col)
+                            : make_float2(0.f, 0.f);
+    const float2 y = rb < n ? *reinterpret_cast<const float2*>(q + base + static_cast<long>(rb) * ld + col)
+                            : make_float2(0.f, 0.f);
+    f[0] = x.x * qscale;
+    f[1] = y.x * qscale;
+    f[2] = x.y * qscale;
+    f[3] = y.y * qscale;
+  };
+  float qf[SLICED ? 1 : KS][4];
+  if constexpr (!SLICED) {
 #pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-    const float2 x = ra < n ? *reinterpret_cast<const float2*>(q + base + static_cast<long>(ra) * D + kk * 8 + 2 * t)
-                            : make_float2(0.f, 0.f);
-    const float2 y = rb < n ? *reinterpret_cast<const float2*>(q + base + static_cast<long>(rb) * D + kk * 8 + 2 * t)
-                            : make_float2(0.f, 0.f);
-    qf[kk][0] = x.x * qscale;
-    qf[kk][1] = y.x * qscale;
-    qf[kk][2] = x.y * qscale;
-    qf[kk][3] = y.y * qscale;
+    for (int kk = 0; kk < KS; ++kk) q_frag(kk * 8 + 2 * t, qf[kk]);
   }
   uint32_t qh[Q_SPLIT ? KS : 1][4], ql[Q_SPLIT ? KS : 1][4];
   if constexpr (Q_SPLIT) {
@@ -176,35 +202,47 @@ attention_fwd_kernel(const float* __restrict__ q,   // [G, N, D]
   float l0 = 0.f, l1 = 0.f;              // this thread's share of their sums
 
   const int ntiles = (count + BK - 1) / BK;
+  const int nsteps = ntiles * ns;
+  float s[NT][4];
   load_tile(0, 0);
-  for (int tile = 0; tile < ntiles; ++tile) {
-    const int buf = tile & 1;
-    if (tile + 1 < ntiles) {
-      load_tile(tile + 1, buf ^ 1);
+  for (int st = 0; st < nsteps; ++st) {
+    const int buf = st & 1;
+    if (st + 1 < nsteps) {
+      load_tile(st + 1, buf ^ 1);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
+    const int tile = SLICED ? st / ns : st;
+    const int i_s = SLICED ? st % ns : 0;
     const float* kt = ks + buf * BK * LDK;
     const float* vt = vs + buf * BK * LDV;
 
-    // S = Q K^T (log2 units)
-    float s[NT][4];
+    // S = Q K^T (log2 units), summed over the slices of a tile's steps
+    if (i_s == 0) {
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
+      for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+        for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+    }
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk) {
       uint32_t ah[4], al[4];
+      if constexpr (SLICED) {
+        float f[4];
+        q_frag(slice_at(i_s) * D + kk * 8 + 2 * t, f);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        if constexpr (Q_SPLIT) {
-          ah[e] = qh[kk][e];
-          al[e] = ql[kk][e];
-        } else {
-          split(qf[kk][e], ah[e], al[e]);
+        for (int e = 0; e < 4; ++e) split(f[e], ah[e], al[e]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if constexpr (Q_SPLIT) {
+            ah[e] = qh[kk][e];
+            al[e] = ql[kk][e];
+          } else {
+            split(qf[kk][e], ah[e], al[e]);
+          }
         }
       }
 #pragma unroll
@@ -212,6 +250,10 @@ attention_fwd_kernel(const float* __restrict__ q,   // [G, N, D]
         const float2 b = *reinterpret_cast<const float2*>(kt + (nt * 8 + g) * LDK + kk * 8 + 2 * t);
         mma3(s[nt], ah, al, b.x, b.y);
       }
+    }
+    if (i_s != ns - 1) {  // more slices of this tile to sum
+      __syncthreads();    // the next iteration refills this buffer
+      continue;
     }
 
     // masks (a full tile of kept or unmasked keys has none), row max, rescale
@@ -286,15 +328,16 @@ attention_fwd_kernel(const float* __restrict__ q,   // [G, N, D]
 #pragma unroll
   for (int dt = 0; dt < DT; ++dt) {
     if (ra < n)
-      *reinterpret_cast<float2*>(out + base + static_cast<long>(ra) * D + dt * 8 + 2 * t) =
+      *reinterpret_cast<float2*>(out + base + static_cast<long>(ra) * ld + zo + dt * 8 + 2 * t) =
           make_float2(o[dt][0] * i0, o[dt][1] * i0);
     if (rb < n)
-      *reinterpret_cast<float2*>(out + base + static_cast<long>(rb) * D + dt * 8 + 2 * t) =
+      *reinterpret_cast<float2*>(out + base + static_cast<long>(rb) * ld + zo + dt * 8 + 2 * t) =
           make_float2(o[dt][2] * i1, o[dt][3] * i1);
   }
   // the log-sum-exp of each row's logits in log2 units (m + log2 l), which
-  // the backward (attention_bwd.cu) recomputes the weights from
-  if (LSE && t == 0) {
+  // the backward (attention_bwd.cu) recomputes the weights from (every
+  // slice's block computes the same; the first writes it)
+  if (LSE && t == 0 && (!SLICED || blockIdx.z == 0)) {
     if (ra < n) lse[blockIdx.y * static_cast<long>(n) + ra] = m0 + log2f(l0);
     if (rb < n) lse[blockIdx.y * static_cast<long>(n) + rb] = m1 + log2f(l1);
   }
@@ -309,42 +352,44 @@ size_t smem_bytes(bool masked, int n) {
 
 // Lets both instances take all the shared memory a block may have on the
 // current device (max_smem.cuh).
-template <int D>
+template <int D, bool SLICED>
 cudaError_t configure() {
-  return allow_max_smem<D>(attention_fwd_kernel<D, false>, attention_fwd_kernel<D, true>);
+  return allow_max_smem<SLICED ? -D : D>(attention_fwd_kernel<D, false, SLICED>,
+                                         attention_fwd_kernel<D, true, SLICED>);
 }
 
-template <int D>
+// slices: 128-column slices of the head dim (SLICED), else 1
+template <int D, bool SLICED = false>
 cudaError_t launch(const float* q, const float* k, const float* v,
                    const unsigned char* key_mask, float* out, float* lse, int groups,
-                   int heads, int n, float qscale, cudaStream_t stream) {
-  cudaError_t err = configure<D>();
+                   int heads, int n, float qscale, cudaStream_t stream, int slices = 1) {
+  cudaError_t err = configure<D, SLICED>();
   if (err != cudaSuccess) return err;
-  const dim3 grid((n + BM - 1) / BM, groups);
+  const dim3 grid((n + BM - 1) / BM, groups, slices);
   const size_t smem = smem_bytes<D>(key_mask != nullptr, n);
   if (lse)
-    attention_fwd_kernel<D, true><<<grid, THREADS, smem, stream>>>(q, k, v, key_mask, out, lse,
-                                                                  heads, n, qscale);
+    attention_fwd_kernel<D, true, SLICED><<<grid, THREADS, smem, stream>>>(
+        q, k, v, key_mask, out, lse, heads, n, qscale, slices);
   else
-    attention_fwd_kernel<D, false><<<grid, THREADS, smem, stream>>>(q, k, v, key_mask, out,
-                                                                   nullptr, heads, n, qscale);
+    attention_fwd_kernel<D, false, SLICED><<<grid, THREADS, smem, stream>>>(
+        q, k, v, key_mask, out, nullptr, heads, n, qscale, slices);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool SLICED = false>
 cudaError_t info(int n, int masked, int* regs, int* local_bytes, int* smem,
                  int* blocks_per_sm) {
-  cudaError_t err = configure<D>();
+  cudaError_t err = configure<D, SLICED>();
   if (err != cudaSuccess) return err;
+  const auto kernel = attention_fwd_kernel<D, false, SLICED>;  // the serving instance
   cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, attention_fwd_kernel<D, false>);  // the serving instance
+  err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return err;
   const size_t bytes = smem_bytes<D>(masked != 0, n);
   *regs = attr.numRegs;
   *local_bytes = static_cast<int>(attr.localSizeBytes);
   *smem = static_cast<int>(bytes + attr.sharedSizeBytes);
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, attention_fwd_kernel<D, false>, THREADS, bytes);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, THREADS, bytes);
 }
 
 }  // namespace
@@ -352,7 +397,8 @@ cudaError_t info(int n, int masked, int* regs, int* local_bytes, int* smem,
 // q/k/v/out: [groups = batch*heads, n, d] contiguous, 16-byte aligned;
 // key_mask: [batch, n] bytes (nonzero = attend) or null; lse: [groups, n]
 // or null (the serving path), each row's log-sum-exp in log2 units for the
-// backward; qscale: the softmax scale times log2(e). d in {16, 32, 64, 128}.
+// backward; qscale: the softmax scale times log2(e). d in {16, 32, 64, 128},
+// or a multiple of 128 above it (the sliced instance).
 extern "C" int sevit_attention_fwd(const float* q, const float* k,
                                    const float* v, const unsigned char* key_mask,
                                    float* out, float* lse, int groups, int heads, int n,
@@ -363,13 +409,16 @@ extern "C" int sevit_attention_fwd(const float* q, const float* k,
     case 32: return launch<32>(q, k, v, key_mask, out, lse, groups, heads, n, qscale, s);
     case 64: return launch<64>(q, k, v, key_mask, out, lse, groups, heads, n, qscale, s);
     case 128: return launch<128>(q, k, v, key_mask, out, lse, groups, heads, n, qscale, s);
-    default: return cudaErrorInvalidValue;
+    default:
+      if (d <= 128 || d % 128) return cudaErrorInvalidValue;
+      return launch<128, true>(q, k, v, key_mask, out, lse, groups, heads, n, qscale, s,
+                               d / 128);
   }
 }
 
 // Registers and local (spill) bytes per thread, shared memory per block and
 // resident blocks per SM of the instance for head dim d at n keys, with or
-// without a mask.
+// without a mask (d above 128: the sliced instance).
 extern "C" int sevit_attention_info(int d, int n, int masked, int* regs, int* local_bytes,
                                     int* smem, int* blocks_per_sm) {
   switch (d) {
@@ -377,6 +426,8 @@ extern "C" int sevit_attention_info(int d, int n, int masked, int* regs, int* lo
     case 32: return info<32>(n, masked, regs, local_bytes, smem, blocks_per_sm);
     case 64: return info<64>(n, masked, regs, local_bytes, smem, blocks_per_sm);
     case 128: return info<128>(n, masked, regs, local_bytes, smem, blocks_per_sm);
-    default: return cudaErrorInvalidValue;
+    default:
+      if (d <= 128 || d % 128) return cudaErrorInvalidValue;
+      return info<128, true>(n, masked, regs, local_bytes, smem, blocks_per_sm);
   }
 }

@@ -65,6 +65,14 @@
 // bytes a key of shared memory beside the A operands and tiles (100,864
 // bytes in the dk/dv pass at D = 64), so a mask over more than 30,956 keys at
 // D = 64 (7,946 at D = 128) fails to launch.
+// A head dim above 128 (SLICED), as the forward: q, k, v, o and dO
+// zero-padded to whole 128-column slices, a third grid dimension over the
+// output slice, and each tile walked one slice of its operands a step, the
+// block's own slice last, so that S and dP (and Delta) sum over every slice
+// while dq (or dk and dv) gathers only its 128 columns from the last step's
+// tile. The A operands are read from device memory and split per step
+// instead of kept in shared memory (which could not hold every slice's), so
+// the sliced passes use the D = 128 tiles' shared memory alone.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -87,9 +95,9 @@ template <int D>
 __host__ __device__ constexpr int dkdv_tile() { return D <= 64 ? 32 : 16; }
 
 // Shared memory of a block's A operands in 16-byte words: two operands, D / 8
-// k-steps, hi and lo, a word per thread.
-template <int D>
-__host__ __device__ constexpr int a_words() { return 2 * (D / 8) * 2 * THREADS; }
+// k-steps, hi and lo, a word per thread (none in the sliced passes).
+template <int D, bool SLICED>
+__host__ __device__ constexpr int a_words() { return SLICED ? 0 : 2 * (D / 8) * 2 * THREADS; }
 
 template <int D>
 __host__ __device__ constexpr int ld() { return D + 4; }  // row stride of every tile
@@ -97,10 +105,10 @@ __host__ __device__ constexpr int ld() { return D + 4; }  // row stride of every
 // Shared memory before the kept-key list: the A operands, then two K and
 // two V tiles (dq pass) or two Q and two dO tiles and their rows' lse and
 // Delta (dk/dv pass).
-template <int D>
+template <int D, bool SLICED>
 constexpr size_t tiles_bytes(bool dkdv) {
-  return 16 * a_words<D>() + sizeof(float) * (dkdv ? 2 * dkdv_tile<D>() * (2 * ld<D>() + 2)
-                                                   : 2 * 2 * BK * ld<D>());
+  return 16 * a_words<D, SLICED>() +
+         sizeof(float) * (dkdv ? 2 * dkdv_tile<D>() * (2 * ld<D>() + 2) : 2 * 2 * BK * ld<D>());
 }
 
 // The first of the two columns thread t takes at k-step kk of a product over
@@ -146,23 +154,35 @@ __device__ __forceinline__ void mma_rows(float (&acc)[D / 8][4], const uint32_t 
 }
 
 // The accumulators' rows g and g + 8 (n-tiles 2p, 2p + 1 of each 16-column
-// pair) times `mul` into rows ra and rb (-1: none) of a [*, D] matrix, as
-// float4 stores at columns 16p + 4t.
+// pair) times `mul` into rows ra and rb (-1: none) of a matrix of row stride
+// `stride`, as float4 stores at columns 16p + 4t.
 template <int D>
 __device__ __forceinline__ void store_rows(float* dst, long ra, long rb, const float (&acc)[D / 8][4],
-                                           float mul, int t) {
+                                           float mul, int t, int stride) {
 #pragma unroll
   for (int p = 0; p < D / 16; ++p) {
     const int c = 16 * p + 4 * t;
     if (ra >= 0)
-      *reinterpret_cast<float4*>(dst + ra * D + c) =
+      *reinterpret_cast<float4*>(dst + ra * stride + c) =
           make_float4(acc[2 * p][0] * mul, acc[2 * p + 1][0] * mul, acc[2 * p][1] * mul,
                       acc[2 * p + 1][1] * mul);
     if (rb >= 0)
-      *reinterpret_cast<float4*>(dst + rb * D + c) =
+      *reinterpret_cast<float4*>(dst + rb * stride + c) =
           make_float4(acc[2 * p][2] * mul, acc[2 * p + 1][2] * mul, acc[2 * p][3] * mul,
                       acc[2 * p + 1][3] * mul);
   }
+}
+
+// The A fragment of k-step column c (kcol's) of rows ra and rb (-1: a zero
+// row) of a matrix of row stride `stride`, times `mul`.
+__device__ __forceinline__ void frag_a(float (&f)[4], const float* src, long ra, long rb, int c,
+                                       float mul, int stride) {
+  const float2 x = ra >= 0 ? ld2(src + ra * stride + c) : make_float2(0.f, 0.f);
+  const float2 y = rb >= 0 ? ld2(src + rb * stride + c) : make_float2(0.f, 0.f);
+  f[0] = x.x * mul;
+  f[1] = y.x * mul;
+  f[2] = x.y * mul;
+  f[3] = y.y * mul;
 }
 
 // A fragments of rows ra and rb (-1: a zero row) of a [*, D] matrix, times
@@ -171,15 +191,18 @@ template <int D>
 __device__ __forceinline__ void load_a(float (&f)[D / 8][4], const float* src, long ra, long rb,
                                        float mul, int t) {
 #pragma unroll
-  for (int kk = 0; kk < D / 8; ++kk) {
-    const int c = kcol<D>(kk, t);
-    const float2 x = ra >= 0 ? ld2(src + ra * D + c) : make_float2(0.f, 0.f);
-    const float2 y = rb >= 0 ? ld2(src + rb * D + c) : make_float2(0.f, 0.f);
-    f[kk][0] = x.x * mul;
-    f[kk][1] = y.x * mul;
-    f[kk][2] = x.y * mul;
-    f[kk][3] = y.y * mul;
-  }
+  for (int kk = 0; kk < D / 8; ++kk) frag_a(f[kk], src, ra, rb, kcol<D>(kk, t), mul, D);
+}
+
+// The hi and lo A fragments of k-step kk of rows ra and rb of a matrix of
+// row stride `stride` times `mul` (the sliced passes, per step).
+template <int D>
+__device__ __forceinline__ void split_a(const float* src, long ra, long rb, int kk, int t,
+                                        float mul, int stride, uint32_t (&hi)[4],
+                                        uint32_t (&lo)[4]) {
+  float f[4];
+  frag_a(f, src, ra, rb, kcol<D>(kk, t), mul, stride);
+  split4(f, hi, lo);
 }
 
 // The A fragments of operand `op` (0 or 1) over the head dim, rows ra and
@@ -210,12 +233,12 @@ __device__ __forceinline__ void get_a(const uint4* own, int op, int kk, uint32_t
   lo[0] = l.x, lo[1] = l.y, lo[2] = l.z, lo[3] = l.w;
 }
 
-// Rows [r0, r0 + R) of a row-major [*, D] matrix (gathered through `idx`
-// when it is not null) into an R x ld<D>() tile by cp.async; rows from
-// `count` on are zero filled.
+// Columns [0, D) of rows [r0, r0 + R) of a row-major matrix of row stride
+// `stride` (gathered through `idx` when it is not null) into an R x ld<D>()
+// tile by cp.async; rows from `count` on are zero filled.
 template <int D, int R>
 __device__ __forceinline__ void copy_rows(float* dst, const float* src, int r0, int count,
-                                          const int* idx) {
+                                          const int* idx, int stride) {
   constexpr int CH = D / 4;  // 16-byte chunks of a row
 #pragma unroll
   for (int it = 0; it < (R * CH + THREADS - 1) / THREADS; ++it) {
@@ -225,7 +248,7 @@ __device__ __forceinline__ void copy_rows(float* dst, const float* src, int r0, 
     const int p = r0 + r;
     const bool in = p < count;
     const long row = in ? (idx ? idx[p] : p) : 0;
-    cp_async16(dst + r * ld<D>() + c * 4, src + row * D + c * 4, in);
+    cp_async16(dst + r * ld<D>() + c * 4, src + row * stride + c * 4, in);
   }
 }
 
@@ -243,26 +266,36 @@ __device__ __forceinline__ int walked_keys(const unsigned char* mrow, int n, voi
   return n;
 }
 
-template <int D>
+// The slice of step st's operands: st % slices counts up from the one after
+// the output slice z, which comes last (SLICED), else 0.
+__device__ __forceinline__ int slice_of(int i, int slices) {
+  return (static_cast<int>(blockIdx.z) + 1 + i) % slices;
+}
+
+template <int D, bool SLICED>
 __global__ void __launch_bounds__(THREADS, 2)
 attention_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                         const float* __restrict__ v, const float* __restrict__ o,
                         const float* __restrict__ dout, const float* __restrict__ lse,
                         const unsigned char* __restrict__ key_mask,
                         float* __restrict__ delta, float* __restrict__ dq,
-                        int heads, int n, float qscale, float scale) {
+                        int heads, int n, float qscale, float scale, int slices) {
   constexpr int LD = ld<D>();
   constexpr int KS = D / 8;   // k-steps of S and dP
   constexpr int NT = BK / 8;  // 8-key column tiles of S, k-steps of dS K
+  static_assert(!SLICED || D == 128, "slices of 128 columns");
+  const int ns = SLICED ? slices : 1;  // 128-column slices of the head dim
+  const int stride = D * ns;           // row stride of every [G, N, *] operand
+  const int zo = SLICED ? static_cast<int>(blockIdx.z) * D : 0;  // the output slice's column
 
   extern __shared__ uint4 smem[];
-  float* ks = reinterpret_cast<float*>(smem + a_words<D>());  // [2][BK][LD]
-  float* vs = ks + 2 * BK * LD;                               // [2][BK][LD]
+  float* ks = reinterpret_cast<float*>(smem + a_words<D, SLICED>());  // [2][BK][LD]
+  float* vs = ks + 2 * BK * LD;                                       // [2][BK][LD]
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   const long gi = blockIdx.y;
-  const long base = gi * n * D;
+  const long base = gi * n * stride;
   const unsigned char* mrow = key_mask ? key_mask + (gi / heads) * n : nullptr;
 
   const int* kept;
@@ -273,23 +306,26 @@ attention_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k
   const int i_a = blockIdx.x * BM + warp * 16 + g, i_b = i_a + 8;
   const long ra = i_a < n ? i_a : -1, rb = i_b < n ? i_b : -1;
   uint4* own = smem + threadIdx.x;  // A operands 0: Q (scaled), 1: dO
-  put_a<D>(own, 0, q + base, ra, rb, qscale, t);
-  put_a<D>(own, 1, dout + base, ra, rb, 1.f, t);
-  // Delta of rows g and g + 8: this thread's columns, then the quad's
+  if constexpr (!SLICED) {
+    put_a<D>(own, 0, q + base, ra, rb, qscale, t);
+    put_a<D>(own, 1, dout + base, ra, rb, 1.f, t);
+  }
+  // Delta of rows g and g + 8: this thread's columns of every slice, then
+  // the quad's
   float d0 = 0.f, d1 = 0.f;
-  {
-    float df[KS][4], of[KS][4];
-    load_a<D>(df, dout + base, ra, rb, 1.f, t);
-    load_a<D>(of, o + base, ra, rb, 1.f, t);
+  for (int sl = 0; sl < ns; ++sl) {
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk) {
-      d0 = fmaf(df[kk][0], of[kk][0], fmaf(df[kk][2], of[kk][2], d0));
-      d1 = fmaf(df[kk][1], of[kk][1], fmaf(df[kk][3], of[kk][3], d1));
+      float df[4], of[4];
+      frag_a(df, dout + base + sl * D, ra, rb, kcol<D>(kk, t), 1.f, stride);
+      frag_a(of, o + base + sl * D, ra, rb, kcol<D>(kk, t), 1.f, stride);
+      d0 = fmaf(df[0], of[0], fmaf(df[2], of[2], d0));
+      d1 = fmaf(df[1], of[1], fmaf(df[3], of[3], d1));
     }
   }
   d0 = quad_sum(d0);
   d1 = quad_sum(d1);
-  if (t == 0) {
+  if (t == 0 && (!SLICED || blockIdx.z == 0)) {
     if (ra >= 0) delta[gi * n + ra] = d0;
     if (rb >= 0) delta[gi * n + rb] = d1;
   }
@@ -302,36 +338,49 @@ attention_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k
     for (int e = 0; e < 4; ++e) acc[c][e] = 0.f;
 
   if (!all_masked) {  // (a row that keeps no key: every dS is 0, so dq = 0)
-    auto load_tile = [&](int tile, int buf) {
-      copy_rows<D, BK>(ks + buf * BK * LD, k + base, tile * BK, count, kept);
-      copy_rows<D, BK>(vs + buf * BK * LD, v + base, tile * BK, count, kept);
+    // step st: key tile st / ns, slice slice_of(st % ns) of Q, dO, K and V
+    auto load_tile = [&](int st, int buf) {
+      const int so = SLICED ? slice_of(st % ns, ns) * D : 0;
+      const int r0 = (SLICED ? st / ns : st) * BK;
+      copy_rows<D, BK>(ks + buf * BK * LD, k + base + so, r0, count, kept, stride);
+      copy_rows<D, BK>(vs + buf * BK * LD, v + base + so, r0, count, kept, stride);
       cp_async_commit();
     };
-    const int ntiles = (count + BK - 1) / BK;
+    const int nsteps = (count + BK - 1) / BK * ns;
+    float s[NT][4], dp[NT][4];
     load_tile(0, 0);
-    for (int tile = 0; tile < ntiles; ++tile) {
-      const int buf = tile & 1;
-      if (tile + 1 < ntiles) {
-        load_tile(tile + 1, buf ^ 1);
+    for (int st = 0; st < nsteps; ++st) {
+      const int buf = st & 1;
+      if (st + 1 < nsteps) {
+        load_tile(st + 1, buf ^ 1);
         cp_async_wait<1>();
       } else {
         cp_async_wait<0>();
       }
       __syncthreads();
+      const int tile = SLICED ? st / ns : st;
+      const int i_s = SLICED ? st % ns : 0;
+      const int so = SLICED ? slice_of(i_s, ns) * D : 0;
       const float* kt = ks + buf * BK * LD;
       const float* vt = vs + buf * BK * LD;
 
-      // S = Q K^T (log2 units) and dP = dO V^T
-      float s[NT][4], dp[NT][4];
+      // S = Q K^T (log2 units) and dP = dO V^T, summed over the slices
+      if (i_s == 0) {
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
+        for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+          for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+      }
 #pragma unroll
       for (int kk = 0; kk < KS; ++kk) {
         uint32_t qh[4], ql[4], dh[4], dl[4];
-        get_a<D>(own, 0, kk, qh, ql);
-        get_a<D>(own, 1, kk, dh, dl);
+        if constexpr (SLICED) {
+          split_a<D>(q + base + so, ra, rb, kk, t, qscale, stride, qh, ql);
+          split_a<D>(dout + base + so, ra, rb, kk, t, 1.f, stride, dh, dl);
+        } else {
+          get_a<D>(own, 0, kk, qh, ql);
+          get_a<D>(own, 1, kk, dh, dl);
+        }
         const int c = kcol<D>(kk, t);
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt) {
@@ -340,6 +389,10 @@ attention_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k
           const float2 e = ld2(vt + (nt * 8 + g) * LD + c);
           mma3(dp[nt], dh, dl, e.x, e.y);
         }
+      }
+      if (i_s != ns - 1) {  // more slices of this tile to sum
+        __syncthreads();    // the next iteration refills this buffer
+        continue;
       }
 
       // P = exp2(S - lse), 0 past the last walked key; dS = P (dP - Delta)
@@ -356,6 +409,7 @@ attention_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k
       }
 
       // dq += dS K: k-step nt is S's column tile nt, keys 2t and 2t + 1
+      // (the tile holds K's output slice: the tile's last step)
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
         uint32_t ah[4], al[4];
@@ -365,31 +419,36 @@ attention_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k
       __syncthreads();  // the next iteration refills this buffer
     }
   }
-  store_rows<D>(dq + base, ra, rb, acc, scale, t);
+  store_rows<D>(dq + base + zo, ra, rb, acc, scale, t, stride);
 }
 
-template <int D>
+template <int D, bool SLICED>
 __global__ void __launch_bounds__(THREADS, 2)
 attention_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                           const float* __restrict__ v, const float* __restrict__ dout,
                           const float* __restrict__ lse, const unsigned char* __restrict__ key_mask,
                           const float* __restrict__ delta, float* __restrict__ dk,
-                          float* __restrict__ dv, int heads, int n, float qscale, float scale) {
+                          float* __restrict__ dv, int heads, int n, float qscale, float scale,
+                          int slices) {
   constexpr int BQ = dkdv_tile<D>();
   constexpr int LD = ld<D>();
   constexpr int KS = D / 8;   // k-steps of S^T and dP^T
   constexpr int NT = BQ / 8;  // 8-query column tiles of S^T, k-steps of P^T dO and dS^T Q
+  static_assert(!SLICED || D == 128, "slices of 128 columns");
+  const int ns = SLICED ? slices : 1;  // 128-column slices of the head dim
+  const int stride = D * ns;           // row stride of every [G, N, *] operand
+  const int zo = SLICED ? static_cast<int>(blockIdx.z) * D : 0;  // the output slice's column
 
   extern __shared__ uint4 smem[];
-  float* qs = reinterpret_cast<float*>(smem + a_words<D>());  // [2][BQ][LD]
-  float* dos = qs + 2 * BQ * LD;                              // [2][BQ][LD]
+  float* qs = reinterpret_cast<float*>(smem + a_words<D, SLICED>());  // [2][BQ][LD]
+  float* dos = qs + 2 * BQ * LD;                                      // [2][BQ][LD]
   float* ls = dos + 2 * BQ * LD;  // [2][BQ]: lse of the tile's rows
   float* dls = ls + 2 * BQ;       // [2][BQ]: Delta of the tile's rows
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const long gi = blockIdx.y;
-  const long base = gi * n * D;
+  const long base = gi * n * stride;
   const int j0 = blockIdx.x * BM;  // the block's first position in the walked keys
   const unsigned char* mrow = key_mask ? key_mask + (gi / heads) * n : nullptr;
 
@@ -401,8 +460,8 @@ attention_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__
     for (int i = tid; i < BM * D; i += THREADS) {
       const int p = j0 + i / D;
       if (p < n && !mrow[p]) {
-        dk[base + static_cast<long>(p) * D + i % D] = 0.f;
-        dv[base + static_cast<long>(p) * D + i % D] = 0.f;
+        dk[base + static_cast<long>(p) * stride + zo + i % D] = 0.f;
+        dv[base + static_cast<long>(p) * stride + zo + i % D] = 0.f;
       }
     }
   }
@@ -411,7 +470,8 @@ attention_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__
     // the n queries, dk = 0. Column sums of dO through shared memory.
     constexpr int STRIDE = THREADS / D;  // rows summed in parallel per column
     float s = 0.f;
-    for (int i = tid / D; i < n; i += STRIDE) s += dout[base + static_cast<long>(i) * D + tid % D];
+    for (int i = tid / D; i < n; i += STRIDE)
+      s += dout[base + static_cast<long>(i) * stride + zo + tid % D];
     qs[tid] = s;
     __syncthreads();
     if (tid < D) {
@@ -423,8 +483,8 @@ attention_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__
     for (int i = tid; i < BM * D; i += THREADS) {
       const int p = j0 + i / D;
       if (p < n) {
-        dk[base + static_cast<long>(p) * D + i % D] = 0.f;
-        dv[base + static_cast<long>(p) * D + i % D] = qs[THREADS + i % D];
+        dk[base + static_cast<long>(p) * stride + zo + i % D] = 0.f;
+        dv[base + static_cast<long>(p) * stride + zo + i % D] = qs[THREADS + i % D];
       }
     }
     return;
@@ -436,18 +496,22 @@ attention_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__
   const long ka = j_a < count ? (kept ? kept[j_a] : j_a) : -1;
   const long kb = j_b < count ? (kept ? kept[j_b] : j_b) : -1;
   uint4* own = smem + tid;  // A operands 0: K (scaled), 1: V
-  put_a<D>(own, 0, k + base, ka, kb, qscale, t);
-  put_a<D>(own, 1, v + base, ka, kb, 1.f, t);
+  if constexpr (!SLICED) {
+    put_a<D>(own, 0, k + base, ka, kb, qscale, t);
+    put_a<D>(own, 1, v + base, ka, kb, 1.f, t);
+  }
   float dka[D / 8][4], dva[D / 8][4];
 #pragma unroll
   for (int c = 0; c < D / 8; ++c)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dka[c][e] = dva[c][e] = 0.f;
 
-  auto load_tile = [&](int tile, int buf) {
-    const int i0 = tile * BQ;
-    copy_rows<D, BQ>(qs + buf * BQ * LD, q + base, i0, n, nullptr);
-    copy_rows<D, BQ>(dos + buf * BQ * LD, dout + base, i0, n, nullptr);
+  // step st: query tile st / ns, slice slice_of(st % ns) of K, V, Q and dO
+  auto load_tile = [&](int st, int buf) {
+    const int so = SLICED ? slice_of(st % ns, ns) * D : 0;
+    const int i0 = (SLICED ? st / ns : st) * BQ;
+    copy_rows<D, BQ>(qs + buf * BQ * LD, q + base + so, i0, n, nullptr, stride);
+    copy_rows<D, BQ>(dos + buf * BQ * LD, dout + base + so, i0, n, nullptr, stride);
     static_assert(2 * BQ <= THREADS, "one round of lse and Delta copies");
     if (tid < 2 * BQ) {
       const int r = tid % BQ;
@@ -457,31 +521,42 @@ attention_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__
     }
     cp_async_commit();
   };
-  const int ntiles = (n + BQ - 1) / BQ;
+  const int nsteps = (n + BQ - 1) / BQ * ns;
+  float s[NT][4], dp[NT][4];
   load_tile(0, 0);
-  for (int tile = 0; tile < ntiles; ++tile) {
-    const int buf = tile & 1;
-    if (tile + 1 < ntiles) {
-      load_tile(tile + 1, buf ^ 1);
+  for (int st = 0; st < nsteps; ++st) {
+    const int buf = st & 1;
+    if (st + 1 < nsteps) {
+      load_tile(st + 1, buf ^ 1);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
+    const int tile = SLICED ? st / ns : st;
+    const int i_s = SLICED ? st % ns : 0;
+    const int so = SLICED ? slice_of(i_s, ns) * D : 0;
     const float* qt = qs + buf * BQ * LD;
     const float* dt = dos + buf * BQ * LD;
 
-    // S^T = K Q^T (log2 units) and dP^T = V dO^T: rows keys, columns queries
-    float s[NT][4], dp[NT][4];
+    // S^T = K Q^T (log2 units) and dP^T = V dO^T: rows keys, columns
+    // queries, summed over the slices
+    if (i_s == 0) {
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
+      for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+        for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+    }
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk) {
       uint32_t kh[4], kl[4], vh[4], vl[4];
-      get_a<D>(own, 0, kk, kh, kl);
-      get_a<D>(own, 1, kk, vh, vl);
+      if constexpr (SLICED) {
+        split_a<D>(k + base + so, ka, kb, kk, t, qscale, stride, kh, kl);
+        split_a<D>(v + base + so, ka, kb, kk, t, 1.f, stride, vh, vl);
+      } else {
+        get_a<D>(own, 0, kk, kh, kl);
+        get_a<D>(own, 1, kk, vh, vl);
+      }
       const int c = kcol<D>(kk, t);
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
@@ -490,6 +565,10 @@ attention_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__
         const float2 e = ld2(dt + (nt * 8 + g) * LD + c);
         mma3(dp[nt], vh, vl, e.x, e.y);
       }
+    }
+    if (i_s != ns - 1) {  // more slices of this tile to sum
+      __syncthreads();    // the next iteration refills this buffer
+      continue;
     }
 
     // P^T = exp2(S^T - lse of the column), 0 past the last query row;
@@ -512,7 +591,8 @@ attention_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__
     }
 
     // dv += P^T dO and dk += dS^T Q: k-step nt is S^T's column tile nt,
-    // query rows 2t and 2t + 1
+    // query rows 2t and 2t + 1 (the tiles hold the output slice: the
+    // tile's last step)
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
       uint32_t ah[4], al[4];
@@ -523,39 +603,43 @@ attention_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__
     }
     __syncthreads();  // the next iteration refills this buffer
   }
-  store_rows<D>(dk + base, ka, kb, dka, scale, t);
-  store_rows<D>(dv + base, ka, kb, dva, 1.f, t);
+  store_rows<D>(dk + base + zo, ka, kb, dka, scale, t, stride);
+  store_rows<D>(dv + base + zo, ka, kb, dva, 1.f, t, stride);
 }
 
-template <int D>
+template <int D, bool SLICED>
 size_t smem_bytes(bool dkdv, bool masked, int n) {
-  return tiles_bytes<D>(dkdv) + (masked ? kept_list_bytes(n) : 0);
+  return tiles_bytes<D, SLICED>(dkdv) + (masked ? kept_list_bytes(n) : 0);
 }
 
-template <int D>
+// slices: 128-column slices of the head dim (SLICED), else 1
+template <int D, bool SLICED = false>
 cudaError_t launch(const float* q, const float* k, const float* v, const float* o,
                    const float* dout, const float* lse, const unsigned char* key_mask,
                    float* delta, float* dq, float* dk, float* dv, int groups, int heads,
-                   int n, float qscale, float scale, cudaStream_t stream) {
+                   int n, float qscale, float scale, cudaStream_t stream, int slices = 1) {
   // both passes may take all the shared memory a block may have (max_smem.cuh)
-  cudaError_t err = allow_max_smem<D>(attention_bwd_dq_kernel<D>, attention_bwd_dkdv_kernel<D>);
+  cudaError_t err = allow_max_smem<SLICED ? -D : D>(attention_bwd_dq_kernel<D, SLICED>,
+                                                    attention_bwd_dkdv_kernel<D, SLICED>);
   if (err != cudaSuccess) return err;
-  const dim3 grid((n + BM - 1) / BM, groups);
+  const dim3 grid((n + BM - 1) / BM, groups, slices);
   const bool masked = key_mask != nullptr;
-  attention_bwd_dq_kernel<D><<<grid, THREADS, smem_bytes<D>(false, masked, n), stream>>>(
-      q, k, v, o, dout, lse, key_mask, delta, dq, heads, n, qscale, scale);
+  attention_bwd_dq_kernel<D, SLICED>
+      <<<grid, THREADS, smem_bytes<D, SLICED>(false, masked, n), stream>>>(
+          q, k, v, o, dout, lse, key_mask, delta, dq, heads, n, qscale, scale, slices);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  attention_bwd_dkdv_kernel<D><<<grid, THREADS, smem_bytes<D>(true, masked, n), stream>>>(
-      q, k, v, dout, lse, key_mask, delta, dk, dv, heads, n, qscale, scale);
+  attention_bwd_dkdv_kernel<D, SLICED>
+      <<<grid, THREADS, smem_bytes<D, SLICED>(true, masked, n), stream>>>(
+          q, k, v, dout, lse, key_mask, delta, dk, dv, heads, n, qscale, scale, slices);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool SLICED = false>
 cudaError_t info(int* regs, int* local_bytes) {
   cudaFuncAttributes a, b;
-  cudaError_t err = cudaFuncGetAttributes(&a, attention_bwd_dq_kernel<D>);
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&b, attention_bwd_dkdv_kernel<D>);
+  cudaError_t err = cudaFuncGetAttributes(&a, attention_bwd_dq_kernel<D, SLICED>);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&b, attention_bwd_dkdv_kernel<D, SLICED>);
   if (err != cudaSuccess) return err;
   regs[0] = a.numRegs;
   regs[1] = b.numRegs;
@@ -569,8 +653,9 @@ cudaError_t info(int* regs, int* local_bytes) {
 // q/k/v/o/dout/dq/dk/dv: [groups = batch*heads, n, d] contiguous, 16-byte
 // aligned; lse: [groups, n], the forward's log-sum-exp in log2 units;
 // key_mask: [batch, n] bytes (nonzero = attend) or null; delta: [groups, n]
-// scratch; qscale: the softmax scale times log2(e). d in {16, 32, 64, 128}.
-// Launches the dq pass, then the dk/dv pass, on `stream`.
+// scratch; qscale: the softmax scale times log2(e). d in {16, 32, 64, 128},
+// or a multiple of 128 above it (the sliced passes). Launches the dq pass,
+// then the dk/dv pass, on `stream`.
 extern "C" int sevit_attention_bwd(const float* q, const float* k, const float* v,
                                    const float* o, const float* dout, const float* lse,
                                    const unsigned char* key_mask, float* delta, float* dq,
@@ -587,18 +672,23 @@ extern "C" int sevit_attention_bwd(const float* q, const float* k, const float* 
     SEVIT_BWD(64)
     SEVIT_BWD(128)
 #undef SEVIT_BWD
-    default: return cudaErrorInvalidValue;
+    default:
+      if (d <= 128 || d % 128) return cudaErrorInvalidValue;
+      return launch<128, true>(q, k, v, o, dout, lse, key_mask, delta, dq, dk, dv, groups,
+                               heads, n, qscale, scale, s, d / 128);
   }
 }
 
 // Registers and local (spill) bytes per thread of the dq pass ([0]) and the
-// dk/dv pass ([1]) for head dim d.
+// dk/dv pass ([1]) for head dim d (above 128: the sliced passes).
 extern "C" int sevit_attention_bwd_info(int d, int* regs, int* local_bytes) {
   switch (d) {
     case 16: return info<16>(regs, local_bytes);
     case 32: return info<32>(regs, local_bytes);
     case 64: return info<64>(regs, local_bytes);
     case 128: return info<128>(regs, local_bytes);
-    default: return cudaErrorInvalidValue;
+    default:
+      if (d <= 128 || d % 128) return cudaErrorInvalidValue;
+      return info<128, true>(regs, local_bytes);
   }
 }

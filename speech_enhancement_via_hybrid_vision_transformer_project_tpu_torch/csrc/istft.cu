@@ -30,16 +30,18 @@
 //   Z[k] = Fe[k] + i Fo[k], Fe = (X[k] + conj X[M-k]) / 2,
 //   Fo = (X[k] - conj X[M-k]) / 2 * W_N^-k, computed as the first FFT stage
 //   reads its inputs; the 256-point inverse FFT runs as two radix-16
-//   Stockham stages in shared memory (fft_stages.cuh), and z[m] holds
-//   samples 2m and 2m+1 of the frame (the unpack is free). The table is K1's.
+//   Stockham stages in shared memory (fft_stages.cuh; at n_fft 400 radix 8,
+//   5 and 5), and z[m] holds samples 2m and 2m+1 of the frame (the unpack
+//   is free). The table and the radix plan are K1's.
 // - Overlap-add: a gather, not a scatter. Output sample i of the tile sums
 //   the r frames that cover it, each times the synthesis window, in shared
-//   memory; then the 1/M scale, the window-sum divide, the center crop and
+//   memory; then the divide by M times the window sum, the center crop and
 //   the length trim (zeros past the signal) are fused into one coalesced
-//   store.
-// Any power-of-two n_fft in [128, 2048] with hop % 4 == 0 and hop | n_fft;
-// the wrapper (ops/cuda_stft.py) checks and picks `tile` >= 2r (16 at
-// n_fft 512, hop 128: 13 output hops per block).
+//   store. M times the window sum is exact where M is a power of two, so
+//   there the divide rounds once, as a scale by 1/M and a divide did.
+// Any n_fft that K1 takes, with hop % 4 == 0 and hop | n_fft; the wrapper
+// (ops/cuda_stft.py) checks, makes the plan and picks `tile`, a power of
+// two >= 2r (16 at n_fft 512, hop 128: 13 output hops per block).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -54,6 +56,7 @@ constexpr int LOADS = 8;  // mag/phase pairs in flight per thread
 // memory would allow five, and without the cap the compiler takes 75
 constexpr int BLOCKS_PER_SM = 4;
 
+template <bool POW2>  // n_fft / 2, and so the hop, a power of two
 __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
     istft_polar_kernel(const float* __restrict__ mag,    // [B, F, N]
                        const float* __restrict__ phase,  // [B, F, N]
@@ -61,10 +64,9 @@ __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
                        const float* __restrict__ denom,  // [ola_len]
                        float* __restrict__ y,            // [B, out_samples]
                        int n_frames, int n_fft, int hop, int offset,
-                       int out_samples, int tile) {
+                       int out_samples, int tile, int radices) {
   extern __shared__ float4 smem4[];
   const int m_pts = n_fft >> 1;
-  const int log2m = __ffs(m_pts) - 1;
   const int rs = fft_row_stride(m_pts);
   const int n_bins = m_pts + 1;
   float2* buf = reinterpret_cast<float2*>(smem4);  // [tile][rs]: bins, then the FFT
@@ -118,7 +120,7 @@ __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
 
   // the first stage reads the Hermitian pack Z[k] = Fe[k] + i Fo[k] of
   // the bins X (plain rows of buf) and writes the same buffer
-  stockham_fft<true, true>(
+  stockham_fft<true, true, POW2>(
       [buf, ut, rs, m_pts](int t, int k) {
         const float2 xk = buf[t * rs + k];
         const float2 xm = buf[t * rs + m_pts - k];
@@ -128,17 +130,17 @@ __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
         const float orr = dr * w.x + di * w.y, oi = di * w.x - dr * w.y;
         return make_float2(er - oi, ei + orr);
       },
-      buf, tw, tile, log2m, rs);
+      buf, tw, tile, m_pts, radices, rs);
   const float2* z = buf;
 
   // overlap-add by gather, window-sum divide, crop, trim
-  const float inv_m = 1.f / static_cast<float>(m_pts);  // a power of two: exact
+  const float fm = static_cast<float>(m_pts);
   const long ola_len = static_cast<long>(n_fft) + static_cast<long>(n_frames - 1) * hop;
   float* yb = y + static_cast<long>(b) * out_samples;
-  const int log2h = __ffs(hop) - 1;  // hop divides a power of two
+  const Divisor<POW2> hd(hop);
   for (int i = threadIdx.x; i < tm * hop; i += blockDim.x) {
-    const int mm = i >> log2h;
-    const int col = i & (hop - 1);
+    const int mm = hd.div(i);
+    const int col = hd.mod(i);
     const long s = static_cast<long>(m0 + mm) * hop + col;  // overlap-added sample
     const long j = s - offset;                                // output sample
     if (j < 0 || j >= out_samples) continue;
@@ -149,7 +151,7 @@ __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
         const float2 zz = z[(mm + r - 1 - p) * rs + pad16(n >> 1)];  // samples n & ~1, n | 1
         v = fmaf((n & 1) ? zz.y : zz.x, win[n], v);
       }
-      v = v * inv_m / denom[s];
+      v = v / (fm * denom[s]);
     }
     yb[j] = v;
   }
@@ -161,19 +163,23 @@ __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
 // (ops/cuda_stft.py:fft_plan); denom: [n_fft + (n_frames-1)*hop] window
 // sums (tiny -> 1); y: [batch, out_samples] = overlap-added samples
 // [offset, offset + out_samples) divided by denom, zeros past the end.
-// Needs a power-of-two n_fft in [128, 2048], hop | n_fft and
-// n_fft / hop <= tile; the wrapper checks.
+// radices: the FFT's radix plan (fft_stages.cuh), checked here. Needs an
+// even n_fft in [128, 2048], hop | n_fft and n_fft / hop <= tile, a power
+// of two; the wrapper checks.
 extern "C" int sevit_istft_polar(const float* mag, const float* phase,
                                  const float* plan, const float* denom, float* y,
                                  int batch, int n_frames, int n_fft, int hop,
-                                 int offset, int out_samples, int tile,
+                                 int offset, int out_samples, int tile, int radices,
                                  void* stream) {
+  const int m = n_fft / 2;
+  if (!fft_plan_ok(m, radices, THREADS)) return static_cast<int>(cudaErrorInvalidValue);
+  const bool pow2 = (m & (m - 1)) == 0;
   const size_t buf = (static_cast<size_t>(tile) * fft_row_stride(n_fft / 2) + 1) & ~size_t{1};
   const size_t smem = sizeof(float2) * buf + sizeof(float) * (3 * n_fft + 2);
+  auto kernel = pow2 ? istft_polar_kernel<true> : istft_polar_kernel<false>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        istft_polar_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   const int r = n_fft / hop;
@@ -183,7 +189,7 @@ extern "C" int sevit_istft_polar(const float* mag, const float* phase,
                         ? ola_len
                         : static_cast<long>(offset) + out_samples;
   const dim3 grid(static_cast<unsigned>((need + tile_samples - 1) / tile_samples), batch);
-  istft_polar_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      mag, phase, plan, denom, y, n_frames, n_fft, hop, offset, out_samples, tile);
+  kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      mag, phase, plan, denom, y, n_frames, n_fft, hop, offset, out_samples, tile, radices);
   return static_cast<int>(cudaGetLastError());
 }

@@ -12,12 +12,14 @@ is the op ``torch.ops.sevit.attention_bwd``: on the CPU the plain version of
 dk/dv pass, each on the tensor cores in 3xTF32; the softmax weights
 recomputed from the forward's log-sum-exp, never stored).
 
-The kernels have instances for head dims 16, 32, 64 and 128. Any other head
-dim up to 128 runs the next larger instance (``kernel_head_dim``): q, k and v
-are zero-padded along D and the output cropped, and in the backward the
-output's gradient is padded and dq, dk and dv cropped. Zero columns leave
-``QK^T`` and the log-sum-exp as they are and give zero output and gradient
-columns. A head dim above 128 raises.
+The kernels have instances for head dims 16, 32, 64 and 128, and a sliced
+one for head dims above 128: D in slices of 128 columns, a block per output
+slice, each summing ``QK^T`` (and, in the backward, ``dO V^T``) over every
+slice. Any other head dim runs the next larger instance, or the next multiple
+of 128 above 128 (``kernel_head_dim``): q, k and v are zero-padded along D and
+the output cropped, and in the backward the output's gradient is padded and
+dq, dk and dv cropped. Zero columns leave ``QK^T`` and the log-sum-exp as they
+are and give zero output and gradient columns.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ import torch.nn.functional as F
 from . import kernels
 
 _HEAD_DIMS = (16, 32, 64, 128)  # csrc/attention*.cu template instances
+SLICE = 128  # columns of a slice of the sliced instance, above the largest
 NEG_INF = -1e30  # masked-key logit, as sdpa_reference
 LOG2E = 1.0 / math.log(2.0)  # the kernels' softmax runs in base 2
 
@@ -92,13 +95,16 @@ def _check(q, k, v, mask):
 
 
 def kernel_head_dim(d: int) -> int:
-    """The head dim of the K2 instance that runs head dim ``d``: the
-    smallest of ``_HEAD_DIMS`` that holds it. Raises ``ValueError`` above
-    128. Needs no card."""
+    """The head dim K2 runs head dim ``d`` at: the smallest of
+    ``_HEAD_DIMS`` that holds it, or above 128 the next multiple of
+    ``SLICE`` (the sliced instance, ``d / 128`` slices rounded up). Needs no
+    card."""
+    if d < 1:
+        raise ValueError(f"attention kernel: head dim {d}")
     for inst in _HEAD_DIMS:
         if d <= inst:
             return inst
-    raise ValueError(f"attention kernel: head dim {d} > {_HEAD_DIMS[-1]}")
+    return -(-d // SLICE) * SLICE
 
 
 def _pad_head_dim(t: torch.Tensor, dp: int) -> torch.Tensor:
@@ -258,9 +264,12 @@ def attention(
     plain version; CUDA: kernel K2 (and its backward), which walks only the
     keys a masked row keeps. Its blocks list those keys in shared memory, 4
     bytes a key, so a mask over more than about 37,000 keys (head dim 64;
-    fewer in the backward, whose A operands and tiles take more: 30,956)
-    does not fit and raises. A head dim that is not an instance runs the
-    next larger one (``kernel_head_dim``), under that instance's limits."""
+    fewer in the backward, whose A operands and tiles take more: 30,956;
+    7,946 at 128) does not fit and raises. A head dim that is not an
+    instance runs the next larger one (``kernel_head_dim``), under that
+    instance's limits; above 128 the sliced instance, whose forward and
+    backward hold about 38,500 keys, since its backward keeps no A operands
+    in shared memory."""
     _check(q, k, v, mask)
     if kernels.uses_kernel(q):
         _check_kernel_inputs((("q", q), ("k", k), ("v", v)), q.shape[-1])

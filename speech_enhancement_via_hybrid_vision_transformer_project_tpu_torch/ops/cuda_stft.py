@@ -12,23 +12,31 @@ kernel or raises. There is no fallback from one to the other.
 Which kernel a CUDA tensor gets is fixed by the config alone (``route``),
 before any launch:
 
-- K1 and K3 (``csrc/stft.cu``, ``csrc/istft.cu``) are shared-memory FFTs
-  (``csrc/fft_stages.cuh``) that read one fp32 table built here in float64
-  (``fft_plan``). They take a power-of-two ``n_fft`` from 128 to 2048, a
-  ``hop_length`` that is a multiple of 4 (K3: one that divides ``n_fft``
-  and fits in shared memory) and reflect padding; ``kernel_tile`` checks
-  that and picks the frames each block transforms.
+- K1 and K3 (``csrc/stft.cu``, ``csrc/istft.cu``) are shared-memory
+  mixed-radix FFTs (``csrc/fft_stages.cuh``) that read one fp32 table built
+  here in float64 (``fft_plan``) and a radix plan made here
+  (``fft_stages``). They take an even ``n_fft`` from 128 to 2048 whose
+  M = n_fft/2 is 2^a 3^b 5^c and whose plan has no stage of more than 256
+  butterflies a frame (a block's threads: such an M, 960 for one, is
+  refused rather than looped), and a ``hop_length`` that is a multiple of 4
+  (K3: one that divides ``n_fft`` and fits in shared memory, so that K3's
+  M is even); ``kernel_tile`` checks that and picks the frames each block
+  transforms.
+  The repo's 512/128, CMGAN's 400/100 and the 320/160 front end run there.
 - K1g and K3g (``csrc/stft_dft.cu``, ``csrc/istft_dft.cu``) take every other
-  geometry: any ``n_fft`` and hop, reflect or zero (``constant``) padding.
-  They compute the windowed DFT as the TPU kernels do, a product against the
-  window-folded DFT matrices of ``ops/stft.py`` (``window_dft``,
-  ``inv_window_dft``), on the tensor cores in 3xTF32; the wrapper hands them
-  the matrices cut into column tiles (``dft_tiles``, ``idft_tiles``).
+  geometry: any ``n_fft`` and hop. They compute the windowed DFT as the TPU
+  kernels do, a product against the window-folded DFT matrices of
+  ``ops/stft.py`` (``window_dft``, ``inv_window_dft``), on the tensor cores
+  in 3xTF32; the wrapper hands them the matrices cut into column tiles
+  (``dft_tiles``, ``idft_tiles``).
 
-K1 and K1g read the unpadded signal: the center padding is fused into their
-loads. The tables, the matrices and the iSTFT's window-sum denominator are
-device constants that the CUDA impls fetch when they run
-(``_device_const``); they never enter a traced graph.
+K1 and K1g read the unpadded signal: reflect and zero (``constant``) center
+padding are fused into their loads. A row too short for one reflection, and
+numpy's other pad modes, are padded on the card first (``stft.center_pad``,
+as ``jnp.pad`` pads) and launched with no padding. The tables, the matrices
+and the iSTFT's window-sum denominator are device constants that the CUDA
+impls fetch when they run (``_device_const``); they never enter a traced
+graph.
 """
 
 from __future__ import annotations
@@ -41,6 +49,8 @@ import torch
 from . import kernels
 from .stft import (
     STFTConfig,
+    center_pad,
+    check_pad_mode,
     implied_length,
     inv_window_dft,
     istft_output_span,
@@ -50,8 +60,11 @@ from .stft import (
     window_sumsquare_denominator,
 )
 
-FFT_SIZES = (128, 256, 512, 1024, 2048)  # K1's and K3's power-of-two n_fft
-_TILE_POINTS = 4096  # complex points per shared-memory buffer of a block
+FFT_N_FFT = (128, 2048)  # the even n_fft K1 and K3 take, at least and at most
+FFT_RADICES = (16, 8, 4, 2, 5, 3)  # their butterflies (csrc/fft_stages.cuh)
+FFT_THREADS = 256  # threads of a K1 or K3 block: the most butterflies a stage may have
+RADIX_BITS = 5  # bits of one stage's radix in the packed plan (fft_stages.cuh)
+_TILE_POINTS = 4096  # complex points per shared-memory buffer of a block, at most
 _MAX_TILE = 32  # frames per block
 _SMEM_LIMIT = 227 * 1024  # shared memory one H100 block may use
 # the column tiles of K1g's and K3g's matrices; the C entries refuse a launch
@@ -60,8 +73,8 @@ DFT_BLOCK_BINS = 32  # K1g: bins a block (their re and im columns)
 DFT_DEPTH = 32  # K1g: samples a step
 IDFT_BLOCK_SAMPLES = 64  # K3g: frame samples a block
 IDFT_DEPTH = 16  # K3g: bins a step
-PAD_MODES = ("reflect", "constant")  # K1g's center padding
-MAX_BATCH = 65535  # rows of one K1g or K3g launch (the grid's z)
+FUSED_PAD_MODES = ("reflect", "constant")  # the center padding K1's and K1g's loads do
+MAX_BATCH = 65535  # rows of one STFT kernel launch (the grid's y, or K1g's and K3g's z)
 # (n_fft, hop, win, pad_mode) of common 16 kHz front ends that K1 and K3 do
 # not all take, which the port's checks run on both routes
 GEOMETRIES = (
@@ -72,6 +85,9 @@ GEOMETRIES = (
     (512, 100, 512, "reflect"),
     (4096, 1024, 4096, "reflect"),  # the JAX package's largest tested n_fft
     (512, 128, 512, "constant"),
+    (384, 96, 384, "reflect"),  # M = 192: a radix-3 stage (16, 4, 3)
+    (450, 100, 450, "reflect"),  # M = 225, odd: the span is 2 mod 4 samples
+    (450, 100, 450, "edge"),  # padded first: K1's 16-byte span copy at odd M
 )
 
 
@@ -88,6 +104,34 @@ def fft_plan(cfg: STFTConfig) -> np.ndarray:
     return np.concatenate([*pairs, cfg.padded_window(np.float64)]).astype(np.float32)
 
 
+def fft_stages(m: int) -> tuple[int, ...] | None:
+    """The radices of K1's and K3's Stockham stages for an ``m``-point
+    complex FFT, in order: 16 while 16 divides what is left of ``m``'s power
+    of two, then 8, 4 or 2 for the rest of it, then the 5s, then the 3s
+    (256: 16, 16; 200: 8, 5, 5; 160: 16, 2, 5). A power of two takes no 8,
+    which its kernel instance leaves out for registers: 4s, then a 2
+    (128: 16, 4, 2). None where ``m`` has a prime factor above 5."""
+    twos = (m & -m).bit_length() - 1 if m > 0 else 0
+    rest = m >> twos
+    left = twos % 4
+    if rest == 1:  # a power of two
+        tail = [4] * (left // 2) + [2] * (left % 2)
+    else:
+        tail = [1 << left] if left else []
+    stages = [16] * (twos // 4) + tail
+    for r in (5, 3):
+        while rest % r == 0:
+            stages.append(r)
+            rest //= r
+    return tuple(stages) if m > 0 and rest == 1 else None
+
+
+def pack_radices(stages) -> int:
+    """The plan as the kernels take it: stage i's radix in bits
+    ``RADIX_BITS * i`` and up."""
+    return sum(r << (RADIX_BITS * i) for i, r in enumerate(stages))
+
+
 def _smem_bytes(cfg: STFTConfig, tile: int, inverse: bool) -> int:
     """Shared memory of one K1 or K3 block (mirrors the C entries): one
     complex buffer of ``tile`` frames, each M = n_fft/2 points plus one pad
@@ -100,21 +144,28 @@ def _smem_bytes(cfg: STFTConfig, tile: int, inverse: bool) -> int:
 
 
 def _fft_tile(cfg: STFTConfig, inverse: bool) -> tuple[int, str | None]:
-    """K1's (``inverse=False``) or K3's frames per block for ``cfg``, and
-    why the kernel does not take ``cfg`` (None where it does)."""
-    n_fft, hop = cfg.n_fft, cfg.hop_length
+    """K1's (``inverse=False``) or K3's frames per block for ``cfg``, a
+    power of two, and why the kernel does not take ``cfg`` (None where it
+    does)."""
+    n_fft, hop, m = cfg.n_fft, cfg.hop_length, cfg.n_fft // 2
     name = "istft_polar" if inverse else "stft_mag"
-    if n_fft not in FFT_SIZES:
-        return 0, f"{name} kernel: n_fft {n_fft} is not a power of two in {FFT_SIZES}"
+    lo, hi = FFT_N_FFT
+    if n_fft % 2 or not lo <= n_fft <= hi:
+        return 0, f"{name} kernel: n_fft {n_fft} is not even in [{lo}, {hi}]"
+    stages = fft_stages(m)
+    if stages is None:
+        return 0, f"{name} kernel: n_fft / 2 = {m} has a prime factor above 5"
+    if m // min(stages) > FFT_THREADS:
+        return 0, (f"{name} kernel: n_fft / 2 = {m} needs a radix-{min(stages)} stage of "
+                   f"{m // min(stages)} butterflies, more than a block's {FFT_THREADS} threads")
     if hop <= 0 or hop % 4 or hop > n_fft:
         return 0, f"{name} kernel: hop_length {hop} must be a multiple of 4, <= n_fft"
-    if not inverse and cfg.center and cfg.pad_mode != "reflect":
-        return 0, f"{name} kernel: pad_mode {cfg.pad_mode!r} is not reflect"
-    tile = min(_MAX_TILE, _TILE_POINTS // (n_fft // 2))
+    tile = 1 << (min(_MAX_TILE, _TILE_POINTS // m).bit_length() - 1)  # a power of two
     if inverse:
         if n_fft % hop:
             return 0, f"{name} kernel: hop_length {hop} must divide n_fft {n_fft}"
-        tile = max(tile, 2 * (n_fft // hop))  # at least half the frames are not halo
+        # at least half the frames are not halo
+        tile = max(tile, 1 << (2 * (n_fft // hop) - 1).bit_length())
     if _smem_bytes(cfg, tile, inverse) > _SMEM_LIMIT:
         return 0, (f"{name} kernel: n_fft / hop_length = {n_fft // hop} needs "
                    f"{_smem_bytes(cfg, tile, inverse)} bytes of shared memory")
@@ -212,16 +263,20 @@ def _check_stft_kernel(x: torch.Tensor, cfg: STFTConfig) -> tuple[str, int]:
     """The argument checks of the kernel that ``route`` picks (shapes and
     types only); returns its name and, for K1, its tile."""
     kernels.check_input("stft_mag x", x, 2)
-    name, tile = route(cfg, inverse=False)
-    if name == "stft_dft":
-        if cfg.center and cfg.pad_mode not in PAD_MODES:
-            raise ValueError(f"stft_mag kernel: pad_mode {cfg.pad_mode!r} is not one of "
-                             f"{PAD_MODES}")
-        _check_batch("stft_mag", x.shape[0])
-    pad = cfg.n_fft // 2 if cfg.center and cfg.pad_mode == "reflect" else 0
-    if x.shape[1] <= pad:
-        raise ValueError(f"stft_mag: {x.shape[1]} samples cannot be reflect padded by {pad}")
-    return name, tile
+    if cfg.center:
+        check_pad_mode(cfg.pad_mode)
+    _check_batch("stft_mag", x.shape[0])
+    return route(cfg, inverse=False)
+
+
+def _pads_first(cfg: STFTConfig, length: int) -> bool:
+    """Whether the CUDA impl center-pads rows of ``length`` samples itself
+    before the launch: a pad mode the kernels' loads do not do, or a reflect
+    pad of at least the length, which numpy reflects more than once."""
+    if not cfg.center:
+        return False
+    return cfg.pad_mode not in FUSED_PAD_MODES or (
+        cfg.pad_mode == "reflect" and length <= cfg.n_fft // 2)
 
 
 def _stft_plain(x, *cfg):
@@ -238,6 +293,11 @@ def _stft_cuda(x, *cfg):
     b, length = x.shape
     n_frames = cfg.num_frames(length)
     pad = cfg.n_fft // 2 if cfg.center else 0
+    if b and _pads_first(cfg, length):
+        with torch.cuda.device(x.device):
+            x = center_pad(x, cfg).contiguous()
+        length, pad = x.shape[1], 0
+    reflect = int(cfg.pad_mode == "reflect")
     table = _device_const("plan" if name == "stft_mag" else "dft", cfg, x.device)
     re, im, mag = (
         torch.empty(b, cfg.num_bins, n_frames, device=x.device, dtype=torch.float32)
@@ -247,11 +307,11 @@ def _stft_cuda(x, *cfg):
         ptrs = (x.data_ptr(), table.data_ptr(), re.data_ptr(), im.data_ptr(), mag.data_ptr())
         with torch.cuda.device(x.device):
             if name == "stft_mag":
-                kernels.launch(name, *ptrs, b, length, pad, n_frames, cfg.n_fft,
-                               cfg.hop_length, tile)
+                kernels.launch(name, *ptrs, b, length, pad, reflect, n_frames, cfg.n_fft,
+                               cfg.hop_length, tile, pack_radices(fft_stages(cfg.n_fft // 2)))
             else:
-                kernels.launch(name, *ptrs, b, length, pad, int(cfg.pad_mode == "reflect"),
-                               n_frames, cfg.n_fft, cfg.hop_length, DFT_BLOCK_BINS, DFT_DEPTH)
+                kernels.launch(name, *ptrs, b, length, pad, reflect, n_frames, cfg.n_fft,
+                               cfg.hop_length, DFT_BLOCK_BINS, DFT_DEPTH)
     return re, im, mag
 
 
@@ -272,7 +332,9 @@ stft_mag_op = kernels.define_op(
 def stft_mag(x: torch.Tensor, cfg: STFTConfig = STFTConfig()):
     """STFT of ``x [B, L]`` with its magnitude: ``(re, im, mag)``, each
     ``[B, F, N]`` float32 (bins first), through the op ``sevit::stft_mag``.
-    CPU: plain version; CUDA: kernel K1, or K1g where ``route`` says so."""
+    CPU: plain version; CUDA: kernel K1, or K1g where ``route`` says so,
+    after padding the rows on the card first where their loads cannot
+    (``_pads_first``)."""
     if x.dim() != 2:
         raise ValueError(f"stft_mag: expected [B, L], got {tuple(x.shape)}")
     if kernels.uses_kernel(x):
@@ -305,8 +367,7 @@ def _check_istft_kernel(mag: torch.Tensor, phase: torch.Tensor,
     name, tile = route(cfg, inverse=True)
     if mag.shape[1] != cfg.num_bins:
         raise ValueError(f"istft_polar: {mag.shape[1]} bins, config has {cfg.num_bins}")
-    if name == "istft_dft":
-        _check_batch("istft_polar", mag.shape[0])
+    _check_batch("istft_polar", mag.shape[0])
     return name, tile
 
 
@@ -330,7 +391,8 @@ def _istft_cuda(mag, phase, *cfg_length):
             if name == "istft_polar":
                 kernels.launch(name, mag.data_ptr(), phase.data_ptr(), table.data_ptr(),
                                denom.data_ptr(), y.data_ptr(), b, n_frames, cfg.n_fft,
-                               cfg.hop_length, offset, n_out, tile)
+                               cfg.hop_length, offset, n_out, tile,
+                               pack_radices(fft_stages(cfg.n_fft // 2)))
             else:  # K3g's frames go through a scratch [B, N, n_fft]
                 frames = torch.empty(b, n_frames, cfg.n_fft, device=mag.device,
                                      dtype=torch.float32)

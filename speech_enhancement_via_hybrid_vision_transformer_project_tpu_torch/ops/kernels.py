@@ -77,9 +77,9 @@ KERNELS = {
             "stft_mag", "sevit_stft_mag", "csrc/stft.cu",
             "speech_enhancement_via_hybrid_vision_transformer_project_tpu/"
             "ops/pallas_stft.py:31",
-            # x, plan, re, im, mag, batch, length, pad, n_frames, n_fft, hop,
-            # tile, stream
-            (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+            # x, plan, re, im, mag, batch, length, pad, reflect, n_frames,
+            # n_fft, hop, tile, radix plan, stream
+            (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
         ),
         Kernel(
             "attention_fwd", "sevit_attention_fwd", "csrc/attention.cu",
@@ -102,8 +102,8 @@ KERNELS = {
             "speech_enhancement_via_hybrid_vision_transformer_project_tpu/"
             "ops/pallas_stft.py:185",
             # mag, phase, plan, denom, y, batch, n_frames, n_fft, hop,
-            # offset, out_samples, tile, stream
-            (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+            # offset, out_samples, tile, radix plan, stream
+            (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
         ),
         Kernel(
             "stft_dft", "sevit_stft_dft", "csrc/stft_dft.cu",

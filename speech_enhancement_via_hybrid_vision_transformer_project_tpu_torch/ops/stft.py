@@ -14,9 +14,13 @@ hand-written kernels (``stft_mag``, ``istft_polar``): a CUDA tensor launches
 them, a CPU tensor runs their plain versions. Every geometry has a kernel:
 the FFT kernels K1 and K3 where they take the config, K1g and K3g (DFT
 products on the tensor cores) elsewhere (``cuda_stft.route``). A kernel's
-refusal (a pad mode other than reflect or constant, a signal too short to
-reflect pad, a tensor that needs grad) is raised, never replaced by the
-matmul path.
+refusal (a pad mode numpy does not have, a tensor that needs grad) is
+raised, never replaced by the matmul path.
+
+Center padding follows ``jnp.pad`` (``center_pad``): numpy's mode names
+(``PAD_MODES``; PyTorch's ``replicate`` and ``circular`` are refused, as
+``jnp.pad`` refuses them), and a reflection repeated where the pad is at
+least the signal's length.
 
 Float32 matmuls on a CUDA device must not run in TF32 for parity: the
 port's entry points set ``torch.backends.cuda.matmul.allow_tf32 = False``.
@@ -153,15 +157,60 @@ def istft_output_span(cfg: STFTConfig, n_frames: int, length: int | None):
 # ---------------------------------------------------------------------------
 
 
+# numpy's pad modes, which the JAX package's center padding (``jnp.pad``) takes
+PAD_MODES = ("constant", "edge", "linear_ramp", "maximum", "mean", "median", "minimum",
+             "reflect", "symmetric", "wrap", "empty")
+
+
+def check_pad_mode(mode: str) -> None:
+    """Raise ``ValueError`` unless ``mode`` is one of numpy's pad modes
+    (PyTorch's ``replicate`` and ``circular`` are ``edge`` and ``wrap``)."""
+    if mode not in PAD_MODES:
+        raise ValueError(f"pad_mode {mode!r} is not one of numpy's {PAD_MODES}")
+
+
+def _pad_source(mode: str, length: int, half: int, device) -> torch.Tensor:
+    """For ``edge``, ``wrap``, ``reflect`` and ``symmetric``: the sample of
+    the row that each sample of the padded row copies, as numpy repeats the
+    reflection or the wrap while the pad is longer than the row."""
+    j = torch.arange(-half, length + half, device=device)
+    if mode == "edge":
+        return j.clamp(0, length - 1)
+    if mode == "wrap":
+        return j.remainder(length)
+    period = 2 * length if mode == "symmetric" else max(2 * (length - 1), 1)
+    m = j.remainder(period)
+    return torch.where(m < length, m, period - m - int(mode == "symmetric"))
+
+
 def center_pad(x: torch.Tensor, cfg: STFTConfig) -> torch.Tensor:
     """Center-pad the last axis by ``n_fft//2`` on each side with the
-    configured pad mode (librosa ``center=True``)."""
+    configured pad mode (librosa ``center=True``), as ``jnp.pad`` pads it:
+    numpy's mode names, the reflection repeated while the pad is at least
+    the length."""
     if not cfg.center:
         return x
-    lead = x.shape[:-1]
-    half = cfg.n_fft // 2
-    y = F.pad(x.reshape(-1, 1, x.shape[-1]), (half, half), mode=cfg.pad_mode)
-    return y.reshape(*lead, y.shape[-1])
+    check_pad_mode(cfg.pad_mode)
+    mode, half, length = cfg.pad_mode, cfg.n_fft // 2, x.shape[-1]
+    if mode in ("constant", "empty"):
+        return F.pad(x, (half, half))
+    if length == 0:
+        raise ValueError(f"stft: cannot {mode} pad an empty signal")
+    if mode == "reflect" and half < length:  # one reflection: PyTorch's own
+        y = F.pad(x.reshape(-1, 1, length), (half, half), mode="reflect")
+        return y.reshape(*x.shape[:-1], y.shape[-1])
+    if mode in ("edge", "wrap", "reflect", "symmetric"):
+        return x.index_select(-1, _pad_source(mode, length, half, x.device))
+    if mode == "linear_ramp":  # from 0 at the far ends to the edge samples
+        ramp = torch.arange(half, device=x.device, dtype=x.dtype) / half
+        return torch.cat([x[..., :1] * ramp, x, x[..., -1:] * ramp.flip(0)], dim=-1)
+    if mode == "median":  # of an even count, the mean of the middle two
+        s = x.sort(dim=-1).values
+        fill = (s[..., (length - 1) // 2] + s[..., length // 2]) / 2
+    else:
+        fill = {"maximum": torch.amax, "minimum": torch.amin, "mean": torch.mean}[mode](x, dim=-1)
+    side = fill[..., None].expand(*x.shape[:-1], half)
+    return torch.cat([side, x, side], dim=-1)
 
 
 def frame_signal(x: torch.Tensor, cfg: STFTConfig) -> torch.Tensor:

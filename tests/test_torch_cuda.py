@@ -324,10 +324,11 @@ def test_train_step_cuda_matches_cpu(mode, mask_padding, dev):
 
 
 def test_kernels_refuse_what_they_do_not_take(dev, gen):
-    """What the kernels refuse. A head dim that is no instance (48) and an
-    n_fft that is no power of two (500) were refused before K2's padding
-    and K1g and K3g: they now run on the next instance and on K1g and K3g,
-    and D = 136 is refused."""
+    """What the kernels refuse. A head dim that is no instance (48), one
+    above 128 (136) and an n_fft that is no power of two (500) were refused
+    once: they now run on the next instance, on K2's sliced instance at 256,
+    and on K1 (250 = 2 5^3) and K3g (a hop that does not divide 500). A pad
+    mode numpy lacks is refused."""
     x = torch.randn(2, 4000, generator=gen).to(dev)
     with pytest.raises(RuntimeError, match="backward"):
         cuda_stft.stft_mag(x.clone().requires_grad_())
@@ -343,12 +344,13 @@ def test_kernels_refuse_what_they_do_not_take(dev, gen):
     assert kernels.KERNELS["attention_fwd"].launches == before + 1
     assert float((o - cuda_attention.attention_plain(q48, q48, q48, scale=0.1)).abs().max()) < 2e-5
     q136 = torch.randn(1, 2, 16, 136, generator=gen).to(dev)
-    with pytest.raises(ValueError, match="head dim"):
-        cuda_attention.attention(q136, q136, q136, scale=0.1)
+    o = cuda_attention.attention(q136, q136, q136, scale=0.1)
+    assert kernels.KERNELS["attention_fwd"].launches == before + 2
+    assert float((o - cuda_attention.attention_plain(q136, q136, q136, scale=0.1)).abs().max()) < 2e-5
     with pytest.raises(ValueError, match="devices"):
         cuda_stft.istft_polar(torch.rand(1, 257, 9).to(dev), torch.rand(1, 257, 9))
     odd = STFTConfig(n_fft=500, hop_length=124, win_length=500)
-    before = {n: kernels.KERNELS[n].launches for n in ("stft_dft", "istft_dft")}
+    before = {n: kernels.KERNELS[n].launches for n in ("stft_mag", "istft_dft")}
     out = cuda_stft.stft_mag(x, odd)
     for o, r in zip(out, cuda_stft.stft_mag_plain(x, odd)):
         assert float((o - r).abs().max()) < 2e-4
@@ -356,9 +358,56 @@ def test_kernels_refuse_what_they_do_not_take(dev, gen):
     y = cuda_stft.istft_polar(m, m, odd)
     assert float((y - cuda_stft.istft_polar_plain(m, m, odd)).abs().max()) < 2e-5
     assert {n: kernels.KERNELS[n].launches - c for n, c in before.items()} == {
-        "stft_dft": 1, "istft_dft": 1}
+        "stft_mag": 1, "istft_dft": 1}
     with pytest.raises(ValueError, match="pad_mode"):
         cuda_stft.stft_mag(x, STFTConfig(pad_mode="replicate"))
+
+
+@pytest.mark.parametrize("center,pad_mode", [(False, "reflect"), (True, "edge")])
+def test_stft_kernel_reads_the_whole_span_at_odd_m(center, pad_mode, dev, gen):
+    """At n_fft 450 (M = 225, odd) a block's signal span is 2 mod 4
+    samples. With no padding left to fuse (center=False, or a mode padded
+    first) K1 copies aligned spans in 16-byte loads and the last two
+    samples one by one. A rectangular window weighs those samples fully
+    (Hann's ends would hide a sample left unread), so K1 must match its
+    plain version within 2e-3 on every frame."""
+    cfg = STFTConfig(n_fft=450, hop_length=100, win_length=450, window="rectangular",
+                     center=center, pad_mode=pad_mode)
+    assert cuda_stft.route(cfg, inverse=False)[0] == "stft_mag"
+    x = torch.randn(3, 20000, generator=gen).to(dev)
+    before = kernels.KERNELS["stft_mag"].launches
+    out = cuda_stft.stft_mag(x, cfg)
+    assert kernels.KERNELS["stft_mag"].launches == before + 1
+    for o, r in zip(out, cuda_stft.stft_mag_plain(x, cfg)):
+        assert o.shape == r.shape and float((o - r).abs().max()) < 2e-3
+
+
+@pytest.mark.parametrize("m,stages", [(200, (8, 5)), (200, (8, 25)), (960, (16, 4, 5, 3)),
+                                      (128, (16, 8))])
+def test_fft_kernels_refuse_a_plan_the_host_does_not_make(m, stages, dev):
+    """K1's and K3's C entries check the radix plan they are given
+    (``fft_plan_ok``) and return an error before any launch: a plan of
+    another product, an unknown radix, a stage of 320 butterflies (more
+    than a block's threads) and a radix-8 stage where M is a power of
+    two. The wrapper raises and counts no launch."""
+    n_fft = 2 * m
+    cfg = STFTConfig(n_fft=n_fft, hop_length=n_fft // 4, win_length=n_fft)
+    x = torch.zeros(1, 4 * n_fft, device=dev)
+    n = cfg.num_frames(x.shape[1])
+    table = cuda_stft._device_const("plan", cfg, dev)
+    denom = cuda_stft._device_const("denom", cfg, dev, n)
+    re, im, mag = (torch.zeros(1, cfg.num_bins, n, device=dev) for _ in range(3))
+    plan = cuda_stft.pack_radices(stages)
+    before = {k: kernels.KERNELS[k].launches for k in ("stft_mag", "istft_polar")}
+    with pytest.raises(RuntimeError, match="stft_mag: CUDA launch failed"):
+        kernels.launch("stft_mag", x.data_ptr(), table.data_ptr(), re.data_ptr(), im.data_ptr(),
+                       mag.data_ptr(), 1, x.shape[1], m, 1, n, n_fft, cfg.hop_length, 16, plan)
+    with pytest.raises(RuntimeError, match="istft_polar: CUDA launch failed"):
+        kernels.launch("istft_polar", mag.data_ptr(), mag.data_ptr(), table.data_ptr(),
+                       denom.data_ptr(), x.data_ptr(), 1, n, n_fft, cfg.hop_length, m,
+                       x.shape[1], 16, plan)
+    torch.cuda.synchronize()
+    assert {k: kernels.KERNELS[k].launches for k in before} == before
 
 
 def test_enhancer_cuda_matches_cpu(dev, gen):
@@ -760,11 +809,12 @@ def test_each_geometry_runs_its_route(geom, dev, gen):
     """The kernel ``route`` names runs, once, within K1's 2e-3 (STFT, as
     chip_smoke.py phase 16; the plain version's fp32 sums of up to 4096
     products) and K3's 2e-5 (iSTFT at the implied length) of the plain
-    version; the other kernels do not run. Rows: several frame tiles, and
-    the shortest signal reflect padding allows."""
+    version; the other kernels do not run. Rows: several frame tiles, the
+    shortest signal one reflection pads, and one of 100 samples, which the
+    wrapper pads first as ``jnp.pad`` does."""
     n_fft, hop, win, pad_mode = geom
     cfg = STFTConfig(n_fft=n_fft, hop_length=hop, win_length=win, pad_mode=pad_mode)
-    for shape in ((3, 20000), (2, n_fft // 2 + 1)):
+    for shape in ((3, 20000), (2, n_fft // 2 + 1), (2, 100)):
         x = torch.randn(shape, generator=gen).to(dev)
         kernels.reset_launch_counts()
         out = cuda_stft.stft_mag(x, cfg)
@@ -785,11 +835,12 @@ def test_each_geometry_runs_its_route(geom, dev, gen):
     assert y.shape == r.shape and float((y - r).abs().max()) < 2e-5
 
 
-@pytest.mark.parametrize("d", [24, 48, 80, 96, 112])
+@pytest.mark.parametrize("d", [24, 48, 80, 96, 112, 192, 256])
 def test_attention_at_padded_head_dims(d, dev, gen):
-    """A head dim between instances runs the next one, zero-padded: the
-    forward within 2e-5 of the plain version, the backward within 1e-4 of
-    each gradient's largest, under a mask with a fully masked row."""
+    """A head dim between instances runs the next one, zero-padded (above
+    128 the sliced instance): the forward within 2e-5 of the plain version,
+    the backward within 1e-4 of each gradient's largest, under a mask with
+    a fully masked row."""
     q, k, v, dout = (torch.randn(2, 3, 200, d, generator=gen).to(dev) for _ in range(4))
     mask = torch.rand(2, 200, generator=gen) > 0.3
     mask[1] = False
@@ -814,7 +865,8 @@ def test_attention_at_padded_head_dims(d, dev, gen):
 
 def test_enhancer_at_400_100_cuda_matches_cpu(dev, gen):
     """A small mask-head model at n_fft 400 / hop 100 behind the enhancer:
-    K1g, K2 and K3g run, the waveforms agree within 2e-4."""
+    K1, K2 and K3 run (n_fft / 2 = 200 on the mixed radices), the waveforms
+    agree within 2e-4."""
     model = init_weights(HybridViT(embed_dim=64, num_heads=4, num_layers=2, mlp_ratio=2.0,
                                    encoder_channels=(16, 32, 64), decoder_channels=(32, 16, 8, 1),
                                    pos_embed_type="factored_2d", head_type="fullres_mask",
@@ -828,6 +880,6 @@ def test_enhancer_at_400_100_cuda_matches_cpu(dev, gen):
     out = AudioEnhancer(model, cfg, device=dev, mask_padding=True).enhance_batch(wavs)
     torch.cuda.synchronize()
     assert {n: k.launches for n, k in kernels.KERNELS.items() if k.launches} == {
-        "stft_dft": 1, "attention_fwd": 2, "istft_dft": 1}
+        "stft_mag": 1, "attention_fwd": 2, "istft_polar": 1}
     for a, b in zip(out, ref):
         assert a.shape == b.shape and float(np.abs(a - b).max()) < 2e-4

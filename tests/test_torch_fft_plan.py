@@ -3,7 +3,8 @@
 The CUDA kernels (``csrc/stft.cu``, ``csrc/istft.cu``, with the Stockham
 stages of ``csrc/fft_stages.cuh``) run only on a card. This file repeats
 their algorithm step by step in float32 numpy: the even/odd pack, the
-radix-16/4/2 Stockham stages, the untangle (K1) or Hermitian pack (K3),
+mixed-radix Stockham stages of the host's radix plan (``fft_stages``), the
+untangle (K1) or Hermitian pack (K3),
 the window and, for K3, the gather overlap-add, reading the same fp32
 table (``fft_plan``) that the wrappers hand to the kernels. The model is
 held against the port's plain versions and the JAX package's ``ops/stft.py``.
@@ -60,42 +61,69 @@ def _dft4(a, b, c, d, inverse):
     return [apc + bpd, amc + jb, apc - bpd, amc - jb]
 
 
-def _w16(e, inverse):
-    return np.complex64(np.exp((1 if inverse else -1) * 2j * np.pi * e / 16))
+def _w(e, n, like):
+    """exp(-2 pi i e / n) in the precision of ``like`` (its conjugate in
+    the inverse is taken by the caller)."""
+    return like.dtype.type(np.exp(-2j * np.pi * e / n))
 
 
-def _dft(x, log2r, inverse):
-    """The R-point DFT of one butterfly, as ``dft()`` computes it; outputs
-    in natural order. R = 16 is 4 x 4 (n = 4 n1 + n2, k = k1 + 4 k2)."""
-    if log2r == 1:
+def _dft(x, r, inverse):
+    """The R-point DFT of one butterfly, as ``dft()`` computes it, in the
+    precision of ``x``; outputs in natural order. R = 16 is 4 x 4 (n = 4 n1
+    + n2, k = k1 + 4 k2), R = 8 is 4 x 2 (n = 2 n1 + n2, k = k1 + 4 k2), R = 5
+    and R = 3 are direct with the fp32 (or float64) cos and sin of 2 pi/5,
+    4 pi/5 and 2 pi/3."""
+    mi = 1j if inverse else -1j  # -i forward, +i inverse
+    real = x[0].real.dtype.type
+    if r == 2:
         return [x[0] + x[1], x[0] - x[1]]
-    if log2r == 2:
+    if r == 3:
+        a, b = x[1] + x[2], mi * (real(np.sin(2 * np.pi / 3)) * (x[1] - x[2]))
+        m = x[0] - real(0.5) * a
+        return [x[0] + a, m + b, m - b]
+    if r == 4:
         return _dft4(*x, inverse)
+    if r == 5:
+        c1, c2 = real(np.cos(2 * np.pi / 5)), real(np.cos(4 * np.pi / 5))
+        s1, s2 = real(np.sin(2 * np.pi / 5)), real(np.sin(4 * np.pi / 5))
+        a1, b1, a2, b2 = x[1] + x[4], x[1] - x[4], x[2] + x[3], x[2] - x[3]
+        m1, m2 = x[0] + c1 * a1 + c2 * a2, x[0] + c2 * a1 + c1 * a2
+        n1, n2 = mi * (s1 * b1 + s2 * b2), mi * (s2 * b1 - s1 * b2)
+        return [x[0] + (a1 + a2), m1 + n1, m2 + n2, m2 - n2, m1 - n1]
+    conj = np.conj if inverse else (lambda w: w)
+    if r == 8:
+        a = [_dft4(x[n2], x[n2 + 2], x[n2 + 4], x[n2 + 6], inverse) for n2 in range(2)]
+        a[1] = [a[1][k1] * conj(_w(k1, 8, x[0])) if k1 else a[1][k1] for k1 in range(4)]
+        return [a[0][k % 4] + a[1][k % 4] if k < 4 else a[0][k % 4] - a[1][k % 4]
+                for k in range(8)]
     a = [_dft4(x[n2], x[n2 + 4], x[n2 + 8], x[n2 + 12], inverse) for n2 in range(4)]  # a[n2][k1]
-    a = [[a[n2][k1] * _w16(n2 * k1, inverse) if n2 * k1 else a[n2][k1] for k1 in range(4)]
+    a = [[a[n2][k1] * conj(_w(n2 * k1, 16, x[0])) if n2 * k1 else a[n2][k1] for k1 in range(4)]
          for n2 in range(4)]
     out = [_dft4(*(a[n2][k1] for n2 in range(4)), inverse) for k1 in range(4)]  # out[k1][k2]
     return [out[k % 4][k // 4] for k in range(16)]
 
 
-def _stockham(z, tw, inverse):
-    """``fft_stages.cuh`` on ``z [..., M]`` complex64, unscaled: radix-16
-    stages while four or more bits of M are left, then radix 4, then 2."""
-    log2m = z.shape[-1].bit_length() - 1
+def _stockham(z, tw, inverse, stages=None):
+    """``fft_stages.cuh`` on ``z [..., M]``, unscaled, in the precision of
+    ``z`` and ``tw``: one stage per radix of the host's plan
+    (``cuda_stft.fft_stages``, or ``stages``), butterfly j = p s + q reading
+    x[j + c M/R] and writing output c times W_M^{c p s} to y[q + s (R p +
+    c)]."""
+    m = z.shape[-1]
+    stages = cuda_stft.fft_stages(m) if stages is None else stages
     w_tab = np.conj(tw) if inverse else tw
-    x, log2s = z, 0
-    while log2s < log2m:
-        left = log2m - log2s
-        log2r = 4 if left >= 4 else (2 if left >= 2 else 1)
-        nb, s = 1 << (log2m - log2r), 1 << log2s
+    x, s = z, 1
+    for r in stages:
+        nb = m // r
         j = np.arange(nb)
-        p, q = j >> log2s, j & (s - 1)
-        outs = _dft([x[..., j + c * nb] for c in range(1 << log2r)], log2r, inverse)
+        p, q = j // s, j % s
+        assert (p * (r - 1) * s < m).all()  # the twiddle index needs no modulo
+        outs = _dft([x[..., j + c * nb] for c in range(r)], r, inverse)
         y = np.empty_like(x)
         for c, v in enumerate(outs):
-            y[..., q + s * ((p << log2r) + c)] = v * w_tab[(p * c) << log2s] if c else v
-        x, log2s = y, log2s + log2r
-    assert x.dtype == np.complex64
+            y[..., q + s * (r * p + c)] = v * w_tab[p * c * s] if c else v
+        x, s = y, s * r
+    assert s == m and x.dtype == z.dtype
     return x
 
 
@@ -142,7 +170,7 @@ def model_istft_polar(mag, phase, cfg, length):
     for p in range(r):  # the kernel's gather: phase p of frame f lands on hop f + p
         ola[:, p : p + n_frames] += frames[..., p * hop : (p + 1) * hop] * win[p * hop : (p + 1) * hop]
     ola = ola.reshape(frames.shape[0], -1)[:, : n_fft + (n_frames - 1) * hop]
-    y = ola * F32(1.0 / m_pts) / window_sumsquare_denominator(cfg, n_frames)
+    y = ola / (F32(m_pts) * window_sumsquare_denominator(cfg, n_frames))
     offset, n_out = istft_output_span(cfg, n_frames, length)
     assert y.dtype == np.float32 and offset + n_out <= y.shape[-1]
     return y[:, offset : offset + n_out]
@@ -203,17 +231,26 @@ def test_istft_model_matches_plain_and_jax(n_fft, rng):
 
 
 @pytest.mark.parametrize("n_fft,hop,inverse,match", [
-    (500, 125, False, "power of two"),
-    (384, 96, True, "power of two"),
-    (4096, 1024, False, "power of two"),
-    (64, 16, True, "power of two"),
+    (500, 125, False, "multiple of 4"),  # n_fft/2 = 250 = 2 5^3 is taken, the hop is not
+    (384, 96, True, None),  # n_fft/2 = 192 = 2^6 3: taken since the mixed radices
+    (4096, 1024, False, r"not even in \[128, 2048\]"),
+    (64, 16, True, r"not even in \[128, 2048\]"),
     (512, 130, False, "multiple of 4"),
     (512, 1024, False, "multiple of 4"),
     (512, 96, True, "divide"),
     (2048, 64, True, "shared memory"),
+    (398, 100, False, "prime factor above 5"),  # n_fft/2 = 199
+    (1920, 480, False, "320 butterflies"),  # 960 = 16 4 5 3: a radix-3 stage of 320
+    (1500, 100, True, "375 butterflies"),  # 750 = 2 5^3 3: a radix-2 stage of 375
+    (130, 20, False, "prime factor above 5"),  # n_fft/2 = 65 = 5 13
 ])
 def test_kernel_sizes_are_checked(n_fft, hop, inverse, match):
+    """What K1 and K3 refuse before a launch (``match``: the reason), or
+    take (None)."""
     cfg = STFTConfig(n_fft=n_fft, hop_length=hop, win_length=min(n_fft, 512))
+    if match is None:
+        assert cuda_stft.kernel_tile(cfg, inverse=inverse) == 16
+        return
     with pytest.raises(ValueError, match=match):
         cuda_stft.kernel_tile(cfg, inverse=inverse)
 
@@ -233,10 +270,10 @@ def test_kernel_tiles_of_the_repo_configs():
 def test_wrappers_check_sizes_before_a_launch(monkeypatch):
     """A CUDA-typed call checks its sizes before it reaches a kernel: the
     dispatch is forced to the kernel path on CPU tensors, so the checks run
-    without a card. A signal too short to reflect pad raises. A
-    non-power-of-two n_fft and another pad mode, once refused, now pass the
-    checks and are routed to K1g and K3g: the CUDA impls, with the launch
-    recorded, launch those."""
+    without a card. A signal too short for one reflection, once refused,
+    is padded as ``jnp.pad`` pads it. n_fft 500 (250 = 2 5^3) goes to K1 and,
+    with a hop that does not divide it, to K3g; zero padding to K1: the CUDA
+    impls, with the launch recorded, launch those."""
     import contextlib
 
     from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.ops import kernels
@@ -245,8 +282,7 @@ def test_wrappers_check_sizes_before_a_launch(monkeypatch):
     launched = []
     monkeypatch.setattr(kernels, "launch", lambda name, *a: launched.append(name))
     monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
-    with pytest.raises(ValueError, match="reflect padded"):
-        cuda_stft.stft_mag(torch.zeros(1, 256), STFTConfig())
+    assert cuda_stft.stft_mag(torch.zeros(1, 256), STFTConfig())[0].shape == (1, 257, 3)
     odd = STFTConfig(n_fft=500, hop_length=124, win_length=500)
     zero_pad = STFTConfig(pad_mode="constant")
     x, m = torch.zeros(1, 4000), torch.zeros(1, 251, 30)
@@ -257,6 +293,6 @@ def test_wrappers_check_sizes_before_a_launch(monkeypatch):
     cuda_stft._stft_cuda(x, *cuda_stft._cfg_args(odd))
     cuda_stft._istft_cuda(m, m, *cuda_stft._cfg_args(odd), None)
     cuda_stft._stft_cuda(x, *cuda_stft._cfg_args(zero_pad))
-    assert launched == ["stft_dft", "istft_dft", "stft_dft"]
+    assert launched == ["stft_mag", "istft_dft", "stft_mag"]
     assert [cuda_stft.route(c, inverse=i)[0] for c in (odd, zero_pad) for i in (False, True)] == [
-        "stft_dft", "istft_dft", "stft_dft", "istft_polar"]
+        "stft_mag", "istft_dft", "stft_mag", "istft_polar"]

@@ -1,11 +1,12 @@
 """Every STFT geometry and head dim the JAX package runs, on the port.
 
-The FFT kernels K1 and K3 take a power-of-two ``n_fft`` from 128 to 2048
-with reflect padding; K1g and K3g (``csrc/stft_dft.cu``,
-``csrc/istft_dft.cu``) take every other geometry, and ``cuda_stft.route``
-picks one from the config alone. K2 runs any head dim up to 128 on the next
-larger instance, zero-padded. The kernels run only on a card; this file
-holds, on the CPU:
+The FFT kernels K1 and K3 take an even ``n_fft`` from 128 to 2048 whose
+half is 2^a 3^b 5^c (CMGAN's 400/100 and the 320/160 front end among them);
+K1g and K3g (``csrc/stft_dft.cu``, ``csrc/istft_dft.cu``) take every other
+geometry, and ``cuda_stft.route`` picks one from the config alone. K2 runs
+any head dim up to 128 on the next larger instance, zero-padded, and above
+128 its sliced instance, zero-padded to whole 128-column slices. The
+kernels run only on a card; this file holds, on the CPU:
 
 - the port's plain STFT and iSTFT against the JAX package's Pallas kernels
   in interpret mode (where the hop divides ``n_fft``) or its matmul path
@@ -17,8 +18,10 @@ holds, on the CPU:
 - the route for each geometry, through the CUDA impls with the launch
   recorded instead of made;
 - the enhancer, a train step and a D = 48 model, port against the JAX
-  package, at 400/100/400;
-- K2's zero padding, emulated by the plain version at the padded head dim.
+  package, at 400/100/400, and models at D = 192 and 256;
+- K2's zero padding, emulated by the plain version at the padded head dim,
+  and a model of the sliced instance's schedule (each output slice's block
+  summing the logits over every slice, its own last).
 
 Tolerances: STFT 2e-4 absolute and iSTFT 2e-5 of the larger of 1 and the
 output's peak (fp32 sums of up to 4096 products in other orders; the
@@ -70,6 +73,7 @@ from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.ops impo
 )
 from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.ops.stft import (
     STFTConfig,
+    center_pad,
     istft_output_span,
     window_sumsquare_denominator,
 )
@@ -90,13 +94,16 @@ GEOMETRIES = cuda_stft.GEOMETRIES
 IDS = [f"{n}-{h}-{w}-{p}" for n, h, w, p in GEOMETRIES]
 # the kernel of each geometry: (forward, inverse)
 ROUTES = {
-    (400, 100, 400, "reflect"): ("stft_dft", "istft_dft"),
-    (320, 160, 320, "reflect"): ("stft_dft", "istft_dft"),
-    (400, 160, 400, "reflect"): ("stft_dft", "istft_dft"),
+    (400, 100, 400, "reflect"): ("stft_mag", "istft_polar"),
+    (320, 160, 320, "reflect"): ("stft_mag", "istft_polar"),
+    (400, 160, 400, "reflect"): ("stft_mag", "istft_dft"),
     (512, 100, 400, "reflect"): ("stft_mag", "istft_dft"),
     (512, 100, 512, "reflect"): ("stft_mag", "istft_dft"),
     (4096, 1024, 4096, "reflect"): ("stft_dft", "istft_dft"),
-    (512, 128, 512, "constant"): ("stft_dft", "istft_polar"),
+    (512, 128, 512, "constant"): ("stft_mag", "istft_polar"),
+    (384, 96, 384, "reflect"): ("stft_mag", "istft_polar"),
+    (450, 100, 450, "reflect"): ("stft_mag", "istft_dft"),
+    (450, 100, 450, "edge"): ("stft_mag", "istft_dft"),
     (512, 128, 512, "reflect"): ("stft_mag", "istft_polar"),  # the repo's configs
 }
 
@@ -180,11 +187,10 @@ def test_istft_matches_jax(geom, rng):
 # ---------------------------------------------------------------------------
 
 
-def _k1g_source_index(cfg, length, n_frames, k_pad):
+def _k1g_source_index(cfg, length, n_frames, k_pad, pad):
     """K1g's gather: for frame f and sample n of the padded depth, the
-    index into the unpadded row and whether it is read (else zero), as
-    ``stft_dft.cu``'s ``load`` computes them."""
-    pad = cfg.n_fft // 2 if cfg.center else 0
+    index into the row (``pad`` samples a side left to pad) and whether it
+    is read (else zero), as ``stft_dft.cu``'s ``load`` computes them."""
     f = np.arange(-(-n_frames // 64) * 64)[:, None]  # whole frame tiles
     n = np.arange(k_pad)[None, :]
     j = f * cfg.hop_length + n - pad
@@ -198,13 +204,18 @@ def _k1g_source_index(cfg, length, n_frames, k_pad):
 def k1g_model(x: np.ndarray, cfg: STFTConfig):
     """K1g in numpy: the gathered frames of each 64-frame tile times each
     column tile of ``dft_tiles`` (float64 sums), then the bins-first store
-    of the tiles' rows and columns inside [F, N]."""
+    of the tiles' rows and columns inside [F, N]. Rows the CUDA impl pads
+    first (``_pads_first``) are padded here too, and gathered unpadded."""
     b, length = x.shape
     n_frames, f = cfg.num_frames(length), cfg.num_bins
+    pad = cfg.n_fft // 2 if cfg.center else 0
+    if cuda_stft._pads_first(cfg, length):
+        x = center_pad(torch.from_numpy(x), cfg).numpy()
+        length, pad = x.shape[1], 0
     bins, depth = cuda_stft.DFT_BLOCK_BINS, cuda_stft.DFT_DEPTH
     k_pad = -(-cfg.n_fft // depth) * depth
     tiles = cuda_stft.dft_tiles(cfg).reshape(-1, k_pad, 2, bins)
-    j, read = _k1g_source_index(cfg, length, n_frames, k_pad)
+    j, read = _k1g_source_index(cfg, length, n_frames, k_pad, pad)
     assert ((j >= 0) & (j < length))[read].all()
     out = np.zeros((3, b, len(tiles) * bins, j.shape[0]))
     for row in range(b):
@@ -275,7 +286,7 @@ def test_k1g_frame_zero_is_symmetric_under_reflect(rng):
     cfg, _ = _cfgs((400, 100, 400, "reflect"))
     x = rng.standard_normal((1, 4000)).astype(np.float32)
     k_pad = -(-cfg.n_fft // cuda_stft.DFT_DEPTH) * cuda_stft.DFT_DEPTH
-    j, read = _k1g_source_index(cfg, 4000, cfg.num_frames(4000), k_pad)
+    j, read = _k1g_source_index(cfg, 4000, cfg.num_frames(4000), k_pad, cfg.n_fft // 2)
     np.testing.assert_array_equal(j[0, :400], np.abs(np.arange(400) - 200))
     assert read[0, :400].all() and not read[0, 400:].any()
     _, im, mag = (t.numpy() for t in cuda_stft.stft_mag_plain(torch.from_numpy(x), cfg))
@@ -390,7 +401,8 @@ def _recorded_launches(monkeypatch):
 @pytest.mark.parametrize("geom", list(ROUTES), ids=[f"{n}-{h}-{w}-{p}" for n, h, w, p in ROUTES])
 def test_route_of_each_geometry(geom, monkeypatch):
     """``route`` names the kernel; the CUDA impls launch it once, with the
-    frames, padding and output span of the config."""
+    frames, padding and output span of the config (and K1's and K3's radix
+    plan)."""
     cfg, _ = _cfgs(geom)
     fwd, inv = ROUTES[geom]
     assert cuda_stft.route(cfg, inverse=False)[0] == fwd
@@ -404,37 +416,45 @@ def test_route_of_each_geometry(geom, monkeypatch):
     assert [c[0] for c in calls] == [fwd, inv]
     (_, a1), (_, a3) = calls
     pad = cfg.n_fft // 2
+    length, fused = x.shape[1], pad
+    if cuda_stft._pads_first(cfg, length):  # padded first, launched with no padding
+        length, fused = length + 2 * pad, 0
     if fwd == "stft_dft":  # batch, length, pad, reflect, n_frames, n_fft, hop, tile layout
-        assert a1[5:] == (3, x.shape[1], pad, int(cfg.pad_mode == "reflect"), n_frames,
+        assert a1[5:] == (3, length, fused, int(cfg.pad_mode == "reflect"), n_frames,
                           cfg.n_fft, cfg.hop_length, cuda_stft.DFT_BLOCK_BINS,
                           cuda_stft.DFT_DEPTH)
-    else:  # batch, length, pad, n_frames, n_fft, hop, tile
-        assert a1[5:] == (3, x.shape[1], pad, n_frames, cfg.n_fft, cfg.hop_length,
-                          cuda_stft.kernel_tile(cfg, inverse=False))
+    else:  # batch, length, pad, reflect, n_frames, n_fft, hop, tile, radix plan
+        assert a1[5:] == (3, length, fused, int(cfg.pad_mode == "reflect"), n_frames,
+                          cfg.n_fft, cfg.hop_length, cuda_stft.kernel_tile(cfg, inverse=False),
+                          cuda_stft.pack_radices(cuda_stft.fft_stages(cfg.n_fft // 2)))
     if inv == "istft_dft":  # batch, n_frames, n_fft, hop, offset, out_samples, tile layout
         assert a3[6:] == (3, n_frames, cfg.n_fft, cfg.hop_length, pad, 4321,
                           cuda_stft.IDFT_BLOCK_SAMPLES, cuda_stft.IDFT_DEPTH)
     else:
         assert a3[5:] == (3, n_frames, cfg.n_fft, cfg.hop_length, pad, 4321,
-                          cuda_stft.kernel_tile(cfg, inverse=True))
+                          cuda_stft.kernel_tile(cfg, inverse=True),
+                          cuda_stft.pack_radices(cuda_stft.fft_stages(cfg.n_fft // 2)))
 
 
 def test_routes_refuse_what_no_kernel_takes(monkeypatch):
-    """What remains refused, before a launch: another pad mode, a signal
-    too short to reflect pad (as the plain version), more rows than a
-    launch holds."""
+    """What remains refused, before a launch: a pad mode numpy does not
+    have, more rows than one launch holds (the grid's y for K1 and K3, which
+    take 400/100 since the mixed radices, its z for K1g and K3g). A signal
+    too short for one reflection, once refused as the plain version refused
+    it, is now padded as ``jnp.pad`` pads it (``test_torch_stft.py``)."""
     monkeypatch.setattr(kernels, "uses_kernel", lambda t: True)
     monkeypatch.setattr(kernels, "launch", lambda *a: pytest.fail("launched"))
     with pytest.raises(ValueError, match="pad_mode 'replicate'"):
         cuda_stft.stft_mag(torch.zeros(1, 4000), STFTConfig(pad_mode="replicate"))
     cfg = STFTConfig(n_fft=400, hop_length=100, win_length=400)
-    with pytest.raises(ValueError, match="reflect padded"):
-        cuda_stft.stft_mag(torch.zeros(1, 200), cfg)
-    with pytest.raises(ValueError, match="rows a launch"):
-        cuda_stft.stft_mag(torch.zeros(cuda_stft.MAX_BATCH + 1, 500), cfg)
-    m = torch.zeros(cuda_stft.MAX_BATCH + 1, 201, 2)
-    with pytest.raises(ValueError, match="rows a launch"):
-        cuda_stft.istft_polar(m, m, cfg)
+    assert cuda_stft.stft_mag(torch.zeros(1, 200), cfg)[0].shape == (1, 201, 3)
+    dft_cfg = STFTConfig(n_fft=398, hop_length=100, win_length=398)  # 199: K1g and K3g
+    for c, f in ((dft_cfg, 200), (cfg, 201)):
+        with pytest.raises(ValueError, match="rows a launch"):
+            cuda_stft.stft_mag(torch.zeros(cuda_stft.MAX_BATCH + 1, 500), c)
+        m = torch.zeros(cuda_stft.MAX_BATCH + 1, f, 2)
+        with pytest.raises(ValueError, match="rows a launch"):
+            cuda_stft.istft_polar(m, m, c)
     with pytest.raises(ValueError, match="bins"):
         cuda_stft.istft_polar(torch.zeros(1, 257, 2), torch.zeros(1, 257, 2), cfg)
 
@@ -552,7 +572,7 @@ def test_head_dim_48_model_matches_jax(masked, rng):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("d", [24, 48, 80, 96, 112])
+@pytest.mark.parametrize("d", [24, 48, 80, 96, 112, 192, 200, 256])
 def test_padded_attention_equals_unpadded(d):
     """What the CUDA impls do, on the plain version: q, k, v (and, in the
     backward, the output's gradient) zero-padded to the next instance, the
@@ -564,7 +584,7 @@ def test_padded_attention_equals_unpadded(d):
     mask = torch.rand(b, n, generator=g) > 0.3
     mask[1] = False
     dp = cuda_attention.kernel_head_dim(d)
-    assert dp == {24: 32, 48: 64}.get(d, 128)
+    assert dp == {24: 32, 48: 64, 192: 256, 200: 256, 256: 256}.get(d, 128)
     pq, pk, pv, pdo = (cuda_attention._pad_head_dim(t, dp) for t in (q, k, v, dout))
     assert pq.shape[-1] == dp and pq.is_contiguous() and not pq[..., d:].any()
     scale = d ** -0.5
@@ -579,22 +599,100 @@ def test_padded_attention_equals_unpadded(d):
         torch.testing.assert_close(p[..., :d], a, atol=1e-6, rtol=0)
 
 
-@pytest.mark.parametrize("d", [48, 96, 128, 129])
+@pytest.mark.parametrize("d", [48, 96, 128, 129, 192, 256])
 def test_attention_kernel_pads_or_refuses(d, monkeypatch):
     """The CUDA impls launch the padded instance and return D columns;
-    above 128 the wrapper raises before a launch."""
+    above 128, once refused, the sliced instance at the next multiple of
+    128 (129 and 192 at 256)."""
     q = torch.randn(1, 2, 8, d)
-    if d > 128:
-        monkeypatch.setattr(kernels, "uses_kernel", lambda t: True)
-        monkeypatch.setattr(kernels, "launch", lambda *a: pytest.fail("launched"))
-        with pytest.raises(ValueError, match="head dim 129 > 128"):
-            cuda_attention.attention(q, q, q, scale=0.1)
-        return
     with _recorded_launches(monkeypatch) as calls:
         out, lse = cuda_attention._forward_kernel(q, q, q, None, 0.1, True)
         grads = cuda_attention._backward_kernel(q, q, q, out, lse, q, None, 0.1)
     dp = cuda_attention.kernel_head_dim(d)
+    assert dp == {48: 64, 96: 128, 128: 128}.get(d, 256)
     assert [(c[0], c[1][9]) for c in calls[:1]] == [("attention_fwd", dp)]
     assert [(c[0], c[1][14]) for c in calls[1:]] == [("attention_bwd", dp)]
     assert out.shape == q.shape and out.is_contiguous() and lse.shape == (2, 8)
     assert all(t.shape == q.shape and t.is_contiguous() for t in grads)
+
+
+def sliced_attention_model(q, k, v, dout, scale, mask, slice_cols=cuda_attention.SLICE):
+    """The sliced instance's schedule in float64, after the wrapper's zero
+    padding to whole slices: for each output slice z a block sums the logits
+    (and, in the backward, dO V^T and Delta) over the slices in the order
+    z + 1, ..., z, then writes its own slice of out, dq, dk and dv."""
+    d = q.shape[-1]
+    dp = cuda_attention.kernel_head_dim(d)
+    q, k, v, dout = (cuda_attention._pad_head_dim(t.double(), dp) for t in (q, k, v, dout))
+    ns = dp // slice_cols
+    cols = [slice(z * slice_cols, (z + 1) * slice_cols) for z in range(ns)]
+    outs = {name: torch.zeros_like(q) for name in ("out", "dq", "dk", "dv")}
+    keep = None if mask is None else mask[:, None, None, :]
+    for z in range(ns):
+        order = [(z + 1 + i) % ns for i in range(ns)]
+        assert order[-1] == z
+        s = sum(q[..., cols[o]] @ k[..., cols[o]].transpose(-1, -2) for o in order) * scale
+        dpt = sum(dout[..., cols[o]] @ v[..., cols[o]].transpose(-1, -2) for o in order)
+        if keep is not None:
+            s = s.masked_fill(~keep, -1e30)
+        p = torch.softmax(s, dim=-1)
+        out = p @ v
+        delta = (dout * out).sum(-1, keepdim=True)
+        ds = p * (dpt - delta)
+        if keep is not None:
+            ds = ds.masked_fill(~keep, 0.0)
+        outs["out"][..., cols[z]] = p @ v[..., cols[z]]
+        outs["dq"][..., cols[z]] = scale * ds @ k[..., cols[z]]
+        outs["dk"][..., cols[z]] = scale * ds.transpose(-1, -2) @ q[..., cols[z]]
+        outs["dv"][..., cols[z]] = p.transpose(-1, -2) @ dout[..., cols[z]]
+    return {name: t[..., :d] for name, t in outs.items()}
+
+
+@pytest.mark.parametrize("d", [129, 192, 256, 320])
+def test_sliced_attention_model_matches_plain(d):
+    """The sliced schedule against the same sums over all of D at once
+    (one slice), both in float64, within 1e-12 of the largest value; and
+    against the plain forward and backward at D, fp32, within 1e-5 (fp32
+    sums of up to 384 products), under a mask with a fully masked row."""
+    g = torch.Generator().manual_seed(d)
+    b, h, n = 2, 2, 24
+    q, k, v, dout = (torch.randn(b, h, n, d, generator=g) for _ in range(4))
+    mask = torch.rand(b, n, generator=g) > 0.3
+    mask[1] = False
+    scale = d ** -0.5
+    got = sliced_attention_model(q, k, v, dout, scale, mask)
+    whole = sliced_attention_model(q, k, v, dout, scale, mask,
+                                   slice_cols=cuda_attention.kernel_head_dim(d))
+    for name, w in whole.items():
+        torch.testing.assert_close(got[name], w, atol=1e-12 * float(w.abs().max()), rtol=0)
+    ref = dict(zip(("dq", "dk", "dv"),
+                   cuda_attention.attention_bwd_plain(q, k, v, dout, scale=scale, mask=mask)))
+    ref["out"] = cuda_attention.attention_plain(q, k, v, scale=scale, mask=mask)
+    for name, r in ref.items():
+        assert got[name].shape == r.shape
+        tol = 1e-5 * max(1.0, float(r.abs().max()))
+        torch.testing.assert_close(got[name].float(), r, atol=tol, rtol=0, msg=name)
+
+
+@pytest.mark.parametrize("embed_dim", [384, 512])
+def test_head_dim_above_128_model_matches_jax(embed_dim, rng):
+    """embed_dim 384 and 512 with 2 heads (D = 192 and 256) at 2 layers
+    under a patch mask: the port's model (on a card, K2's sliced instance
+    at 256) against the JAX model, 1e-4."""
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu.models.components import (
+        patch_validity_mask as j_patch_validity_mask,
+    )
+
+    kw = dict(SMALL, embed_dim=embed_dim, num_heads=2, num_layers=2,
+              pos_embed_type="factored_2d")
+    assert cuda_attention.kernel_head_dim(embed_dim // 2) == 256
+    x = rng.random((2, 201, 64, 1)).astype(np.float32)
+    jm = JHybridViT(**kw, use_pallas_attention=True)
+    v = _jax_variables(jm, x, rng)
+    mask = np.asarray(j_patch_validity_mask(jnp.asarray([6300, 3700]), 201, 64, 100))
+    ref = _jax_forward(jm, v, x, mask)
+    tm = HybridViT(**kw).eval()
+    tm.load_state_dict(flax_to_state_dict(v), strict=True)
+    with torch.inference_mode():
+        out = tm(torch.from_numpy(x), mask=torch.from_numpy(mask))
+    np.testing.assert_allclose(out.numpy(), ref, atol=1e-4, rtol=0)

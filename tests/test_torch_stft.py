@@ -166,3 +166,93 @@ def test_istft_output_span_matches_jax_trim():
             kw = {} if length is None else {"length": length}
             n_out = np.asarray(j_istft(re, re, JConfig(), **kw)).shape[-1]
             assert T.istft_output_span(cfg, n_frames, length) == (256, n_out)
+
+
+# ---------------------------------------------------------------------------
+# Center padding as jnp.pad pads: every mode name, short signals
+# ---------------------------------------------------------------------------
+
+PAD_LENGTHS = [1, 100, 256, 257, 9000]  # at most n_fft/2 samples, just over it, long
+PAD_GEOMS = [(512, 128), (400, 100)]
+
+
+@pytest.mark.parametrize("n_fft,hop", PAD_GEOMS)
+@pytest.mark.parametrize("mode", T.PAD_MODES)
+def test_center_padding_matches_jax(mode, n_fft, hop, rng):
+    """Every numpy pad mode the JAX package takes, at lengths from 1 sample
+    (which ``reflect`` pads by repeating its reflection, as numpy does) to
+    9000: the frames as JAX's ``frame_signal`` cuts them, and the STFT."""
+    kw = dict(n_fft=n_fft, hop_length=hop, win_length=n_fft, pad_mode=mode)
+    jc, tc = JConfig(**kw), T.STFTConfig(**kw)
+    for length in PAD_LENGTHS:
+        x = _signal(rng, length)
+        frames = np.asarray(j_frame_signal(jnp.asarray(x), jc))
+        tframes = T.frame_signal(torch.from_numpy(x), tc).numpy()
+        assert tframes.shape == frames.shape == (2, tc.num_frames(length), n_fft)
+        np.testing.assert_allclose(tframes, frames, atol=1e-6, rtol=0)
+        re, im = (np.asarray(a) for a in j_stft(jnp.asarray(x), jc))
+        tre, tim, tmag = stft_mag(torch.from_numpy(x), tc)  # its plain version on the CPU
+        np.testing.assert_allclose(tre.numpy(), re, atol=STFT_ATOL, rtol=0)
+        np.testing.assert_allclose(tim.numpy(), im, atol=STFT_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("mode", ["replicate", "circular", "reflection"])
+def test_pad_modes_numpy_lacks_are_refused(mode, rng):
+    """PyTorch's names for ``edge`` and ``wrap`` are not numpy's: JAX refuses
+    them, and so does the port, on the CPU and before a launch."""
+    import contextlib
+
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.ops import kernels
+
+    x = _signal(rng, 4000)
+    with pytest.raises(NotImplementedError, match=mode):
+        j_stft(jnp.asarray(x), JConfig(pad_mode=mode))
+    with pytest.raises(ValueError, match=f"pad_mode '{mode}'"):
+        T.stft(torch.from_numpy(x), T.STFTConfig(pad_mode=mode))
+    with pytest.raises(ValueError, match=f"pad_mode '{mode}'"):
+        stft_mag(torch.from_numpy(x), T.STFTConfig(pad_mode=mode))
+    with contextlib.ExitStack() as stack:
+        mp = stack.enter_context(pytest.MonkeyPatch.context())
+        mp.setattr(kernels, "uses_kernel", lambda t: True)
+        mp.setattr(kernels, "launch", lambda *a: pytest.fail("launched"))
+        with pytest.raises(ValueError, match=f"pad_mode '{mode}'"):
+            stft_mag(torch.from_numpy(x), T.STFTConfig(pad_mode=mode))
+
+
+@pytest.mark.parametrize("n_fft,hop", PAD_GEOMS)
+def test_kernel_launch_pads_what_its_loads_do_not(n_fft, hop, monkeypatch, rng):
+    """The CUDA impl of ``sevit::stft_mag`` on CPU tensors with the launch
+    recorded: reflect on rows longer than n_fft/2 and zeros are the
+    kernel's own loads (pad n_fft/2, the reflect flag); a shorter reflected
+    row and numpy's other modes are padded first, as ``center_pad`` pads,
+    and launched with pad 0. Whatever it launches, the kernel reads the
+    padded row the plain version frames."""
+    import contextlib
+
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.ops import (
+        cuda_stft,
+        kernels,
+    )
+
+    calls = []
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(kernels, "launch", lambda name, *a: calls.append((name, a)))
+    monkeypatch.setattr(torch.Tensor, "data_ptr", lambda t: t)  # the launch sees the tensors
+    half = n_fft // 2
+    for mode in T.PAD_MODES:
+        cfg = T.STFTConfig(n_fft=n_fft, hop_length=hop, win_length=n_fft, pad_mode=mode)
+        for length in PAD_LENGTHS:
+            x = torch.from_numpy(_signal(rng, length))
+            calls.clear()
+            cuda_stft._stft_cuda(x, *cuda_stft._cfg_args(cfg))
+            ((name, a),) = calls
+            assert name == "stft_mag"  # n_fft 512 and 400 are K1's
+            row, b, n, pad, reflect = a[0], a[5], a[6], a[7], a[8]
+            assert b == 2 and a[9] == cfg.num_frames(length)
+            fused = mode == "constant" or (mode == "reflect" and length > half)
+            assert (pad, n) == ((half, length) if fused else (0, length + 2 * half))
+            assert reflect == int(mode == "reflect")
+            if fused:
+                assert row is x
+            else:
+                torch.testing.assert_close(row, T.center_pad(x, cfg), atol=0, rtol=0)
