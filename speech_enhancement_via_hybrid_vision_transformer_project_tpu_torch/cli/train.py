@@ -12,7 +12,8 @@ float32 (``models/hybrid_vit.py``). ``tpu.remat`` (or
 ``model.transformer.remat``) rematerializes the transformer blocks.
 ``tpu.use_pallas_attention`` is ignored: on the card attention is always
 kernel K2. ``--profile-dir`` writes a ``torch.profiler`` trace of steps 1-5
-of the first epoch.
+of the first epoch, whose ranges are the recorder's ``train.*`` spans
+(``utils/tracing.py``).
 
 The mesh (config ``mesh``, or ``--data-parallel`` and ``--model-parallel``;
 ``data_parallel: -1`` is every device: each visible card, or on the CPU one
@@ -69,7 +70,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--data-parallel", type=int, default=None)
     p.add_argument("--model-parallel", type=int, default=None)
     p.add_argument("--profile-dir", default=None,
-                   help="write a torch.profiler trace of training steps 1-5 here")
+                   help="write a torch.profiler Chrome trace of training steps 1-5 here, "
+                        "with the train.* spans (train.step, train.featurize, ...) as ranges")
     p.add_argument("--mask-padding", action="store_true",
                    help="exclude bucket-padding patches from attention")
     p.add_argument("--pos-embed", default=None, choices=["learned_1d", "factored_2d", "sinusoidal"])

@@ -16,6 +16,10 @@ own kernels, followed by a CUDA event. ``enhance_batch_async`` returns that
 ``PendingBatch``, so a caller can dispatch the next batch before it reads
 this one; the blocking paths read theirs at once.
 
+Each batch counts its true and padded samples (``enhance.*`` counters),
+and with the recorder on its dispatch and its result are spans under one
+batch id (``utils/tracing.py``).
+
 With a ``mesh`` (``parallel.mesh_for_data_parallel``; JAX ``mesh=``) the
 enhancer keeps one replica of the model on each device of the data axis.
 A batch's rows are padded to a multiple of the replicas and split into
@@ -40,6 +44,7 @@ from ..models.fold import fold_batchnorm
 from ..models.hybrid_vit import create_hybrid_vit
 from ..ops.cuda_stft import istft_polar, stft_mag
 from ..ops.stft import STFTConfig
+from ..utils import tracing
 from ..utils.checkpoint import load_model_weights, read_meta
 
 
@@ -56,22 +61,28 @@ class PendingBatch:
     is empty. The parts stay referenced here until the batch is read, so a
     pinned buffer is not reused while the copy into it is in flight (the
     pinned input buffers are held the same way by PyTorch's caching host
-    allocator, which records the copy's stream)."""
+    allocator, which records the copy's stream). ``id`` is the batch's id
+    in the recorder's spans."""
 
-    def __init__(self, hosts: List[torch.Tensor], events: List[torch.cuda.Event], rows: int):
+    def __init__(self, hosts: List[torch.Tensor], events: List[torch.cuda.Event], rows: int,
+                 id: Optional[int] = None):
         self.hosts = hosts
         self.events = events
         self.rows = rows
+        self.id = id
 
     def result(self) -> np.ndarray:
-        for event in self.events:
-            event.synchronize()
-        out = self.hosts[0].numpy() if len(self.hosts) == 1 else np.concatenate(
-            [h.numpy() for h in self.hosts])
-        out = out[: self.rows]
-        if out.dtype == np.int16:
-            out = out.astype(np.float32) / 32767.0
-        return out
+        with tracing.span("enhance.result", self.id):
+            with tracing.span("enhance.wait"):
+                for event in self.events:
+                    event.synchronize()
+            with tracing.span("enhance.unpack"):
+                out = self.hosts[0].numpy() if len(self.hosts) == 1 else np.concatenate(
+                    [h.numpy() for h in self.hosts])
+                out = out[: self.rows]
+                if out.dtype == np.int16:
+                    out = out.astype(np.float32) / 32767.0
+            return out
 
 
 class EnhancerCore(torch.nn.Module):
@@ -305,27 +316,37 @@ class AudioEnhancer:
                 model: torch.nn.Module, device: torch.device):
         """Enqueue ``batch`` on ``device``'s current stream: ``(host output,
         CUDA event after its copy, or None on the CPU)``."""
-        x = self._to_device(batch, device)
-        if normalize:
-            out = self._core(x, self._to_device(lens, device), model)
-        else:
-            out = self._enhance_nonorm(x, model)
+        with tracing.span("enhance.stage"):
+            x = self._to_device(batch, device)
+            n = self._to_device(lens, device) if normalize else None
+        with tracing.span("enhance.launch"):
+            out = self._core(x, n, model) if normalize else self._enhance_nonorm(x, model)
         if device.type != "cuda":
             return out, None
-        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-        host.copy_(out, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record()
+        with tracing.span("enhance.d2h"):
+            host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+            host.copy_(out, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
         return host, event
 
+    @staticmethod
+    def _count(lens: np.ndarray, wav_len: int) -> int:
+        """Count one batch of clips ``lens`` padded to ``wav_len``; returns
+        its id."""
+        tracing.count("enhance.true_samples", int(lens.sum()))
+        tracing.count("enhance.padded_samples", len(lens) * wav_len)
+        return tracing.count("enhance.batches")
+
     @torch.inference_mode()
-    def _dispatch(self, batch: np.ndarray, lens: np.ndarray, normalize: bool) -> PendingBatch:
+    def _dispatch(self, batch: np.ndarray, lens: np.ndarray, normalize: bool,
+                  id: Optional[int] = None) -> PendingBatch:
         """Enqueue one padded batch (see the module docstring) and return
         without waiting for the device."""
         rows = batch.shape[0]
         if self.replicas is None:
             host, event = self._launch(batch, lens, normalize, self.model, self.device)
-            return PendingBatch([host], [event] if event is not None else [], rows)
+            return PendingBatch([host], [event] if event is not None else [], rows, id)
         n = len(self.replicas)
         part = -(-rows // n)
         if part * n > rows:  # zero rows of length 1 pad the last replica's part
@@ -346,7 +367,7 @@ class AudioEnhancer:
                                                device)
                 events.append(event)
             hosts.append(host)
-        return PendingBatch(hosts, events, rows)
+        return PendingBatch(hosts, events, rows, id)
 
     # ------------------------------------------------------------------
     def enhance(self, noisy_audio: np.ndarray, normalize: bool = True,
@@ -361,7 +382,10 @@ class AudioEnhancer:
         if normalize and self.io_dtype == "int16":
             x = (np.clip(x, -1.0, 1.0) * 32767.0).astype(np.int16)
         lens = np.full((1,), x.shape[-1], np.int32)
-        return self._dispatch(x, lens, normalize).result()[0]
+        bid = self._count(lens, x.shape[-1])
+        with tracing.span("enhance.dispatch", bid):
+            pending = self._dispatch(x, lens, normalize, bid)
+        return pending.result()[0]
 
     def enhance_batch_async(self, wavs: List[np.ndarray], normalize: bool = True) -> PendingBatch:
         """Pad one batch to its length bucket and dispatch it without waiting
@@ -381,15 +405,17 @@ class AudioEnhancer:
             )
         wav_len = self._padded_len(longest)
         io16 = self.io_dtype == "int16" and normalize
-        batch = np.zeros((len(wavs), wav_len), np.int16 if io16 else np.float32)
-        lens = np.zeros((len(wavs),), np.int32)
-        for row, w in enumerate(wavs):
-            w = np.asarray(w, np.float32)
-            lens[row] = len(w)
-            batch[row, : len(w)] = (
-                (np.clip(w, -1.0, 1.0) * 32767.0).astype(np.int16) if io16 else w
-            )
-        return self._dispatch(batch, lens, normalize)
+        lens = np.array([len(w) for w in wavs], np.int32)
+        bid = self._count(lens, wav_len)
+        with tracing.span("enhance.dispatch", bid):
+            with tracing.span("enhance.pad"):
+                batch = np.zeros((len(wavs), wav_len), np.int16 if io16 else np.float32)
+                for row, w in enumerate(wavs):
+                    w = np.asarray(w, np.float32)
+                    batch[row, : len(w)] = (
+                        (np.clip(w, -1.0, 1.0) * 32767.0).astype(np.int16) if io16 else w
+                    )
+            return self._dispatch(batch, lens, normalize, bid)
 
     def enhance_batch(self, wavs: List[np.ndarray], normalize: bool = True) -> List[np.ndarray]:
         """Enhance a list of waveforms as one padded batch; clips longer than

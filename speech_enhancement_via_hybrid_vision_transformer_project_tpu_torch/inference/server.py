@@ -19,11 +19,25 @@ Protocol:
                  streaming chunked-overlap-add path.
   GET  /healthz  -> 200 "ok"
   GET  /stats    -> 200 JSON {requests, audio_seconds, audio_seconds_per_s,
-                              batches, mean_batch_size}
+                              batches, mean_batch_size, queue_wait_ms_mean,
+                              process_ms_mean, padding_pct}
+
+/stats since the server started: ``queue_wait_ms_mean`` is a request's mean
+wait from its handler's ``submit`` to the batcher taking it;
+``process_ms_mean`` a batch's mean time in the enhancer (one length bucket's
+``enhance_batch``, its output on the host); ``padding_pct`` the share of the
+samples of the batched requests' length buckets that were padding.
+
+The handler and the batcher also time ``serve.parse``, ``serve.reply``,
+each request's ``serve.queue_wait``, ``serve.collect`` and ``serve.process``
+as spans of the port's recorder (``utils/tracing.py``) under the request's
+id (``serve.process``: its first request's). The server never turns the
+recorder on: a caller that measures the server in its own process does.
 """
 
 from __future__ import annotations
 
+import itertools
 import json
 import queue
 import threading
@@ -36,12 +50,17 @@ from typing import List, Optional
 import numpy as np
 
 from ..data.wavio import read_wav_bytes, wav_bytes
+from ..utils import tracing
+
+_request_ids = itertools.count(1)
 
 
 @dataclass
 class _Request:
     audio: np.ndarray
     sample_rate: int
+    id: int = 0
+    submitted: float = 0.0
     done: threading.Event = field(default_factory=threading.Event)
     result: Optional[np.ndarray] = None
     error: Optional[str] = None
@@ -66,6 +85,10 @@ class DynamicBatcher:
             "audio_seconds": 0.0,
             "batches": 0,
             "batched_requests": 0,
+            "queue_wait_s": 0.0,
+            "process_s": 0.0,
+            "true_samples": 0,
+            "padded_samples": 0,
         }
         self._t0 = time.perf_counter()
         self._stop = threading.Event()
@@ -73,6 +96,7 @@ class DynamicBatcher:
         self._worker.start()
 
     def submit(self, req: _Request) -> None:
+        req.submitted = time.perf_counter()
         self.queue.put(req)
 
     def close(self) -> None:
@@ -86,17 +110,26 @@ class DynamicBatcher:
             first = self.queue.get(timeout=0.1)
         except queue.Empty:
             return []
+        self._taken(first)
         batch = [first]
-        deadline = time.perf_counter() + self.max_wait_s
-        while len(batch) < self.max_batch:
-            remaining = deadline - time.perf_counter()
-            if remaining <= 0:
-                break
-            try:
-                batch.append(self.queue.get(timeout=remaining))
-            except queue.Empty:
-                break
+        with tracing.span("serve.collect", first.id):
+            deadline = time.perf_counter() + self.max_wait_s
+            while len(batch) < self.max_batch:
+                remaining = deadline - time.perf_counter()
+                if remaining <= 0:
+                    break
+                try:
+                    batch.append(self._taken(self.queue.get(timeout=remaining)))
+                except queue.Empty:
+                    break
         return batch
+
+    def _taken(self, req: _Request) -> _Request:
+        """Count ``req``'s wait in the queue, which ends now."""
+        now = time.perf_counter()
+        self.stats["queue_wait_s"] += now - req.submitted
+        tracing.record("serve.queue_wait", req.submitted, now, req.id)
+        return req
 
     def _max_samples(self) -> int:
         """Capacity of the largest length bucket (samples)."""
@@ -112,22 +145,27 @@ class DynamicBatcher:
             else:
                 groups.setdefault(self.enhancer._padded_len(len(r.audio)), []).append(r)
         for key, reqs in groups.items():
+            t0 = time.perf_counter()
             try:
-                if key == "stream":
-                    # longer than the largest bucket: chunked overlap-add
-                    # path (batched enhance would silently truncate)
-                    for r in reqs:
-                        r.result = self.enhancer.enhance_streaming(r.audio)
-                else:
-                    # eager PyTorch compiles nothing per batch shape, so
-                    # the batch is not padded to a fixed set of sizes
-                    outs = self.enhancer.enhance_batch([r.audio for r in reqs])
-                    for r, out in zip(reqs, outs):
-                        r.result = out
+                with tracing.span("serve.process", reqs[0].id):
+                    if key == "stream":
+                        # longer than the largest bucket: chunked overlap-add
+                        # path (batched enhance would silently truncate)
+                        for r in reqs:
+                            r.result = self.enhancer.enhance_streaming(r.audio)
+                    else:
+                        # eager PyTorch compiles nothing per batch shape, so
+                        # the batch is not padded to a fixed set of sizes
+                        outs = self.enhancer.enhance_batch([r.audio for r in reqs])
+                        for r, out in zip(reqs, outs):
+                            r.result = out
+                        self.stats["true_samples"] += sum(len(r.audio) for r in reqs)
+                        self.stats["padded_samples"] += key * len(reqs)
             except Exception as e:  # fail these requests, keep serving
                 traceback.print_exc()
                 for r in reqs:
                     r.error = str(e)
+            self.stats["process_s"] += time.perf_counter() - t0
             self.stats["batches"] += 1
             self.stats["batched_requests"] += len(reqs)
             for r in reqs:
@@ -166,6 +204,13 @@ class DynamicBatcher:
         s["audio_seconds_per_s"] = s["audio_seconds"] / elapsed
         s["mean_batch_size"] = (
             s["batched_requests"] / s["batches"] if s["batches"] else 0.0
+        )
+        s["queue_wait_ms_mean"] = (
+            1e3 * s["queue_wait_s"] / s["requests"] if s["requests"] else 0.0
+        )
+        s["process_ms_mean"] = 1e3 * s["process_s"] / s["batches"] if s["batches"] else 0.0
+        s["padding_pct"] = (
+            100.0 * (1.0 - s["true_samples"] / s["padded_samples"]) if s["padded_samples"] else 0.0
         )
         return s
 
@@ -216,12 +261,14 @@ def make_server(
             if n <= 0:
                 self._reply(400, b"empty body", "text/plain")
                 return
+            rid = next(_request_ids)
             try:
-                audio, sr = read_wav_bytes(self.rfile.read(n), target_sr)
+                with tracing.span("serve.parse", rid):
+                    audio, sr = read_wav_bytes(self.rfile.read(n), target_sr)
             except Exception as e:
                 self._reply(400, f"bad wav: {e}".encode(), "text/plain")
                 return
-            req = _Request(audio=audio, sample_rate=sr)
+            req = _Request(audio=audio, sample_rate=sr, id=rid)
             batcher.submit(req)
             if not req.done.wait(timeout=timeout_s):
                 self._reply(503, b"timeout", "text/plain")
@@ -231,9 +278,10 @@ def make_server(
                 return
             # float32 WAV: lossless w.r.t. the pipeline output (PCM16 would
             # clip if an output excursion exceeds full scale)
-            self._reply(
-                200, wav_bytes(req.result, sr, subtype="float32"), "audio/wav"
-            )
+            with tracing.span("serve.reply", rid):
+                self._reply(
+                    200, wav_bytes(req.result, sr, subtype="float32"), "audio/wav"
+                )
 
     server = ThreadingHTTPServer((host, port), Handler)
     server.batcher = batcher  # type: ignore[attr-defined]

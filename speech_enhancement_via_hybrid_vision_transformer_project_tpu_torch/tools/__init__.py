@@ -23,6 +23,9 @@ The measurement tools:
   train step over data ranks (NCCL, one rank a card; gloo on the CPU).
 - ``bench_io``: ``benchmarks/bench_io.py``, the native WAV decoder against
   the numpy codec (host).
+- ``tracecheck``: no JAX script; the port's recorder (``utils/tracing.py``)
+  in the cells of ``portbench/``: what its spans read in a traced run, the
+  idle they name, and what the recorder costs (run from a checkout's root).
 
 The quality tools:
 

@@ -15,7 +15,8 @@ best-on-train without a validation loader, resume with epoch + 1 (from the
 port's checkpoints and from the JAX trainer's, optax state included),
 TensorBoard scalars and audio samples when the config asks for them, and a
 ``torch.profiler`` trace of steps 1-5 of the first epoch with
-``profile_dir``.
+``profile_dir``, which carries the recorder's ``train.*`` spans
+(``utils/tracing.py``) as its ranges.
 
 On a mesh (``parallel/``; one process per device) the step computes what
 the JAX package's SPMD step computes over the global batch: BatchNorm's
@@ -48,6 +49,7 @@ from ..ops.stft import STFTConfig, reconstruct
 from ..parallel.collectives import all_reduce_
 from ..parallel.mesh import Mesh, rank_seed
 from ..parallel.sharding import gather_state_dict, shard_model, tp_gather, tp_split, unshard_model
+from ..utils import tracing
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
 from ..utils.logging import MetricsLogger, NullLogger, Stopwatch
 from .losses import LossConfig, batch_si_sdr_db, combined_loss
@@ -56,7 +58,8 @@ from .optimizer import Optimizer, create_scheduler, global_norm, parameters
 
 def batch_to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
     """A loader batch (numpy) as tensors on ``device``."""
-    return {k: torch.from_numpy(np.asarray(v)).to(device) for k, v in batch.items()}
+    with tracing.span("train.h2d"):
+        return {k: torch.from_numpy(np.asarray(v)).to(device) for k, v in batch.items()}
 
 
 def stft_config_from(config: Dict) -> STFTConfig:
@@ -196,14 +199,21 @@ def make_step_fns(
         return total, comps
 
     def train_step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        feats = _featurize(batch, augment)
-        attn_mask = _patch_mask(feats, batch)
-        model.train()
-        saved = [t.clone() for t in bn_state] if skip_nonfinite else None
-        out = model(feats.noisy_spec, mask=attn_mask)
-        total, comps = _loss(out, feats, batch)
-        grads = torch.autograd.grad(total, params, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+        with tracing.span("train.step", tracing.count("train.steps")):
+            return _train_step(batch)
+
+    def _train_step(batch):
+        with tracing.span("train.featurize"):
+            feats = _featurize(batch, augment)
+            attn_mask = _patch_mask(feats, batch)
+        with tracing.span("train.forward"):
+            model.train()
+            saved = [t.clone() for t in bn_state] if skip_nonfinite else None
+            out = model(feats.noisy_spec, mask=attn_mask)
+            total, comps = _loss(out, feats, batch)
+        with tracing.span("train.backward"):
+            grads = torch.autograd.grad(total, params, allow_unused=True)
+            grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
         metrics = {k: v.detach() for k, v in comps.items()}
         if data_group is not None:
             grads, metrics = _sum_over(data_group, grads, metrics)
@@ -211,17 +221,21 @@ def make_step_fns(
             summed = _sum_over(tp.group, [grads[i] for i in replicated], {})[0]
             for i, g in zip(replicated, summed):
                 grads[i] = g / tp.size
-        gnorm = global_norm(grads, params)
+        with tracing.span("train.norm"):
+            gnorm = global_norm(grads, params)
         metrics["grad_norm"] = gnorm.detach()
         if not skip_nonfinite:
-            optimizer.step(grads)
+            with tracing.span("train.optimizer"):
+                optimizer.step(grads)
             return metrics
         # one non-finite gradient would poison the parameters for good: keep
         # everything from before the step (BatchNorm's running statistics
         # moved in the forward) and zero the step's metrics
-        ok = bool(torch.isfinite(gnorm) & torch.isfinite(metrics["total"]))
+        with tracing.span("train.sync"):
+            ok = bool(torch.isfinite(gnorm) & torch.isfinite(metrics["total"]))
         if ok:
-            optimizer.step(grads)
+            with tracing.span("train.optimizer"):
+                optimizer.step(grads)
         else:
             with torch.no_grad():
                 for t, s in zip(bn_state, saved):
@@ -349,11 +363,7 @@ class Trainer:
             if self.profile_dir and epoch == 0 and count == 1:
                 prof = self._start_profiler()  # steps 1-5: batch 0 builds the kernels
             audio_sec = float(batch["length"].sum()) / self.sample_rate
-            if prof is not None:
-                with torch.profiler.record_function(f"train_step_{count}"):
-                    metrics = self.train_step(batch_to_device(batch, self.device))
-            else:
-                metrics = self.train_step(batch_to_device(batch, self.device))
+            metrics = self.train_step(batch_to_device(batch, self.device))
             self.step += 1
             count += 1
             if prof is not None and count >= 6:
@@ -377,16 +387,19 @@ class Trainer:
                 for k, v in host.items()}
 
     def _start_profiler(self):
+        """Start a profiler, with the recorder's spans as its ranges."""
         acts = [torch.profiler.ProfilerActivity.CPU]
         if self.device.type == "cuda":
             acts.append(torch.profiler.ProfilerActivity.CUDA)
         prof = torch.profiler.profile(activities=acts)
         prof.start()
+        tracing.enable(profiler_ranges=True)
         return prof
 
     def _stop_profiler(self, prof) -> None:
         """Stop ``prof`` once the device has finished, and write its Chrome
         trace into ``profile_dir``."""
+        tracing.disable()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         prof.stop()

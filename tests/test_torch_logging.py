@@ -9,7 +9,9 @@ config through the port's train CLI.
   ``<log_dir>/audio/step%08d_<tag>.wav`` (the JAX rule), equal to the
   samples within 2 PCM16 LSB (written at 32767 a unit, read at 32768).
 * ``--profile-dir`` / ``Trainer(profile_dir=...)``: a Chrome trace whose
-  ``train_step_<i>`` ranges are exactly steps 1-5 of an 8-step epoch.
+  ``train.step`` ranges (the recorder's spans in profiler mode) are exactly
+  steps 1-5 of an 8-step epoch, each with its six children and its batch's
+  ``train.h2d``; the recorder is off again afterwards.
 * The shipped ``config/`` with its widths and depth cut but ``use_amp``,
   ``tpu.compute_dtype: bfloat16``, ``use_tensorboard`` and
   ``save_audio_samples`` kept trains one epoch through the CLI: bf16 input
@@ -38,6 +40,7 @@ from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.utils.co
     load_all_configs,
     set_config_value,
 )
+from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.utils import tracing
 from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.utils.logging import (
     MetricsLogger,
 )
@@ -102,14 +105,24 @@ def test_profile_dir_traces_steps_1_to_5(tmp_path, rng):
     trainer = Trainer(model, config, batches, None, device="cpu",
                       checkpoint_dir=tmp_path / "ck", log_dir=tmp_path / "logs",
                       profile_dir=tmp_path / "prof")
+    first = tracing.counters().get("train.steps", 0) + 1  # batch 0's step id
+    tracing.clear()
     trainer.train_epoch(0)
+    assert tracing.span("after") is tracing.NO_SPAN  # the recorder is off again
     traces = list((tmp_path / "prof").glob("*.json"))
     assert len(traces) == 1
     events = json.loads(traces[0].read_text())["traceEvents"]
-    steps = {e["name"] for e in events if str(e.get("name", "")).startswith("train_step_")}
-    assert steps == {f"train_step_{i}" for i in range(1, 6)}
+    names = [e["name"] for e in events if str(e.get("name", "")).startswith("train.")]
+    children = ("train.featurize", "train.forward", "train.backward", "train.norm",
+                "train.sync", "train.optimizer")
+    assert {n: names.count(n) for n in set(names)} == {
+        n: 5 for n in ("train.step", "train.h2d") + children}
+    steps = [s.id for s in tracing.spans() if s.name == "train.step"]
+    assert steps == list(range(first + 1, first + 6))
+    tracing.clear()
     trainer.train_epoch(1)  # later epochs are not traced
     assert list((tmp_path / "prof").glob("*.json")) == traces
+    assert tracing.spans() == []
 
 
 def test_shipped_config_trains_one_epoch(data_root, tmp_path, capsys):  # noqa: F811
