@@ -9,8 +9,9 @@ which raises on failure:
 
 1. device: a CUDA card is required; prints its name and power limit and
    turns TF32 off (float32 end to end).
-2. build: compiles the six kernels (K1, K2 forward and backward, K3, and
-   K1g and K3g for the STFT geometries K1 and K3 do not take) from the
+2. build: compiles the eight kernels (K1, K2 forward and backward, K3, K1g
+   and K3g for the STFT geometries K1 and K3 do not take, and the
+   optimizer's ``global_sq_norm`` and ``adam_update``, one source) from the
    port's ``csrc/``, one nvcc per source, all started together, and the
    native WAV runtime (``native/``) with the host compiler; prints K2's
    registers, shared memory and blocks per SM and its backward's registers
@@ -46,6 +47,16 @@ which raises on failure:
    masked) and with no mask. Then the slice's audio-seconds per second at
    batch 32 x 3 s, and each kernel's device time per launch in one
    profiled batch.
+7b. optimizer kernels: ``global_sq_norm`` and ``adam_update`` at the
+   parameter sets of the benchmark's 28M and 168M models (110 and 182 fp32
+   tensors): the norm twice, the same bits, within 1e-7 of a float64 sum;
+   two AdamW steps (clip 1.0, engaged) of the kernel and of the plain loop
+   from the same state by the same norm, p, m and v bit-equal; one launch
+   a call. Each kernel's time against the plain loop and PyTorch's own
+   multi-tensor call (``_foreach_norm``, ``AdamW(fused=True)``) beside its
+   bytes bound; the clip and AdamW a step against ``clip_grad_norm_(
+   foreach=True)`` and fused AdamW; ``adam_update``'s host ms a call with
+   its per-tensor checks skipped and made.
 8. offline (its wall time printed): the 28M serving recipe with seeded
    weights and seeded non-trivial BatchNorm statistics, written with the
    port's checkpoint writer; 64 synthetic PCM16 pairs of 1-6 s at -5 to
@@ -75,7 +86,9 @@ which raises on failure:
       PCM16 batch of 16 clips of 1.5-3.06 s (the 384-frame bucket) from the
       port's collate: 5 train steps, through the port's step functions, and
       one eval step. The loss is finite and falls; K1 runs twice a step, K2
-      forward and backward 6 times a step. One step at depth 1 (dropouts 0)
+      forward and backward 6 times a step, ``global_sq_norm`` twice (the
+      trainer's norm and the clip's) and ``adam_update`` once, and the eval
+      step launches neither. One step at depth 1 (dropouts 0)
       on cuda matches the same step on cpu from the same weights: loss,
       BatchNorm statistics, each parameter's gradient relative to its own
       largest, and the parameters after AdamW against AdamW on the cpu
@@ -130,12 +143,16 @@ which raises on failure:
       its global batch): loss and BatchNorm statistics within 1e-5, the
       all-reduced gradients within phase 9's limits. Then 3 full-width
       recipe steps at 2 x 8: losses finite and equal on both ranks, K1 2, K2
-      6 and K2's backward 6 a step on each rank.
+      6, K2's backward 6, ``global_sq_norm`` 2 and ``adam_update`` 1 a step
+      on each rank.
    c. tensor parallelism over 2 ranks of this card (gloo) at 12L/1024d/16h
       (dropouts 0): the eval output against TP = 1 within 2e-5 or TP = 1's
       own cuda-vs-cpu difference, whichever is larger, one step at
       batch 4 in the 384-frame bucket against TP = 1 at phase 9's limits, K2
-      on 8 of the 16 heads on each rank.
+      on 8 of the 16 heads on each rank; then an AdamW step of each rank's
+      shards by their gradients: one ``adam_update``, and no
+      ``global_sq_norm`` (the clip's norm under TP is the shards' squares
+      all-reduced).
    d. the 28M serving recipe on two replicas of this card (a mesh over
       [cuda:0, cuda:0]), 32 x 3 s PCM16: waveforms within ``TOL_WAVE`` of
       phase 5's, K1 1, K2 6 and K3 1 a replica; the enhance CLI asking for
@@ -202,8 +219,9 @@ which raises on failure:
     ``roofline`` on its JSON: each stage's bound at the card's data-sheet
     peaks beside its time. e. ``bench_train`` at the 28M recipe (fullres
     head, mask output, attention dropout 0, batch 16, 384 frames, fp32): ms,
-    audio-s/s, the share of the peak in (0, 100], K1 2, K2 6 and K2's
-    backward 6 launches a step. f. ``bench_io`` on phase 8's PCM16 files.
+    audio-s/s, the share of the peak in (0, 100], K1 2, K2 6, K2's
+    backward 6, ``global_sq_norm`` 2 and ``adam_update`` 1 launches a step.
+    f. ``bench_io`` on phase 8's PCM16 files.
     g. ``bench_scaling`` over NCCL at the ranks the visible cards allow.
 16. geometry (its wall time printed): every STFT geometry and head dim the
     JAX package runs. 1. At 400/100/400, 320/160/320, 400/160/400,
@@ -224,9 +242,10 @@ which raises on failure:
     K1 1, K2 6, K3 1; wall ms a batch.
     4. The DCCRN geometry 512/100/400 through the same enhancer: K1 1, K2 6,
     K3g 1. 5. The recipe's train step at 400/100/400: depth 1 cuda vs cpu at
-    phase 9's limits; at full width, batch 16, K1 2, K2 6 and its backward 6.
-    6. A model with D = 48 (embed 384, 8 heads, depth 2): cuda vs cpu within
-    ``TOL_WAVE``. 7. ``griffin_lim`` at 4096/1024 on [4, 2049, 50]: K1g 4 and
+    phase 9's limits; at full width, batch 16, K1 2, K2 6 and its backward 6,
+    ``global_sq_norm`` 2 and ``adam_update`` 1. 6. A model with D = 48
+    (embed 384, 8 heads, depth 2): cuda vs cpu within ``TOL_WAVE``. 7.
+    ``griffin_lim`` at 4096/1024 on [4, 2049, 50]: K1g 4 and
     K3g 5 launches, the spectral convergence falling. 8. K1 and K3 at
     400/100 and 320/160, K1g at 4096/1024 and K3g at 4096/1024, 400/160 and
     512/100/400 (the geometries they still serve), each beside its plain
@@ -264,7 +283,10 @@ phase 16 batch at 400/100/400, ``dccrn_serve_launches`` in one at
 512/100/400, ``geometry_train_launches`` in one phase 16 train step at
 400/100/400, ``geometry_gl_launches`` in phase 16's Griffin-Lim call at
 4096/1024; K1's and K3's times at 400/100 and 320/160 and K3g's at its
-other geometries under ``at_<geometry>``), and the result JSON.
+other geometries under ``at_<geometry>``; the optimizer kernels' times and
+errors from phase 7b at the 28M parameter set, the 168M set's under
+``at_hvit168m``, and ``adam_update``'s host ms a call by set, its checks
+skipped (``host_ms``) and made (``host_checked_ms``)), and the result JSON.
 """
 
 from __future__ import annotations
@@ -340,6 +362,14 @@ TRAINING = ("stft_mag", "attention_fwd", "attention_bwd")
 # K1g and K3g run the STFT geometries that K1 and K3 do not take (phase 16):
 # at the repo's 512/128 they launch nothing
 NO_DFT = {"stft_dft": 0, "istft_dft": 0}
+# the optimizer's kernels a train step through the port's Optimizer (AdamW,
+# clip 1.0): the trainer's norm (``train.norm``), the clip's norm and one
+# update (a table of at most 512 tensors); serving launches neither
+OPT_STEP = {"global_sq_norm": 2, "adam_update": 1}
+NO_OPT = {"global_sq_norm": 0, "adam_update": 0}
+# the benchmark's models, at whose parameter sets phase 7b checks and times
+# the optimizer's kernels
+OPT_CONFIGS = ("hvit28m", "hvit168m")
 TRAIN_BATCH, TRAIN_LR, TRAIN_STEPS = 16, 1e-4, 5
 # the evaluator tests' tolerances on a metric of two enhanced waveforms
 # within the port's limits (tests/test_torch_evaluator.py)
@@ -699,6 +729,140 @@ def sweep(enhancer, batches, in_flight: int) -> None:
         take(wavs, batch)
 
 
+def optimizer_kernels(dev: torch.device, smi: str) -> dict:
+    """7b: ``global_sq_norm`` and ``adam_update`` at the parameter sets of the
+    benchmark's 28M and 168M models (``OPT_CONFIGS``), fresh fp32 tensors:
+    the norm twice (the same bits, within 1e-7 of a float64 sum), two AdamW
+    steps (clip 1.0, engaged) of the kernel and of the plain loop from the
+    same state by the same norm (p, m and v bit-equal), one launch of each a
+    call; then each kernel's time against its plain version and PyTorch's
+    own multi-tensor calls, beside its bytes bound, the whole chain against
+    PyTorch's (``clip_grad_norm_(foreach=True)`` and ``AdamW(fused=True)``),
+    and the host cost of the wrapper's per-tensor checks, which it skips on a
+    pointer table it has checked before."""
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.models import (
+        create_hybrid_vit,
+    )
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.ops import (
+        cuda_optimizer as co, kernels,
+    )
+
+    phase("optimizer kernels: global_sq_norm and adam_update at the 28M and 168M parameter sets")
+    hyper = dict(lr=TRAIN_LR, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.01, adamw=True)
+    errs = {"global_sq_norm": [], "adam_update": []}
+    ms = {"global_sq_norm": {}, "adam_update": {}}
+    n_fresh = 8
+    for i, name in enumerate(OPT_CONFIGS):
+        c = json.loads((ROOT / "portbench" / "configs" / f"{name}.json").read_text())
+        with torch.device("meta"):
+            shapes = [tuple(p.shape) for p in create_hybrid_vit(
+                {"model": c["model"], "audio": c["audio"]}).parameters()]
+        g = torch.Generator(device=dev).manual_seed(i)
+        # gradients of norm ~1e-3 sqrt(n) > 1: the clip engages
+        params, grads, mu = ([torch.randn(s, device=dev, generator=g) * scale for s in shapes]
+                             for scale in (1.0, 1e-3, 1e-3))
+        nu = [torch.rand(s, device=dev, generator=g) * 1e-6 for s in shapes]
+        n = sum(p.numel() for p in params)
+
+        def launched() -> dict:
+            torch.cuda.synchronize()
+            return {k: kernels.KERNELS[k].launches for k in NO_OPT}
+
+        kernels.reset_launch_counts()
+        norm, again = co.global_norm(grads), co.global_norm(grads)
+        norm_launches = launched()
+        exact = sum(float(torch.sum(t.double() ** 2)) for t in grads) ** 0.5
+        plain_norm = float(co.global_norm_plain(grads))
+        errs["global_sq_norm"].append(abs(float(norm) - exact))
+        start = [[t.clone() for t in x] for x in (params, mu, nu)]
+        kernels.reset_launch_counts()
+        for count in (1, 2):
+            co.adam_update(params, grads, mu, nu, count=count, g_norm=norm, max_norm=1.0, **hyper)
+        adam_launches = launched()
+        for count in (1, 2):
+            co.adam_update_plain(start[0], grads, *start[1:], count=count, g_norm=norm,
+                                 max_norm=1.0, **hyper)
+        gap = max(float((a - b).abs().max()) for x, y in zip((params, mu, nu), start)
+                  for a, b in zip(x, y))
+        errs["adam_update"].append(gap)
+        print(f"{name}: {len(shapes)} tensors, {n:,} parameters; global_sq_norm {float(norm)!r} "
+              f"(again {float(again)!r}; float64 sum {exact!r}, plain fp32 {plain_norm!r}), "
+              f"launches {norm_launches}; two adam_update steps by it vs the plain loop: max abs "
+              f"gap of p, m, v {gap:.3g}, launches {adam_launches}", flush=True)
+        if (not torch.equal(norm, again) or abs(float(norm) - exact) > 1e-7 * exact
+                or norm_launches != dict(NO_OPT, global_sq_norm=2)):
+            raise AssertionError(f"{name}: global_sq_norm not deterministic, off the float64 sum "
+                                 f"or not one launch a call")
+        if gap != 0.0 or adam_launches != dict(NO_OPT, adam_update=2):
+            raise AssertionError(f"{name}: adam_update differs from the loop's bits or is not one "
+                                 f"launch a step")
+        del start
+
+        # times: the count of each call is its input (each call a new step)
+        steps = [(k + 3,) for k in range(n_fresh)]
+        pl = [torch.nn.Parameter(p.clone()) for p in params]
+        for p, gr in zip(pl, grads):
+            p.grad = gr.clone()
+        lib_opt = torch.optim.AdamW(pl, lr=TRAIN_LR, weight_decay=0.01, fused=True)
+        timed = {  # name: (kernel, plain version, PyTorch's multi-tensor call, inputs, bytes)
+            "adam_update": (
+                lambda k: co.adam_update(params, grads, mu, nu, count=k, g_norm=norm,
+                                         max_norm=1.0, **hyper),
+                lambda k: co.adam_update_plain(params, grads, mu, nu, count=k, g_norm=norm,
+                                               max_norm=1.0, **hyper),
+                lambda k: lib_opt.step(), steps, 28 * n),  # p, g, m, v read; p, m, v written
+            "global_sq_norm": (
+                lambda: co.global_norm(grads), lambda: co.global_norm_plain(grads),
+                lambda: torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads))),
+                [()] * n_fresh, 4 * n),  # g read
+        }
+        for kname, (kern, plain, lib_call, inputs, nbytes) in timed.items():
+            k1, p1, l1, l2, p2, k2 = (median_ms(f, inputs[:4] if f is plain else inputs)
+                                      for f in (kern, plain, lib_call, lib_call, plain, kern))
+            b_ms, b_by = bound(0.0, nbytes, FP32_PEAK)
+            m = {"ms": min(k1, k2), "plain_ms": min(p1, p2), "library_ms": min(l1, l2),
+                 "bound_ms": b_ms, "bound_by": b_by, "device_ms": device_ms(kern, inputs),
+                 "plain_device_ms": device_ms(plain, inputs[:2]),
+                 "library_device_ms": device_ms(lib_call, inputs)}
+            if i == 0:
+                ms[kname].update(m)
+            else:
+                ms[kname][f"at_{name}"] = m
+            print(f"{name} {kname}: per call {m['ms']:.4f} ms (device {m['device_ms']:.4f}), "
+                  f"plain loop {m['plain_ms']:.4f} ms (device {m['plain_device_ms']:.4f}), "
+                  f"PyTorch's multi-tensor call {m['library_ms']:.4f} ms (device "
+                  f"{m['library_device_ms']:.4f}); bound {b_ms:.4f} ms by {b_by} ({nbytes / 1e9:.3f} "
+                  f"GB at {HBM_RATE / 1e12:g} TB/s); share of bound {b_ms / m['ms']:.1%} per call, "
+                  f"{b_ms / m['device_ms']:.1%} on the device (per call: median of 5 runs of "
+                  f"{len(inputs)} calls back to back; {smi})", flush=True)
+        # the whole chain a step, ours against PyTorch's multi-tensor calls
+        chain = {
+            "global_sq_norm + adam_update": lambda k: co.adam_update(
+                params, grads, mu, nu, count=k, g_norm=co.global_norm(grads), max_norm=1.0,
+                **hyper),
+            "clip_grad_norm_(foreach) + AdamW(fused)": lambda k: (
+                torch.nn.utils.clip_grad_norm_(pl, 1.0, foreach=True), lib_opt.step()),
+        }
+        walls = {what: [median_ms(f, steps) for _ in range(2)] for what, f in chain.items()}
+        dev_chain = {what: device_ms(f, steps) for what, f in chain.items()}
+        print(f"{name} the clip and AdamW a step: " + "; ".join(
+            f"{what} {min(w):.4f} ms (device {dev_chain[what]:.4f})" for what, w in walls.items())
+            + f" ({smi})", flush=True)
+        # the wrapper's host cost a call, its p, m, v checks skipped (the table
+        # checked before) and made (the record of checked tables cleared)
+        warm = [host_us(timed["adam_update"][0], (3,), calls=20) for _ in range(3)]
+        cold = [host_us(lambda k: (co._checked.clear(), timed["adam_update"][0](k)), (3,),
+                        calls=20) for _ in range(3)]
+        ms["adam_update"].setdefault("host_ms", {})[name] = statistics.median(warm) / 1e3
+        ms["adam_update"].setdefault("host_checked_ms", {})[name] = statistics.median(cold) / 1e3
+        print(f"{name} adam_update host ms a call: {statistics.median(warm) / 1e3:.4f} with the "
+              f"checks skipped, {statistics.median(cold) / 1e3:.4f} with the p, m, v checks "
+              f"made ({len(shapes)} tensors; medians of 3 x 20 calls; {smi})", flush=True)
+        del params, grads, mu, nu, pl, lib_opt, timed, chain
+        torch.cuda.empty_cache()
+    return {"errs": errs, "ms": ms}
+
+
 def offline(dev: torch.device, smi: str, rng: np.random.Generator, keep: Path) -> dict:
     """Phase 8. Returns every kernel's launches in the evaluate CLI's cuda
     run; copies the noisy PCM16 files to ``keep`` (phase 12 decodes them)."""
@@ -730,9 +894,10 @@ def offline(dev: torch.device, smi: str, rng: np.random.Generator, keep: Path) -
         return {name: k.launches for name, k in kernels.KERNELS.items()}
 
     def check_path(launches: dict, what: str) -> None:
-        if min(launches[n] for n in SERVING) < 1 or launches["attention_bwd"]:
+        if (min(launches[n] for n in SERVING) < 1 or launches["attention_bwd"]
+                or any(launches[n] for n in NO_OPT)):
             raise AssertionError(f"{what}: a kernel of the path did not run, or a backward "
-                                 f"did: {launches}")
+                                 f"or an optimizer kernel did: {launches}")
 
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
@@ -991,10 +1156,11 @@ def training(dev: torch.device, smi: str, rng: np.random.Generator, g: torch.Gen
           f"launches {train_launches}; eval step {val}, launches {eval_launches}", flush=True)
     if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
         raise AssertionError(f"the full-width loss is not finite and falling: {losses}")
-    want = {"stft_mag": 2, "attention_fwd": 6, "attention_bwd": 6, "istft_polar": 0, **NO_DFT}
+    want = {"stft_mag": 2, "attention_fwd": 6, "attention_bwd": 6, "istft_polar": 0, **NO_DFT,
+            **OPT_STEP}
     if train_launches != {k: TRAIN_STEPS * c for k, c in want.items()}:
         raise AssertionError(f"train steps' launches {train_launches}, not {want} a step")
-    if eval_launches != dict(want, attention_bwd=0) or not np.isfinite(val["total"]):
+    if eval_launches != dict(want, attention_bwd=0, **NO_OPT) or not np.isfinite(val["total"]):
         raise AssertionError(f"eval step: launches {eval_launches}, loss {val['total']}")
 
     # one step at depth 1, dropouts 0, on cuda and on cpu from the same weights
@@ -1008,7 +1174,8 @@ def training(dev: torch.device, smi: str, rng: np.random.Generator, g: torch.Gen
     print(f"shipped dropouts (attention dropout 0.1): losses {shipped_losses}, launches "
           f"{shipped_launches}", flush=True)
     if not np.isfinite(shipped_losses).all() or shipped_launches != dict(
-            want, stft_mag=4, attention_fwd=0, attention_bwd=0):
+            want, stft_mag=4, attention_fwd=0, attention_bwd=0,
+            **{k: 2 * c for k, c in OPT_STEP.items()}):
         raise AssertionError("the explicit-weights path launched K2, or its loss is not finite")
 
     # d. the training CLI, one epoch on 8 synthetic pairs at small width
@@ -1046,7 +1213,8 @@ def training(dev: torch.device, smi: str, rng: np.random.Generator, g: torch.Gen
                                   if t.is_floating_point())
         print(f"training CLI: exit {rc}, launches {cli_launches}, checkpoints read back "
               f"{read_back}", flush=True)
-        if rc != 0 or not all(read_back.values()) or min(cli_launches[n] for n in TRAINING) < 1:
+        if rc != 0 or not all(read_back.values()) or min(
+                cli_launches[n] for n in TRAINING + tuple(OPT_STEP)) < 1:
             raise AssertionError("the training CLI failed")
 
     # e. times: K2's backward on fresh inputs under the train batch's mask
@@ -1275,6 +1443,7 @@ def shipped(dev: torch.device, smi: str, rng: np.random.Generator) -> dict:
         # explicit weights), K3 in the sample enhancer only, no K2 backward
         if (shipped_launches["stft_mag"] < 2 * len(walls) or shipped_launches["attention_fwd"] < 6
                 or shipped_launches["attention_bwd"] != 0
+                or min(shipped_launches[n] for n in OPT_STEP) < 1
                 or (shipped_launches["istft_polar"] < 1) != (not tb)):
             raise AssertionError(f"the shipped config's run missed a kernel: {shipped_launches}")
 
@@ -1520,14 +1689,18 @@ def mesh_train_task(mesh, job: dict) -> dict:
 def mesh_tp_task(mesh, job: dict) -> dict:
     """11c: the 12L/1024d/16h recipe at depth 12, dropouts 0, tensor-parallel
     over the model group: its eval output on ``job["tp_spec"]``, then one
-    step on ``job["tp_batch"]`` (gradients gathered, saved by rank 0), with
-    the heads each K2 call got and the step's launches."""
+    step on ``job["tp_batch"]`` (gradients gathered, saved by rank 0) and an
+    AdamW step (clip 1.0) of this rank's shards by them, with the heads each
+    K2 call got and the launches of both."""
     from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.models import (
         attention as attention_module,
     )
     from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.ops import kernels
     from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.parallel.sharding import (
         tp_gather,
+    )
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.training.optimizer import (
+        Optimizer,
     )
     from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.training.trainer import (
         parallelize,
@@ -1549,6 +1722,10 @@ def mesh_tp_task(mesh, job: dict) -> dict:
     kernels.reset_launch_counts()
     metrics = {k: float(v) for k, v in step(rank_rows(job["tp_batch"], mesh, dev)).items()}
     launches = launch_counts()
+    opt = Optimizer(cap.params, "adamw", lr=TRAIN_LR, weight_decay=0.01, max_norm=1.0)
+    kernels.reset_launch_counts()
+    opt.step(cap.grads)
+    launches = {k: c + launch_counts()[k] for k, c in launches.items()}
     names = [n for n, _ in model.named_parameters()]
     grads = [tp_gather(n, g, mesh).cpu() for n, g in zip(names, cap.grads)]
     return {"forward": forward, "metrics": metrics, "heads": sorted(set(heads)),
@@ -1787,7 +1964,8 @@ def mesh(dev: torch.device, smi: str, rng: np.random.Generator, enhancer, wavs: 
     rank_steps = [{k: v // TRAIN_MESH_STEPS for k, v in t["launches"].items()} for t in train]
     print(f"{ranks_b} ranks, full width: losses {[[f'{x:.6f}' for x in t['losses']] for t in train]}; "
           f"launches per rank per step {rank_steps}", flush=True)
-    want = {"stft_mag": 2, "attention_fwd": 6, "attention_bwd": 6, "istft_polar": 0, **NO_DFT}
+    want = {"stft_mag": 2, "attention_fwd": 6, "attention_bwd": 6, "istft_polar": 0, **NO_DFT,
+            **OPT_STEP}
     if (any(t["losses"] != train[0]["losses"] for t in train)
             or not np.isfinite(train[0]["losses"]).all()
             or any(t["launches"] != {k: TRAIN_MESH_STEPS * c for k, c in want.items()}
@@ -1852,8 +2030,9 @@ def mesh(dev: torch.device, smi: str, rng: np.random.Generator, enhancer, wavs: 
           f"{[t['launches'] for t in tp]}; spawn, build and run {tp_s:.1f} s", flush=True)
     check_mesh_step(f"TP = 2 x DP = {data_c} step vs one device",
                     (tp[0]["metrics"], tp[0]["grads"], tp[0]["stats"]), ref, names)
+    # the clip's norm under TP is the shards' squares all-reduced, not global_sq_norm
     want_tp = {"stft_mag": 2, "attention_fwd": 12, "attention_bwd": 12, "istft_polar": 0,
-               **NO_DFT}
+               **NO_DFT, "global_sq_norm": 0, "adam_update": 1}
     if fwd_err > tol_forward or any(t["heads"] != [SCALED["num_heads"] // 2] for t in tp) or any(
             t["launches"] != want_tp for t in tp):
         raise AssertionError("tensor parallelism: output, heads or launches wrong")
@@ -1905,7 +2084,7 @@ def mesh(dev: torch.device, smi: str, rng: np.random.Generator, enhancer, wavs: 
           f"{cli.returncode}, {cli.stderr.strip().splitlines()[-1:]}", flush=True)
     if (wave_err > TOL_WAVE or len(got) != len(out)
             or serve_launches != {"stft_mag": 1, "attention_fwd": 6, "attention_bwd": 0,
-                                  "istft_polar": 1, **NO_DFT}):
+                                  "istft_polar": 1, **NO_DFT, **NO_OPT}):
         raise AssertionError("the mesh enhancer differs from one device or skipped a kernel")
     if cli.returncode == 0 or refused not in cli.stderr:
         raise AssertionError(f"enhance --data-parallel {visible + 1} was not refused: {cli.stderr}")
@@ -2359,7 +2538,7 @@ def exported(dev: torch.device, smi: str, enhancer, wavs: list, slice_ms: float,
     phase("export: the serving core and the bf16 entry on cuda, the ops' host cost, the demo")
     t_phase = time.perf_counter()
     serving = {"stft_mag": 1, "attention_fwd": 6, "attention_bwd": 0, "istft_polar": 1,
-               **NO_DFT}
+               **NO_DFT, **NO_OPT}
     # phase 5's batch as enhance_batch_async pads it: PCM16 [32, 49024] and lengths
     wav_len = enhancer._padded_len(max(len(w) for w in wavs))
     batch = np.zeros((len(wavs), wav_len), np.int16)
@@ -2689,9 +2868,9 @@ def quality_tools(smi: str) -> dict:
 # differences add up to the full prefix by construction); tools.bench's
 # device core on cuda against the same core on the cpu at TOL_WAVE.
 INFER_LAUNCHES = {"stft_mag": 1, "attention_fwd": 6, "attention_bwd": 0, "istft_polar": 1,
-                  **NO_DFT}
+                  **NO_DFT, **NO_OPT}
 TRAIN_LAUNCHES = {"stft_mag": 2, "attention_fwd": 6, "attention_bwd": 6, "istft_polar": 0,
-                  **NO_DFT}
+                  **NO_DFT, **OPT_STEP}
 TOL_FLOP_COUNT = 0.02
 TOL_STAGES_VS_BENCH = 0.25
 BENCH_CPU_ROWS = 4  # rows of the device batch run again on the cpu (rows are independent)
@@ -3121,7 +3300,7 @@ def geometry(dev: torch.device, smi: str, rng: np.random.Generator, g: torch.Gen
     kernels.reset_launch_counts()
     loss = float(step(batch)["total"])
     train = ran("the recipe's train step at 400/100/400",
-                {"stft_mag": 2, "attention_fwd": 6, "attention_bwd": 6})
+                {"stft_mag": 2, "attention_fwd": 6, "attention_bwd": 6, **OPT_STEP})
     if not np.isfinite(loss):
         raise AssertionError(f"the train step at 400/100/400: loss {loss}")
     print(f"recipe train step at 400/100/400, batch {TRAIN_BATCH} x "
@@ -3291,7 +3470,7 @@ def main() -> int:
     phase("build")
     t0 = time.perf_counter()
     libs = kernels.build()
-    print(f"built {sorted(p.name for p in libs.values())} from csrc/*.cu (one nvcc each, "
+    print(f"built {sorted({p.name for p in libs.values()})} from csrc/*.cu (one nvcc each, "
           f"in parallel) in {time.perf_counter() - t0:.1f} s", flush=True)
     # every instance runs: 64 at the repo's configs, 16, 32 and 128 for the
     # head dims between them (zero-padded; phase 16), the sliced one above
@@ -3405,8 +3584,10 @@ def main() -> int:
     if len(out) != BATCH or any(o.shape != w.shape or not np.isfinite(o).all()
                                 for o, w in zip(out, wavs)):
         raise AssertionError("full-width output malformed")
-    if min(launches[n] for n in SERVING) < 1 or launches["attention_bwd"]:
-        raise AssertionError(f"a kernel of the path did not run, or a backward did: {launches}")
+    if (min(launches[n] for n in SERVING) < 1 or launches["attention_bwd"]
+            or any(launches[n] for n in NO_OPT)):
+        raise AssertionError(f"a kernel of the path did not run, or a backward or an "
+                             f"optimizer kernel did: {launches}")
     short_err = float(np.abs(enhancer.enhance(short) - ref_short).max())
     print(f"full width 1 s clip cuda vs cpu: max abs err {short_err:.3g} "
           f"(tolerance {TOL_WAVE})", flush=True)
@@ -3441,7 +3622,8 @@ def main() -> int:
                        for r, w in zip(results, reqs))
         print(f"served 6 requests in {stats['batches']} batches; max abs err vs direct "
               f"enhance {http_err:.3g}; launches {served}", flush=True)
-        if stats["requests"] != 6 or http_err > TOL_WAVE or min(served[n] for n in SERVING) < 1:
+        if (stats["requests"] != 6 or http_err > TOL_WAVE or min(served[n] for n in SERVING) < 1
+                or any(served[n] for n in NO_OPT)):
             raise AssertionError(f"serving check failed: {stats}, err {http_err}, {served}")
     finally:
         server.shutdown()
@@ -3539,6 +3721,7 @@ def main() -> int:
           f"launch {({n: round(ms[n]['path_device_ms'], 4) for n in SERVING})} ms; {smi}",
           flush=True)
 
+    opt_run = optimizer_kernels(dev, smi)
     with tempfile.TemporaryDirectory() as kept:
         noisy = Path(kept) / "noisy"
         offline_run = offline(dev, smi, rng, noisy)
@@ -3550,6 +3733,8 @@ def main() -> int:
         tools_run = quality_tools(smi)
         bench_run = measurement_tools(smi, noisy)
     geometry_run = geometry(dev, smi, rng, g)
+    errs.update(opt_run["errs"])
+    ms.update(opt_run["ms"])
     errs["attention_bwd"] = train["errs"]
     ms["attention_bwd"] = train["ms"]
     launches["attention_bwd"] = train["launches"]["attention_bwd"]

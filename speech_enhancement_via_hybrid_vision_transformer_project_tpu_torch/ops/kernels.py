@@ -17,9 +17,10 @@ Each kernel has a ``Kernel`` record with a plain launch counter that
 ``launch`` increments once per launch, so a run can show that its main path
 went through the kernel.
 
-Each kernel is also reached through an operator of the ``sevit`` namespace
-of ``torch.library`` (``define_op``), so that ``torch.export`` records it as
-one call, ``torch.ops.sevit.<name>``, on either device: its CUDA impl
+Each kernel of the model's path is also reached through an operator of the
+``sevit`` namespace of ``torch.library`` (``define_op``), so that
+``torch.export`` records it as one call, ``torch.ops.sevit.<name>``, on
+either device: its CUDA impl
 launches the kernel, its CPU impl is the kernel's plain version, and its fake
 impl gives the outputs' shapes and dtypes from the arguments alone. The STFT
 kernels share two ops: ``sevit::stft_mag`` launches K1 (``stft_mag``) or K1g
@@ -28,7 +29,10 @@ kernels share two ops: ``sevit::stft_mag`` launches K1 (``stft_mag``) or K1g
 is refused rather than given shapes as if it had been computed. The ops are
 defined when ``cuda_stft`` and ``cuda_attention`` are imported (``import``
 of the port's ``ops`` package does both); a program that ``torch.export``
-saved needs them defined before it is loaded.
+saved needs them defined before it is loaded. The optimizer's kernels
+(``global_sq_norm`` and ``adam_update``, one source) update tensor lists in
+place, belong to no exported program, and are called by their wrappers in
+``cuda_optimizer`` without an op.
 """
 
 from __future__ import annotations
@@ -121,6 +125,24 @@ KERNELS = {
             # hop, offset, out_samples, tile samples, tile depth, stream
             (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
         ),
+        # the optimizer's chain: XLA-compiled code in the JAX package, no Pallas
+        Kernel(
+            "global_sq_norm", "sevit_global_sq_norm", "csrc/optimizer.cu",
+            "speech_enhancement_via_hybrid_vision_transformer_project_tpu/"
+            "training/optimizer.py:57",
+            # pointers, numels (host arrays), count, chunk, partials, counter,
+            # out, block offset, total blocks, stream
+            (_P, _P, _I, _I, _P, _P, _P, _I, _I, _P),
+        ),
+        Kernel(
+            "adam_update", "sevit_adam_update", "csrc/optimizer.cu",
+            "speech_enhancement_via_hybrid_vision_transformer_project_tpu/"
+            "training/optimizer.py:57",
+            # p, g, m, v pointers and numels (host arrays), count, chunk, norm,
+            # max_norm, b1, 1-b1, b2, 1-b2, 1/c1, 1/c2, eps, wd, -lr, adamw,
+            # stream
+            (_P,) * 5 + (_I, _I, _P) + (_F,) * 10 + (_I, _P),
+        ),
     )
 }
 
@@ -208,28 +230,30 @@ def _nvcc() -> str:
 
 
 def build() -> dict[str, Path]:
-    """Compile each kernel's source into its own shared library unless it
+    """Compile each kernel source into its own shared library unless it
     is already built from that exact source: one ``nvcc`` per source, all
-    started together. Returns the library path of each kernel."""
+    started together. Returns the library path of each kernel (kernels of
+    one source share it)."""
     paths = {name: library_path(k.source) for name, k in KERNELS.items()}
+    sources = {k.source: paths[name] for name, k in KERNELS.items()}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name, out in paths.items():
+    for source, out in sources.items():
         if out.exists():
             continue
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(_PKG / KERNELS[name].source)]
-        procs[name] = (tmp, subprocess.Popen(
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(_PKG / source)]
+        procs[source] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     failed = []
-    for name, (tmp, proc) in procs.items():
+    for source, (tmp, proc) in procs.items():
         log = proc.communicate()[0]
         if proc.returncode != 0:
             os.unlink(tmp)
-            failed.append(f"{KERNELS[name].source} ({proc.returncode}):\n{log}")
+            failed.append(f"{source} ({proc.returncode}):\n{log}")
         else:
-            os.replace(tmp, paths[name])
+            os.replace(tmp, sources[source])
     if failed:
         raise RuntimeError("nvcc failed: " + "\n".join(failed))
     return paths

@@ -15,6 +15,13 @@
   micro-step applies the chain to the mean of the k gradients, the others
   change no parameter.
 
+The clip and Adam / AdamW run through ``ops/cuda_optimizer.py``: on CUDA
+tensors the kernels ``global_sq_norm`` and ``adam_update``, one launch each
+over every parameter tensor; on CPU tensors their plain versions, the loops
+over the tensors. SGD and the accumulation keep their loops. Counters:
+``optimizer.fused_steps`` (steps that launched ``adam_update``) and
+``optimizer.loop_steps`` (steps that looped).
+
 The learning rate is a field (``lr``) that the trainer sets once per epoch.
 Schedules map epoch -> lr; ``cosine`` ignores ``warmup_epochs`` as the
 reference does (only ``warmup_cosine`` warms up).
@@ -30,7 +37,9 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..ops import cuda_optimizer
 from ..parallel.collectives import all_reduce_
+from ..utils import tracing
 
 
 def global_norm(grads: Sequence[torch.Tensor],
@@ -39,11 +48,13 @@ def global_norm(grads: Sequence[torch.Tensor],
     Under tensor parallelism (``params`` given, the shards among them marked
     by ``shard_model`` with their ``tp_group``) it is the norm of the full
     gradient: the shards' squares summed over the model group, the replicated
-    leaves' counted once. Every model rank then clips by the same factor."""
+    leaves' counted once. Every model rank then clips by the same factor.
+    Without tensor parallelism it is ``cuda_optimizer.global_norm``: one
+    ``global_sq_norm`` launch on CUDA tensors."""
     groups = [getattr(p, "tp_group", None) for p in params] if params is not None else []
     group = next((g for g in groups if g is not None), None)
     if group is None:
-        return torch.sqrt(sum(torch.sum(g * g) for g in grads))
+        return cuda_optimizer.global_norm(grads)
     sharded = sum(torch.sum(g * g) for g, s in zip(grads, groups) if s is not None)
     replicated = sum((torch.sum(g * g) for g, s in zip(grads, groups) if s is None),
                      torch.zeros_like(sharded))
@@ -108,24 +119,18 @@ class Optimizer:
             grads = [a.clone() for a in self.acc]
             for a in self.acc:
                 a.zero_()
-        if self.max_norm is not None:
-            g_norm = global_norm(grads, self.params)
-            clip = g_norm >= self.max_norm
-            grads = [torch.where(clip, g / g_norm * self.max_norm, g) for g in grads]
+        g_norm = global_norm(grads, self.params) if self.max_norm is not None else None
         self.count += 1
-        lr = -self.lr
         if self.mu is not None:
-            # the bias corrections in float64: 1 - b2^count cancels, so optax's
-            # float32 power is off by up to ~3e-5 of it at count 3
-            c1, c2 = 1.0 - self.b1**self.count, 1.0 - self.b2**self.count
-            for p, g, m, v in zip(self.params, grads, self.mu, self.nu):
-                m.copy_((1 - self.b1) * g + self.b1 * m)
-                v.copy_((1 - self.b2) * (g * g) + self.b2 * v)
-                u = (m / c1) / (torch.sqrt(v / c2) + self.eps)
-                if self.name == "adamw":
-                    u = u + self.weight_decay * p
-                p.add_(lr * u)
+            fused = cuda_optimizer.adam_update(
+                self.params, grads, self.mu, self.nu, lr=self.lr, b1=self.b1, b2=self.b2,
+                eps=self.eps, weight_decay=self.weight_decay, adamw=self.name == "adamw",
+                count=self.count, g_norm=g_norm, max_norm=self.max_norm)
         else:
+            fused = False
+            if self.max_norm is not None:
+                grads = cuda_optimizer.clip_plain(grads, g_norm, self.max_norm)
+            lr = -self.lr
             for i, (p, g) in enumerate(zip(self.params, grads)):
                 u = g
                 if self.trace is not None:
@@ -133,6 +138,7 @@ class Optimizer:
                     t.copy_(g + self.momentum * t)
                     u = g + self.momentum * t if self.nesterov else t
                 p.add_(lr * u)
+        tracing.count("optimizer.fused_steps" if fused else "optimizer.loop_steps")
         return True
 
     def state_dict(self) -> Dict:

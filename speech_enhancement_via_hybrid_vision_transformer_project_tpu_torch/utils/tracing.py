@@ -30,6 +30,9 @@ The port's spans (children indented under their parent) and counters:
   waiting for the device), ``train.optimizer`` (``Optimizer.step``, clip
   included); ``train.h2d`` (``batch_to_device``). Counter
   ``train.steps``.
+* ``training/optimizer.py``: counters ``optimizer.fused_steps`` (steps
+  through the ``adam_update`` kernel) and ``optimizer.loop_steps`` (steps
+  through a per-tensor loop: CPU tensors, SGD).
 * ``inference/enhancer.py`` (id: the ``enhance.batches`` count):
   ``enhance.dispatch`` with ``enhance.pad`` (padding, PCM16 conversion),
   ``enhance.stage`` (pinned copy, H2D enqueue), ``enhance.launch`` (the

@@ -310,7 +310,7 @@ def test_train_step_cuda_matches_cpu(mode, mask_padding, dev):
             torch.cuda.synchronize()
             assert {k: r.launches for k, r in kernels.KERNELS.items()} == {
                 "stft_mag": 2, "attention_fwd": 2, "attention_bwd": 2, "istft_polar": 0,
-                "stft_dft": 0, "istft_dft": 0}
+                "stft_dft": 0, "istft_dft": 0, "global_sq_norm": 1, "adam_update": 0}
         res[device] = ({k: float(v) for k, v in metrics.items()}, cap.grads,
                        {k: v.cpu() for k, v in model.state_dict().items() if "running" in k})
     (lc, gc, sc), (lp, gp, sp) = res["cuda"], res["cpu"]
@@ -425,8 +425,9 @@ def test_enhancer_cuda_matches_cpu(dev, gen):
                         ).enhance_batch(wavs)
     # the serving path runs every forward kernel, and no backward
     launched = {name: k.launches for name, k in kernels.KERNELS.items()}
-    # at 512/128 K1g and K3g launch nothing
+    # at 512/128 K1g and K3g launch nothing, and serving runs no optimizer
     assert launched.pop("stft_dft") == launched.pop("istft_dft") == 0
+    assert launched.pop("global_sq_norm") == launched.pop("adam_update") == 0
     assert launched.pop("attention_bwd") == 0 and min(launched.values()) >= 1
     for a, b in zip(out, ref):
         assert a.shape == b.shape
@@ -742,7 +743,7 @@ def test_export_program_on_cuda_holds_the_kernel_ops(io_dtype, dev, tmp_path):
     targets = [str(n.target) for n in program.graph.nodes if n.op == "call_function"]
     calls = {name: targets.count(f"sevit.{name}.default") for name in kernels.KERNELS}
     assert calls == {"stft_mag": 1, "attention_fwd": 2, "attention_bwd": 0, "istft_polar": 1,
-                     "stft_dft": 0, "istft_dft": 0}
+                     "stft_dft": 0, "istft_dft": 0, "global_sq_norm": 0, "adam_update": 0}
     assert not [t for t in targets if "softmax" in t or "matmul" in t or t.startswith("aten.cos")]
     with torch.inference_mode():
         want = core(x, lengths)
@@ -797,7 +798,8 @@ def test_bench_prints_one_json_line_on_cuda(dev, capsys):
     assert line["mfu_pct"] is None or 0 < line["mfu_pct"] <= 100
     assert line["launches_per_step"] == {"stft_mag": 1.0, "attention_fwd": 6.0,
                                          "attention_bwd": 0.0, "istft_polar": 1.0,
-                                         "stft_dft": 0.0, "istft_dft": 0.0}
+                                         "stft_dft": 0.0, "istft_dft": 0.0,
+                                         "global_sq_norm": 0.0, "adam_update": 0.0}
 
 
 # (n_fft, hop, win, pad_mode): the geometries K1 and K3 do not all take

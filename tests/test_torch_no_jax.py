@@ -92,12 +92,58 @@ def test_wrappers_refuse_other_devices():
         cuda_attention.attention(q, q, q, scale=1.0)
 
 
+# kernels whose JAX counterpart is XLA-compiled code, not a pl.pallas_call:
+# they name that function (public, so "def " without the underscore)
+XLA_REPLACED = {"global_sq_norm": "chain_with_clip", "adam_update": "chain_with_clip"}
+
+
 def test_kernel_registry_names_sources_and_tpu_kernels():
     for k in kernels.KERNELS.values():
         assert (PORT / k.source).exists()
         file, line = k.replaces.rsplit(":", 1)
         src = (ROOT / file).read_text().splitlines()
-        assert src[int(line) - 1].lstrip().startswith("def _"), k.replaces
+        if k.name in XLA_REPLACED:
+            assert src[int(line) - 1].startswith(f"def {XLA_REPLACED[k.name]}("), k.replaces
+        else:
+            assert src[int(line) - 1].lstrip().startswith("def _"), k.replaces
+    assert set(XLA_REPLACED) <= set(kernels.KERNELS)
+
+
+def test_cpu_optimizer_takes_the_loop():
+    """AdamW with the clip on CPU tensors: the plain loops, counted as
+    ``optimizer.loop_steps``; no launch, no kernel library loaded."""
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.training.optimizer import (
+        Optimizer,
+    )
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.utils import tracing
+
+    kernels.reset_launch_counts()
+    g = torch.Generator().manual_seed(0)
+    params = [torch.randn(5, 3, generator=g), torch.randn(7, generator=g)]
+    grads = [torch.randn_like(p) for p in params]
+    opt = Optimizer(params, "adamw", max_norm=1.0)
+    before = tracing.counters()
+    assert opt.step(grads)
+    after = tracing.counters()
+    assert after.get("optimizer.loop_steps", 0) == before.get("optimizer.loop_steps", 0) + 1
+    assert after.get("optimizer.fused_steps", 0) == before.get("optimizer.fused_steps", 0)
+    assert {k.launches for k in kernels.KERNELS.values()} == {0}
+    assert kernels._lib is None
+
+
+def test_optimizer_kernels_refuse_other_devices():
+    """A meta tensor is refused by both optimizer wrappers, not computed by
+    their plain versions."""
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.ops import (
+        cuda_optimizer,
+    )
+
+    x = torch.empty(4, 3, device="meta")
+    with pytest.raises(ValueError, match="device"):
+        cuda_optimizer.global_norm([x])
+    with pytest.raises(ValueError, match="device"):
+        cuda_optimizer.adam_update([x], [x], [x], [x], lr=1e-3, b1=0.9, b2=0.999, eps=1e-8,
+                                   weight_decay=0.01, adamw=True, count=1)
 
 
 @pytest.mark.parametrize("rel", ["graft_entry.py", "cli/demo.py", "cli/synth_dataset.py"])
