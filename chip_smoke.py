@@ -255,6 +255,15 @@ which raises on failure:
     dense product K1g and K3g do. Part 8 runs in a fresh process
     (``geometry_times``), with the same batch's busy ms and K1's and K3's
     device ms in it: late in this script the profiler loses records.
+17. CMGAN (``cmgan``): K2r (``attention_relpos``) against its plain version,
+    the published einsums, in float64 at head dim 16 and N = 101, 401 and
+    1001, with and without prefix masks, within ``TOL_RELPOS``; its
+    registers and blocks an SM; its per-call and device time at a 32-clip
+    batch in the 819-frame bucket (time attention under the batch's mask,
+    frequency attention), beside the einsums (on an eighth of the rows, x8)
+    and its bound; a CMGAN batch of 32 x 4 s clips at the published widths
+    (the benchmark's seeded weights) through ``AudioEnhancer``: K1 1, K2r 8,
+    K3 1 and K2 0 launches, two clips cuda vs cpu within ``TOL_WAVE``.
 
 ``python3 chip_smoke.py --cards N`` (a machine with N >= 2 cards) builds the
 kernels and runs phase 11 alone over NCCL, one rank a card: N data ranks,
@@ -282,7 +291,8 @@ a step of phase 15e's ``bench_train``, ``geometry_serve_launches`` in one
 phase 16 batch at 400/100/400, ``dccrn_serve_launches`` in one at
 512/100/400, ``geometry_train_launches`` in one phase 16 train step at
 400/100/400, ``geometry_gl_launches`` in phase 16's Griffin-Lim call at
-4096/1024; K1's and K3's times at 400/100 and 320/160 and K3g's at its
+4096/1024, ``cmgan_serve_launches`` in phase 17's CMGAN batch; K2r's
+times under ``time`` and ``freq``; K1's and K3's times at 400/100 and 320/160 and K3g's at its
 other geometries under ``at_<geometry>``; the optimizer kernels' times and
 errors from phase 7b at the 28M parameter set, the 168M set's under
 ``at_hvit168m``, and ``adam_update``'s host ms a call by set, its checks
@@ -292,6 +302,7 @@ skipped (``host_ms``) and made (``host_checked_ms``)), and the result JSON.
 from __future__ import annotations
 
 import contextlib
+import copy
 import io
 import json
 import re
@@ -367,6 +378,8 @@ NO_DFT = {"stft_dft": 0, "istft_dft": 0}
 # update (a table of at most 512 tensors); serving launches neither
 OPT_STEP = {"global_sq_norm": 2, "adam_update": 1}
 NO_OPT = {"global_sq_norm": 0, "adam_update": 0}
+# CMGAN's relative-position attention (K2r): the HybridViT's paths launch none
+NO_RELPOS = {"attention_relpos": 0}
 # the benchmark's models, at whose parameter sets phase 7b checks and times
 # the optimizer's kernels
 OPT_CONFIGS = ("hvit28m", "hvit168m")
@@ -1157,7 +1170,7 @@ def training(dev: torch.device, smi: str, rng: np.random.Generator, g: torch.Gen
     if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
         raise AssertionError(f"the full-width loss is not finite and falling: {losses}")
     want = {"stft_mag": 2, "attention_fwd": 6, "attention_bwd": 6, "istft_polar": 0, **NO_DFT,
-            **OPT_STEP}
+            **NO_RELPOS, **OPT_STEP}
     if train_launches != {k: TRAIN_STEPS * c for k, c in want.items()}:
         raise AssertionError(f"train steps' launches {train_launches}, not {want} a step")
     if eval_launches != dict(want, attention_bwd=0, **NO_OPT) or not np.isfinite(val["total"]):
@@ -1965,7 +1978,7 @@ def mesh(dev: torch.device, smi: str, rng: np.random.Generator, enhancer, wavs: 
     print(f"{ranks_b} ranks, full width: losses {[[f'{x:.6f}' for x in t['losses']] for t in train]}; "
           f"launches per rank per step {rank_steps}", flush=True)
     want = {"stft_mag": 2, "attention_fwd": 6, "attention_bwd": 6, "istft_polar": 0, **NO_DFT,
-            **OPT_STEP}
+            **NO_RELPOS, **OPT_STEP}
     if (any(t["losses"] != train[0]["losses"] for t in train)
             or not np.isfinite(train[0]["losses"]).all()
             or any(t["launches"] != {k: TRAIN_MESH_STEPS * c for k, c in want.items()}
@@ -2032,7 +2045,7 @@ def mesh(dev: torch.device, smi: str, rng: np.random.Generator, enhancer, wavs: 
                     (tp[0]["metrics"], tp[0]["grads"], tp[0]["stats"]), ref, names)
     # the clip's norm under TP is the shards' squares all-reduced, not global_sq_norm
     want_tp = {"stft_mag": 2, "attention_fwd": 12, "attention_bwd": 12, "istft_polar": 0,
-               **NO_DFT, "global_sq_norm": 0, "adam_update": 1}
+               **NO_DFT, **NO_RELPOS, "global_sq_norm": 0, "adam_update": 1}
     if fwd_err > tol_forward or any(t["heads"] != [SCALED["num_heads"] // 2] for t in tp) or any(
             t["launches"] != want_tp for t in tp):
         raise AssertionError("tensor parallelism: output, heads or launches wrong")
@@ -2084,7 +2097,7 @@ def mesh(dev: torch.device, smi: str, rng: np.random.Generator, enhancer, wavs: 
           f"{cli.returncode}, {cli.stderr.strip().splitlines()[-1:]}", flush=True)
     if (wave_err > TOL_WAVE or len(got) != len(out)
             or serve_launches != {"stft_mag": 1, "attention_fwd": 6, "attention_bwd": 0,
-                                  "istft_polar": 1, **NO_DFT, **NO_OPT}):
+                                  "istft_polar": 1, **NO_DFT, **NO_RELPOS, **NO_OPT}):
         raise AssertionError("the mesh enhancer differs from one device or skipped a kernel")
     if cli.returncode == 0 or refused not in cli.stderr:
         raise AssertionError(f"enhance --data-parallel {visible + 1} was not refused: {cli.stderr}")
@@ -2538,7 +2551,7 @@ def exported(dev: torch.device, smi: str, enhancer, wavs: list, slice_ms: float,
     phase("export: the serving core and the bf16 entry on cuda, the ops' host cost, the demo")
     t_phase = time.perf_counter()
     serving = {"stft_mag": 1, "attention_fwd": 6, "attention_bwd": 0, "istft_polar": 1,
-               **NO_DFT, **NO_OPT}
+               **NO_DFT, **NO_RELPOS, **NO_OPT}
     # phase 5's batch as enhance_batch_async pads it: PCM16 [32, 49024] and lengths
     wav_len = enhancer._padded_len(max(len(w) for w in wavs))
     batch = np.zeros((len(wavs), wav_len), np.int16)
@@ -2868,9 +2881,9 @@ def quality_tools(smi: str) -> dict:
 # differences add up to the full prefix by construction); tools.bench's
 # device core on cuda against the same core on the cpu at TOL_WAVE.
 INFER_LAUNCHES = {"stft_mag": 1, "attention_fwd": 6, "attention_bwd": 0, "istft_polar": 1,
-                  **NO_DFT, **NO_OPT}
+                  **NO_DFT, **NO_RELPOS, **NO_OPT}
 TRAIN_LAUNCHES = {"stft_mag": 2, "attention_fwd": 6, "attention_bwd": 6, "istft_polar": 0,
-                  **NO_DFT, **OPT_STEP}
+                  **NO_DFT, **NO_RELPOS, **OPT_STEP}
 TOL_FLOP_COUNT = 0.02
 TOL_STAGES_VS_BENCH = 0.25
 BENCH_CPU_ROWS = 4  # rows of the device batch run again on the cpu (rows are independent)
@@ -3425,6 +3438,131 @@ def geometry_times(serve_cfg: dict, smi: str) -> dict:
     return {"fft_ms": fft_ms, "ms": ms, "dft_others": dft_others, "errs": errs}
 
 
+TOL_RELPOS = 5e-5  # K2r vs float64 einsums at logits of O(10) (tests/test_torch_cuda.py)
+
+
+def profiled_ms(fn, inputs, times: int = 1) -> float | None:
+    """``times`` x ``device_ms``, or None where the profiler hands back only
+    empty traces, as it now and then does late in this script (the caller
+    then has the CUDA events' time)."""
+    try:
+        return times * device_ms(fn, inputs)
+    except RuntimeError as e:
+        print(f"device time not measured: {e}", flush=True)
+        return None
+CMGAN_ROWS, CMGAN_FRAMES = 32, 819  # a batch of 32 clips in the 5.11-s bucket at hop 100
+
+
+def cmgan(dev: torch.device, smi: str, rng: np.random.Generator) -> dict:
+    """Phase 17: CMGAN's relative-position attention (K2r). a. K2r at head
+    dim 16 against its plain version (the published einsums) in float64, at
+    N = 101, 401 and 1001 with and without prefix masks. b. Per call and
+    device time at a 32-clip batch in the 819-frame bucket (clips of 4.0-5.1
+    s): the time attention over 32 x 101 rows of 819 frames under the
+    batch's mask and the frequency attention over 32 x 819 rows of 101 bins;
+    its yardstick, the plain einsums, on 4 of the 32 clips' rows (their
+    logits at 32 would take ~170 GB) times 8. c. A CMGAN batch of 32 x 4 s
+    clips through ``AudioEnhancer`` at the published widths: K1 1, K2r
+    8, K3 1, K2 0 launches (the benchmark's seeded weights, float32 I/O); two
+    of its clips cuda against cpu within ``TOL_WAVE``. Returns K2r's errors,
+    times and the batch's launches."""
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.inference import (
+        AudioEnhancer,
+    )
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.ops import (
+        cuda_attention as ca, kernels,
+    )
+
+    phase("cmgan: K2r against the published einsums and timed; a CMGAN batch on the path")
+    t_phase = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(17)
+    errs = []
+    for n in (101, 401, 1001):
+        q, k, v = (torch.randn(3, 4, n, 16, generator=g, device=dev) for _ in range(3))
+        e = torch.randn(1025, 16, generator=g, device=dev)
+        prefix = torch.arange(n, device=dev)[None, :] < torch.tensor([[0], [n // 3], [n]],
+                                                                      device=dev)
+        for mask in (None, prefix):
+            with torch.no_grad():
+                o = ca.attention_relpos(q, k, v, e, 512, scale=0.25, mask=mask)
+            r = ca.attention_relpos_plain(q.double(), k.double(), v.double(), e.double(), 512,
+                                          scale=0.25, mask=mask)
+            errs.append(float((o.double() - r).abs().max()))
+    print(f"K2r vs the einsums in float64, N 101/401/1001, no mask and prefix masks: max abs "
+          f"err {max(errs):.3g} (tolerance {TOL_RELPOS}); resources at 1024 keys, masked: "
+          f"{ca.relpos_kernel_info(16, 1024)}", flush=True)
+    if max(errs) > TOL_RELPOS:
+        raise AssertionError("K2r differs from its plain version")
+
+    lens = np.sort(rng.integers(int(0.78 * (CMGAN_FRAMES - 1) * 100), (CMGAN_FRAMES - 1) * 100,
+                                CMGAN_ROWS))
+    kept = 1 + lens // 100
+    frames_mask = (torch.arange(CMGAN_FRAMES)[None, :]
+                   < torch.from_numpy(kept)[:, None]).to(dev)
+    ms = {}
+    for what, rows, n, mask in (
+            ("time", CMGAN_ROWS * 101, CMGAN_FRAMES,
+             frames_mask[:, None, :].expand(CMGAN_ROWS, 101, CMGAN_FRAMES).reshape(-1, CMGAN_FRAMES)),
+            ("freq", CMGAN_ROWS * CMGAN_FRAMES, 101, None)):
+        inputs = [tuple(torch.randn(rows, 4, n, 16, generator=g, device=dev) for _ in range(3))
+                  + (torch.randn(1025, 16, generator=g, device=dev),) for _ in range(2)]
+        keys = int(mask.sum()) if mask is not None else rows * n
+
+        def call(q, k, v, e, mask=mask, keys=keys):
+            with torch.no_grad():
+                return ca.attention_relpos(q, k, v, e, 512, scale=0.25, mask=mask, kept_keys=keys)
+
+        eighth = rows // 8
+
+        def plain(q, k, v, e, mask=mask):
+            return ca.attention_relpos_plain(q[:eighth], k[:eighth], v[:eighth], e, 512,
+                                             scale=0.25,
+                                             mask=None if mask is None else mask[:eighth])
+
+        ops = 6.0 * 4 * n * keys * 16
+        nbytes = 4.0 * 4 * rows * 4 * n * 16 + 4.0 * 1025 * 16
+        b_ms, by = bound(ops, nbytes, TF32X3_PEAK)
+        per, dev_ms = median_ms(call, inputs), profiled_ms(call, inputs)
+        p_ms, p_dev = 8 * median_ms(plain, inputs[:1], reps=3), profiled_ms(plain, inputs[:1], 8)
+        timed = dev_ms or per  # CUDA events where the profiler recorded nothing
+        ms[what] = {"ms_per_call": per, "device_ms": dev_ms, "plain_ms": p_ms,
+                    "plain_device_ms": p_dev, "bound_ms": b_ms, "bound_by": by,
+                    "bound_share_device": b_ms / timed}
+        print(f"K2r {what} attention [{rows}, 4, {n}, 16], {keys} kept keys: per call "
+              f"{per:.4f} ms (device {ms_or_not(dev_ms)}); the einsums (x8 from 4 clips' rows) "
+              f"{p_ms:.4f} ms (device {ms_or_not(p_dev)}); bound {b_ms:.4f} ms by {by}, "
+              f"{100 * b_ms / timed:.1f}% of it in {'device' if dev_ms else 'per-call'} time; "
+              f"{smi}", flush=True)
+        del inputs
+        torch.cuda.empty_cache()
+
+    from portbench.traffic.offline_cmgan import build_model
+
+    config = json.loads((ROOT / "portbench" / "configs" / "cmgan.json").read_text())
+    port = {"model": config["model"], "audio": config["audio"]}
+    wavs = [speechlike(int(4.0 * SR), rng) for _ in range(CMGAN_ROWS)]
+    cpu_model, _ = build_model(config, 5, "cpu")  # the benchmark's seeded weights, one draw
+    outs = {}
+    for device in (dev, torch.device("cpu")):
+        model = copy.deepcopy(cpu_model)
+        enh = AudioEnhancer(model, port, device=device, mask_padding=True)
+        kernels.reset_launch_counts()
+        batch = wavs if device.type == "cuda" else wavs[:2]
+        outs[device.type] = enh.enhance_batch(batch)
+        if device.type == "cuda":
+            launches = launch_counts()
+    err = max(float(np.abs(a - b).max()) for a, b in zip(outs["cuda"], outs["cpu"]))
+    peak = max(float(np.abs(o).max()) for o in outs["cpu"])
+    print(f"CMGAN batch of {CMGAN_ROWS} x 4 s at the published widths (the benchmark's weights): "
+          f"launches { {n: c for n, c in launches.items() if c} }; two clips cuda vs cpu max abs "
+          f"err {err:.3g} (tolerance {TOL_WAVE}; outputs' peak {peak:.3g}); phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    if {n: c for n, c in launches.items() if c} != {"stft_mag": 1, "attention_relpos": 8,
+                                                    "istft_polar": 1} or err > TOL_WAVE:
+        raise AssertionError("the CMGAN batch launched other kernels or differs from the cpu")
+    return {"errs": errs, "ms": ms, "launches": launches}
+
+
 def main() -> int:
     import argparse
 
@@ -3484,7 +3622,8 @@ def main() -> int:
     for name, passes in (("attention_fwd", ("attention_fwd_kernel",)),
                          ("attention_bwd", ("attention_bwd_dq_kernel", "attention_bwd_dkdv_kernel")),
                          ("stft_dft", ("stft_dft_kernel",)),
-                         ("istft_dft", ("istft_dft_frames_kernel",))):
+                         ("istft_dft", ("istft_dft_frames_kernel",)),
+                         ("attention_relpos", ("attention_relpos_fwd_kernel",))):
         hmma = tf32_hmma(cuobjdump, libs[name])
         for fn in passes:
             found = [i for f, instrs in hmma.items() if fn in f for i in instrs]
@@ -3733,6 +3872,9 @@ def main() -> int:
         tools_run = quality_tools(smi)
         bench_run = measurement_tools(smi, noisy)
     geometry_run = geometry(dev, smi, rng, g)
+    cmgan_run = cmgan(dev, smi, rng)
+    errs["attention_relpos"] = cmgan_run["errs"]
+    ms["attention_relpos"] = cmgan_run["ms"]
     errs.update(opt_run["errs"])
     ms.update(opt_run["ms"])
     errs["attention_bwd"] = train["errs"]
@@ -3775,6 +3917,7 @@ def main() -> int:
          "dccrn_serve_launches": geometry_run["dccrn"][name],
          "geometry_train_launches": geometry_run["train"][name],
          "geometry_gl_launches": geometry_run["gl"][name],
+         "cmgan_serve_launches": cmgan_run["launches"][name],
          "max_abs_err": max(errs[name]),
          **ms[name]}
         for name, k in kernels.KERNELS.items()

@@ -104,6 +104,7 @@ class MeshPlan:
 
 def load_config(args):
     """The config directory's configs with the flags' overrides, validated."""
+    from ..models import architecture
     from ..utils.config import load_all_configs, set_config_value, validate_config
 
     config = load_all_configs(args.config_dir)
@@ -119,6 +120,12 @@ def load_config(args):
     for key, value in overrides:
         if value is not None:
             set_config_value(config, key, value)
+    arch = architecture(config)
+    if arch != "hybrid_vit":
+        raise SystemExit(
+            f"model.architecture {arch!r}: the train CLI trains the HybridViT only; CMGAN "
+            "training (its metric discriminator with PESQ in the loop and a backward for its "
+            "attention kernel K2r) is ROADMAP item 23")
     problems = validate_config(config)
     if problems:
         raise SystemExit("Invalid config:\n  " + "\n  ".join(problems))

@@ -5,8 +5,17 @@ CUDA, or K1g at a geometry K1 does not take) -> phase -> max-only magnitude
 normalize -> HybridViT (attention through kernel K2 on CUDA) -> mask or
 magnitude denorm -> do-no-harm blend -> noisy-phase iSTFT (kernel K3 on
 CUDA, or K3g) -> output denorm, optionally with PCM16 in and out. The STFT
-geometry is the config's ``audio`` section. Waveforms are padded to length buckets; clips longer
-than the largest bucket go through chunked overlap-add streaming.
+geometry is the config's ``audio`` section.
+
+CMGAN's generator (``models.cmgan.TSCNet``) has its own front and back end
+in the same launch (``_cmgan_core``): each row scaled to unit RMS over its
+true length, the STFT (K1), the complex spectrum power-compressed
+(``|X|^0.3`` at the noisy phase) as ``[B, 2, T, F]``, the model with the
+padded frames masked (K2r), the output decompressed (``|Y|^(1/0.3)`` at its
+own phase), the iSTFT (K3), the scale undone. It takes no blend.
+
+Waveforms are padded to length buckets; clips longer than the largest bucket
+go through chunked overlap-add streaming.
 
 On CUDA a batch is dispatched without waiting for the device: its input is
 staged in pinned host memory and copied with ``non_blocking=True`` (a copy
@@ -39,9 +48,10 @@ import torch
 
 from ..data.dataset import DEFAULT_BUCKETS, bucket_for_frames, frames_needed
 from ..data.wavio import load_audio, save_wav, wav_info
+from ..models import create_model
+from ..models.cmgan import TSCNet
 from ..models.components import patch_validity_mask
 from ..models.fold import fold_batchnorm
-from ..models.hybrid_vit import create_hybrid_vit
 from ..ops.cuda_stft import istft_polar, stft_mag
 from ..ops.stft import STFTConfig
 from ..utils import tracing
@@ -122,6 +132,10 @@ class AudioEnhancer:
     ``mesh``: one replica of the model on each of ``mesh.replicas`` (the
     module docstring); ``device`` is then the replicas' device type.
 
+    A CMGAN ``TSCNet`` runs CMGAN's front and back end (the module
+    docstring); ``mask_padding`` masks its padded frames, and a ``blend``
+    other than 1.0 is refused.
+
     ``dft_precision`` (``"highest"``, ``"high"`` or ``"default"``) is the JAX
     enhancer's precision of its reconstruction matmul: ``high`` and
     ``default`` permit less precision and do not demand it. The
@@ -187,6 +201,13 @@ class AudioEnhancer:
             raise ValueError(f"io_dtype must be float32|int16, got {io_dtype}")
         self.io_dtype = io_dtype
         self.mask_padding = bool(mask_padding)
+        self.cmgan = isinstance(model, TSCNet)
+        if self.cmgan:
+            if blend not in (None, 1.0):
+                raise ValueError(f"blend {blend!r}: CMGAN's enhancer takes no blend (1.0 only)")
+            self.blend, self.blend_min, self.blend_pivot_db, self.blend_width_db = (
+                1.0, float(blend_min), float(blend_pivot_db), float(blend_width_db))
+            return
         meta_blend = self.config.get("inference", {}).get("blend")
         if not isinstance(meta_blend, dict):
             meta_blend = {}
@@ -270,14 +291,49 @@ class AudioEnhancer:
         enhanced_mag = self._apply_blend(enhanced_mag, mag)
         return istft_polar(enhanced_mag.contiguous(), phase, self.stft_cfg, length=wav_len)
 
+    def _cmgan_core(self, x: torch.Tensor, lengths: Optional[torch.Tensor],
+                    model: torch.nn.Module, host_lens: Optional[np.ndarray]) -> torch.Tensor:
+        """CMGAN's front end, model and back end on float ``x [B, wav_len]``:
+        with ``lengths`` each row scaled to unit RMS over its true length
+        (a silent row by 1) and, with ``mask_padding``, frames from
+        ``1 + length // hop`` on masked; ``host_lens`` (the same lengths on
+        the host) feeds the model's counters."""
+        if lengths is None:
+            c = torch.ones_like(x[:, :1])
+        else:
+            energy = torch.sum(x * x, dim=-1, keepdim=True)
+            c = torch.where(energy > 0, torch.sqrt(lengths[:, None].to(x.dtype) / energy),
+                            torch.ones_like(energy))
+        re, im, mag = stft_mag((x * c).contiguous(), self.stft_cfg)
+        phase = torch.atan2(im, re)
+        mag = mag ** 0.3
+        spec = torch.stack([mag * torch.cos(phase), mag * torch.sin(phase)], dim=1)
+        n_valid = kept = None
+        if lengths is not None and self.mask_padding:
+            n_valid = 1 + lengths.to(torch.int64) // self.stft_cfg.hop_length
+            if host_lens is not None:
+                kept = int((1 + host_lens.astype(np.int64) // self.stft_cfg.hop_length).sum())
+        y_re, y_im = model(spec.transpose(2, 3), n_valid, kept)
+        y_re, y_im = y_re[:, 0].transpose(1, 2), y_im[:, 0].transpose(1, 2)
+        y_mag = torch.sqrt(y_re * y_re + y_im * y_im) ** (1.0 / 0.3)
+        y = istft_polar(y_mag.contiguous(), torch.atan2(y_im, y_re).contiguous(), self.stft_cfg,
+                        length=x.shape[-1])
+        return y / c
+
     def _core(self, noisy: torch.Tensor, lengths: torch.Tensor,
-              model: torch.nn.Module) -> torch.Tensor:
+              model: torch.nn.Module, host_lens: Optional[np.ndarray] = None) -> torch.Tensor:
         """The enhancement core on one padded batch on ``model``'s device:
         ``noisy [B, wav_len]`` (int16 PCM when ``io_dtype='int16'``),
-        ``lengths [B]`` true sample counts."""
+        ``lengths [B]`` true sample counts (``host_lens``: the same on the
+        host, for CMGAN's counters)."""
         io16 = self.io_dtype == "int16"
         if io16:
             noisy = noisy.to(torch.float32) / 32768.0
+        if self.cmgan:
+            y = self._cmgan_core(noisy, lengths, model, host_lens)
+            if io16:
+                return (torch.clamp(y, -1.0, 1.0) * 32767.0).to(torch.int16)
+            return y
         max_val = torch.amax(noisy.abs(), dim=-1, keepdim=True)
         scale = torch.where(max_val > 1e-8, max_val, torch.ones_like(max_val))
         re, im, mag = stft_mag((noisy / scale).contiguous(), self.stft_cfg)
@@ -289,6 +345,8 @@ class AudioEnhancer:
         return y
 
     def _enhance_nonorm(self, batch: torch.Tensor, model: torch.nn.Module) -> torch.Tensor:
+        if self.cmgan:
+            return self._cmgan_core(batch, None, model, None)
         re, im, mag = stft_mag(batch, self.stft_cfg)
         return self._denoise(mag, torch.atan2(im, re), batch.shape[-1], None, model)
 
@@ -320,7 +378,7 @@ class AudioEnhancer:
             x = self._to_device(batch, device)
             n = self._to_device(lens, device) if normalize else None
         with tracing.span("enhance.launch"):
-            out = self._core(x, n, model) if normalize else self._enhance_nonorm(x, model)
+            out = self._core(x, n, model, lens) if normalize else self._enhance_nonorm(x, model)
         if device.type != "cuda":
             return out, None
         with tracing.span("enhance.d2h"):
@@ -532,7 +590,7 @@ def load_model_for_inference(
                     "(weights must match the trained architecture)"
                 )
             config[section] = saved[section]
-    model = create_hybrid_vit(config)
+    model = create_model(config)
     load_model_weights(checkpoint_path, model)
     return model.to(device).eval(), config
 

@@ -304,3 +304,123 @@ def bwd_kernel_info(d: int) -> dict:
         raise RuntimeError(f"sevit_attention_bwd_info failed with error {err}")
     return {"dq": {"registers": regs[0], "local_bytes": local[0]},
             "dkdv": {"registers": regs[1], "local_bytes": local[1]}}
+
+
+# ---------------------------------------------------------------------------
+# K2r: Shaw's relative-position attention (CMGAN's conformers), forward only
+# ---------------------------------------------------------------------------
+
+RELPOS_HEAD_DIMS = (16,)  # csrc/attention_relpos.cu template instances
+
+
+def relative_offsets(n: int, max_pos: int, device=None) -> torch.Tensor:
+    """``[n, n]`` rows of the table that query i and key j read:
+    ``clamp(i - j, -max_pos, max_pos) + max_pos``."""
+    seq = torch.arange(n, device=device)
+    return (seq[:, None] - seq[None, :]).clamp(-max_pos, max_pos) + max_pos
+
+
+def attention_relpos_plain(q, k, v, emb, max_pos: int, *, scale: float, mask=None):
+    """Plain version of K2r, the published einsums (the conformer's
+    ``Attention`` of CMGAN's ``conformer.py``): ``q, k, v [G, H, N, D]``,
+    ``emb [2 max_pos + 1, D]``, logits ``q_i.k_j * scale + q_i.E[clamp(i -
+    j)] * scale``, masked keys (``mask [G, N]`` bool, True = attend) at
+    -1e30, softmax, times v."""
+    rel = F.embedding(relative_offsets(q.shape[-2], max_pos, q.device), emb)  # [N, N, D]
+    dots = torch.einsum("bhid,bhjd->bhij", q, k) * scale
+    dots = dots + torch.einsum("bhnd,nrd->bhnr", q, rel) * scale
+    if mask is not None:
+        dots = dots.masked_fill(~mask[:, None, None, :], NEG_INF)
+    return torch.einsum("bhij,bhjd->bhid", dots.softmax(dim=-1), v)
+
+
+def _check_relpos(q, k, v, emb, max_pos, mask):
+    _check(q, k, v, mask)
+    if emb.dim() != 2 or emb.shape != (2 * max_pos + 1, q.shape[-1]):
+        raise ValueError(f"attention_relpos: emb must be [2 * {max_pos} + 1, {q.shape[-1]}], "
+                         f"got {tuple(emb.shape)}")
+    if emb.device != q.device:
+        raise ValueError("attention_relpos: inputs on different devices")
+
+
+def _relpos_kernel(q, k, v, emb, max_pos, mask, scale):
+    """Launch K2r (the op's CUDA impl)."""
+    g, h, n, d = q.shape
+    named = (("q", q), ("k", k), ("v", v), ("emb", emb))
+    for name, t in named:  # (a parameter's requires_grad: attention_relpos refuses a gradient)
+        kernels.check_input(f"attention_relpos {name}", t, 4 if name != "emb" else 2,
+                            differentiable=True)
+    if d not in RELPOS_HEAD_DIMS:
+        raise ValueError(f"attention_relpos kernel: head dim {d}, instances {RELPOS_HEAD_DIMS}")
+    _check_aligned(named)
+    if mask is not None:
+        mask = mask.contiguous()
+    out = torch.empty_like(q)
+    if g * h and n:
+        with torch.cuda.device(q.device):
+            kernels.launch(
+                "attention_relpos", q.data_ptr(), k.data_ptr(), v.data_ptr(), emb.data_ptr(),
+                None if mask is None else mask.data_ptr(), out.data_ptr(),
+                g * h, h, n, d, int(max_pos), float(scale) * LOG2E,
+            )
+    return out
+
+
+def _relpos_plain_op(q, k, v, emb, max_pos, mask, scale):
+    return attention_relpos_plain(q, k, v, emb, max_pos, scale=scale, mask=mask)
+
+
+def _relpos_fake(q, k, v, emb, max_pos, mask, scale):
+    return torch.empty_like(q)
+
+
+attention_relpos_op = kernels.define_op(
+    "attention_relpos_fwd",
+    "(Tensor q, Tensor k, Tensor v, Tensor emb, int max_pos, Tensor? mask, float scale)"
+    " -> Tensor",
+    cpu=_relpos_plain_op, cuda=_relpos_kernel, fake=_relpos_fake)
+
+
+def attention_relpos(q, k, v, emb, max_pos: int, *, scale: float, mask=None,
+                     kept_keys: Optional[int] = None) -> torch.Tensor:
+    """Relative-position attention over ``[G, H, N, D]`` tensors, forward
+    only, through the op ``sevit::attention_relpos_fwd``: CPU, the plain
+    version; CUDA, kernel K2r (head dim 16), which walks only the key tiles
+    that hold a kept key and takes each offset from the keys' original
+    positions. ``mask`` ``[G, N]`` bool (True = attend). Counts the call
+    (``attention.relpos_calls``) and the query-key pairs over kept keys
+    (``attention.relpos_pairs``): ``kept_keys``, the kept keys summed over
+    the G rows, where the caller knows it on the host; without a mask every
+    key; a CPU mask is summed; a CUDA mask without ``kept_keys`` is not read
+    (that would wait for the device) and counts no pairs. Refuses a
+    gradient: K2r has no backward."""
+    from ..utils import tracing
+
+    _check_relpos(q, k, v, emb, max_pos, mask)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, emb)):
+        raise RuntimeError("attention_relpos: forward only (K2r has no backward); run under "
+                           "torch.no_grad() or torch.inference_mode()")
+    g, h, n, _ = q.shape
+    if kept_keys is None and mask is None:
+        kept_keys = g * n
+    elif kept_keys is None and not kernels.uses_kernel(mask):
+        kept_keys = int(mask.sum())
+    tracing.count("attention.relpos_calls")
+    if kept_keys is not None:
+        tracing.count("attention.relpos_pairs", h * n * int(kept_keys))
+    return attention_relpos_op(q, k, v, emb, int(max_pos), mask, float(scale))
+
+
+def relpos_kernel_info(d: int, n: int, masked: bool = True) -> dict:
+    """Registers and local (spill) bytes per thread, shared memory per
+    block and resident blocks per SM of K2r's instance for head dim ``d`` at
+    ``n`` keys, as the CUDA runtime reports them (needs the card)."""
+    fn = kernels.library()["attention_relpos"].sevit_attention_relpos_info
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 4
+    fn.restype = ctypes.c_int
+    vals = [ctypes.c_int() for _ in range(4)]
+    err = fn(d, n, int(masked), *(ctypes.byref(x) for x in vals))
+    if err != 0:
+        raise RuntimeError(f"sevit_attention_relpos_info failed with error {err}")
+    return dict(zip(("registers", "local_bytes", "smem_bytes", "blocks_per_sm"),
+                    (x.value for x in vals)))

@@ -25,7 +25,9 @@ launches the kernel, its CPU impl is the kernel's plain version, and its fake
 impl gives the outputs' shapes and dtypes from the arguments alone. The STFT
 kernels share two ops: ``sevit::stft_mag`` launches K1 (``stft_mag``) or K1g
 (``stft_dft``), ``sevit::istft_polar`` K3 (``istft_polar``) or K3g
-(``istft_dft``), as the STFT config decides (``cuda_stft.route``). A meta tensor
+(``istft_dft``), as the STFT config decides (``cuda_stft.route``);
+``sevit::attention_relpos_fwd`` launches CMGAN's K2r (``attention_relpos``,
+a kernel that ports no TPU kernel: ``NO_TPU_KERNEL``). A meta tensor
 is refused rather than given shapes as if it had been computed. The ops are
 defined when ``cuda_stft`` and ``cuda_attention`` are imported (``import``
 of the port's ``ops`` package does both); a program that ``torch.export``
@@ -59,12 +61,15 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+# ``replaces`` of a kernel that ports no TPU kernel
+NO_TPU_KERNEL = "none: no TPU kernel (the JAX package has no CMGAN)"
 
 
 @dataclass
 class Kernel:
     """One hand-written kernel: its C entry, its source and the TPU kernel
-    it replaces, and how often its wrapper has launched it."""
+    it replaces (``NO_TPU_KERNEL`` for one that ports none), and how often
+    its wrapper has launched it."""
 
     name: str
     entry: str
@@ -124,6 +129,14 @@ KERNELS = {
             # mag, phase, idft tiles, denom, frames, y, batch, n_frames, n_fft,
             # hop, offset, out_samples, tile samples, tile depth, stream
             (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+        ),
+        # CMGAN's relative-position attention: the JAX package runs no CMGAN
+        Kernel(
+            "attention_relpos", "sevit_attention_relpos_fwd", "csrc/attention_relpos.cu",
+            NO_TPU_KERNEL,
+            # q, k, v, emb, key_mask, out, groups, heads, n, d, max_pos,
+            # scale * log2(e), stream
+            (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
         ),
         # the optimizer's chain: XLA-compiled code in the JAX package, no Pallas
         Kernel(

@@ -26,7 +26,9 @@ an op it has no formula for, so this module registers one for each
 ``sevit::stft_mag`` and ``sevit::istft_polar`` ``stft_flops`` each,
 ``sevit::attention_fwd`` QK^T and AV (4·B·H·N·Nk·Dh), and
 ``sevit::attention_bwd`` twice that (dP, dV, dQ, dK; the recomputed scores
-are not counted, as the 3x-forward convention does not count them). The
+are not counted, as the 3x-forward convention does not count them), and
+``sevit::attention_relpos_fwd`` (K2r) 6·B·H·N·N·Dh, every key (the counter
+sees no mask). ``cmgan_forward_flops`` is CMGAN's generator's count. The
 port computes its bilinear resizes with ``F.interpolate``, which the counter
 counts as 0: PyTorch's count lies below the analytic one by the resize terms
 (0.9% of the forward at 28M with the ``resize`` head, 3.1% with
@@ -47,7 +49,7 @@ from __future__ import annotations
 
 import subprocess
 from dataclasses import dataclass, field
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 from torch.utils.flop_counter import FlopCounterMode, flop_registry, register_flop_formula
@@ -240,6 +242,42 @@ def bilinear_flops(spec: ModelSpec, batch: int, f_bins: int = 257, frames: int =
                                           f_bins, frames, spec.head_channels)
 
 
+def _cmgan_dense(t: int, f: int, c: int) -> float:
+    """A DilatedDenseNet of depth 4 at ``t`` frames and ``f`` bins: conv i
+    takes ``c * (i + 1)`` channels to ``c`` with a (2, 3) kernel."""
+    return sum(2.0 * t * f * c * (i + 1) * c * 6 for i in range(4))
+
+
+def cmgan_forward_flops(batch: int, frames: int, f_bins: int = 201,
+                        valid: Optional[Sequence[int]] = None, *, channels: int = 64,
+                        num_tscb: int = 4, heads: int = 4, ff_mult: int = 4,
+                        conv_expansion: int = 2, conv_kernel: int = 31) -> Dict[str, float]:
+    """Forward FLOPs of CMGAN's ``TSCNet`` on ``[batch, 2, frames, f_bins]``,
+    by part (the same convention; norms and activations not counted): the
+    dense encoder at ``f_bins``, per conformer and position two feed-forwards,
+    the q/kv/out projections and the conv module, the attention's three
+    products (``QK^T``, the relative term, ``PV``: ``6·N·Nk·Dh`` a head; over
+    time the keys are each row's ``valid`` frames, all when None), and the
+    two decoders. ``portbench/cmgan_work.py`` keeps a frozen copy."""
+    c, t, f2, d = channels, frames, (f_bins + 1) // 2, channels // heads
+    kept = [t] * batch if valid is None else [min(int(v), t) for v in valid]
+    inner = c * conv_expansion
+    token = (2 * (2.0 * c * ff_mult * c * 2) + 2.0 * c * 4 * c
+             + 2.0 * c * 2 * inner + 2.0 * inner * conv_kernel + 2.0 * inner * c)
+    out = {
+        "encoder": batch * (2.0 * t * f_bins * 3 * c + _cmgan_dense(t, f_bins, c)
+                            + 2.0 * t * f2 * c * c * 3),
+        "conformers": batch * 2 * num_tscb * token * t * f2,
+        "attention_time": num_tscb * sum(6.0 * f2 * heads * t * k * d for k in kept),
+        "attention_freq": num_tscb * 6.0 * batch * t * heads * f2 * f2 * d,
+        "decoders": batch * (2 * (_cmgan_dense(t, f2, c) + 2.0 * t * f2 * c * 2 * c * 3)
+                             + 2.0 * t * f_bins * c * 2 + 2.0 * t * f_bins
+                             + 2.0 * t * f_bins * c * 2 * 2),
+    }
+    out["total"] = float(sum(out.values()))
+    return out
+
+
 def spec_from_model(model) -> ModelSpec:
     """A ModelSpec from the port's ``HybridViT``."""
     return ModelSpec(
@@ -394,8 +432,14 @@ def _attention_bwd_flop(q_shape, k_shape, *args, out_shape=None, **kwargs) -> in
     return 2 * _attention_flop(q_shape, k_shape)
 
 
+@_formula(torch.ops.sevit.attention_relpos_fwd)
+def _attention_relpos_flop(q_shape, k_shape, *args, out_shape=None, **kwargs) -> int:
+    return 3 * _attention_flop(q_shape, k_shape) // 2  # QK^T, the relative term and AV
+
+
 SEVIT_OPS = (torch.ops.sevit.stft_mag, torch.ops.sevit.attention_fwd,
-             torch.ops.sevit.attention_bwd, torch.ops.sevit.istft_polar)
+             torch.ops.sevit.attention_bwd, torch.ops.sevit.istft_polar,
+             torch.ops.sevit.attention_relpos_fwd)
 
 
 def torch_program_flops(fn, *args, **kwargs) -> float:

@@ -41,6 +41,14 @@ The port's spans (children indented under their parent) and counters:
   ``enhance.unpack``. Counters ``enhance.batches``,
   ``enhance.true_samples``, ``enhance.padded_samples`` (bucket padding is
   the share of padded samples that are not true ones).
+* ``models/cmgan.py``, inside ``enhance.launch``: ``cmgan.encoder``,
+  ``cmgan.tscb`` (id: the block, 1-4) and ``cmgan.decoders``, each the
+  host's enqueue of that part. Counters ``cmgan.true_frames`` and
+  ``cmgan.padded_frames`` (a batch's valid frames and all of its frames,
+  where the caller gives the valid count from the host).
+* ``ops/cuda_attention.py``: counters ``attention.relpos_calls`` (K2r's op
+  calls) and ``attention.relpos_pairs`` (the query-key pairs over kept keys
+  given to it).
 * ``inference/server.py`` (id: the request's): ``serve.parse``,
   ``serve.queue_wait`` (``submit`` to the batcher taking the request),
   ``serve.collect``, ``serve.process`` (one length bucket's batch),

@@ -1,5 +1,5 @@
-"""CUDA kernels K1-K3 and K2's backward against their plain PyTorch
-versions, on the card.
+"""CUDA kernels K1-K3, K2's backward and CMGAN's K2r against their plain
+PyTorch versions, on the card.
 
 Marked ``cuda``: each test skips where there is no CUDA device. The card's
 machine has no JAX, so run this file without the suite's conftest:
@@ -14,9 +14,12 @@ tensor's largest magnitude, or of 1 where that is smaller (at N = 1 the
 true dq and dk are 0, dS = P (dP - Delta) with P = 1 and Delta = dP, and
 both sides hold rounding residue): fp32 sums of up to 448 products in
 another order, and the weights recomputed from the forward's log-sum-exp
-rather than a two-pass softmax.
+rather than a two-pass softmax. K2r: 5e-5 at q, k and E of N(0, 1)
+(logits of O(10) through a softmax over up to 1,001 keys, 3xTF32 products in
+another order; an H100 read 1.7e-5 against float64).
 """
 
+import copy
 import json
 
 import numpy as np
@@ -310,7 +313,8 @@ def test_train_step_cuda_matches_cpu(mode, mask_padding, dev):
             torch.cuda.synchronize()
             assert {k: r.launches for k, r in kernels.KERNELS.items()} == {
                 "stft_mag": 2, "attention_fwd": 2, "attention_bwd": 2, "istft_polar": 0,
-                "stft_dft": 0, "istft_dft": 0, "global_sq_norm": 1, "adam_update": 0}
+                "stft_dft": 0, "istft_dft": 0, "global_sq_norm": 1, "adam_update": 0,
+                "attention_relpos": 0}
         res[device] = ({k: float(v) for k, v in metrics.items()}, cap.grads,
                        {k: v.cpu() for k, v in model.state_dict().items() if "running" in k})
     (lc, gc, sc), (lp, gp, sp) = res["cuda"], res["cpu"]
@@ -428,6 +432,7 @@ def test_enhancer_cuda_matches_cpu(dev, gen):
     # at 512/128 K1g and K3g launch nothing, and serving runs no optimizer
     assert launched.pop("stft_dft") == launched.pop("istft_dft") == 0
     assert launched.pop("global_sq_norm") == launched.pop("adam_update") == 0
+    assert launched.pop("attention_relpos") == 0  # CMGAN's kernel
     assert launched.pop("attention_bwd") == 0 and min(launched.values()) >= 1
     for a, b in zip(out, ref):
         assert a.shape == b.shape
@@ -743,7 +748,8 @@ def test_export_program_on_cuda_holds_the_kernel_ops(io_dtype, dev, tmp_path):
     targets = [str(n.target) for n in program.graph.nodes if n.op == "call_function"]
     calls = {name: targets.count(f"sevit.{name}.default") for name in kernels.KERNELS}
     assert calls == {"stft_mag": 1, "attention_fwd": 2, "attention_bwd": 0, "istft_polar": 1,
-                     "stft_dft": 0, "istft_dft": 0, "global_sq_norm": 0, "adam_update": 0}
+                     "stft_dft": 0, "istft_dft": 0, "global_sq_norm": 0, "adam_update": 0,
+                     "attention_relpos": 0}
     assert not [t for t in targets if "softmax" in t or "matmul" in t or t.startswith("aten.cos")]
     with torch.inference_mode():
         want = core(x, lengths)
@@ -799,7 +805,8 @@ def test_bench_prints_one_json_line_on_cuda(dev, capsys):
     assert line["launches_per_step"] == {"stft_mag": 1.0, "attention_fwd": 6.0,
                                          "attention_bwd": 0.0, "istft_polar": 1.0,
                                          "stft_dft": 0.0, "istft_dft": 0.0,
-                                         "global_sq_norm": 0.0, "adam_update": 0.0}
+                                         "global_sq_norm": 0.0, "adam_update": 0.0,
+                                         "attention_relpos": 0.0}
 
 
 # (n_fft, hop, win, pad_mode): the geometries K1 and K3 do not all take
@@ -884,4 +891,60 @@ def test_enhancer_at_400_100_cuda_matches_cpu(dev, gen):
     assert {n: k.launches for n, k in kernels.KERNELS.items() if k.launches} == {
         "stft_mag": 1, "attention_fwd": 2, "istft_polar": 1}
     for a, b in zip(out, ref):
+        assert a.shape == b.shape and float(np.abs(a - b).max()) < 2e-4
+
+
+@pytest.mark.parametrize("n", [101, 401, 1001])
+@pytest.mark.parametrize("mask_kind", ["none", "prefix", "gappy"])
+def test_relpos_kernel_matches_plain(n, mask_kind, dev, gen):
+    """K2r at D = 16 against its plain version (the published einsums) in
+    float64, past the clamp (P = 512 at N = 1001, P = 20 beside it). Masks:
+    each row a prefix (row 0 keeps none and averages V, the last keeps
+    all), or keys kept at random; the offsets stay the keys' positions."""
+    g, h, d = 3, 4, 16
+    q, k, v = (torch.randn(g, h, n, d, generator=gen).to(dev) for _ in range(3))
+    mask = None
+    if mask_kind == "prefix":
+        lens = torch.tensor([0, n // 3, n])
+        mask = (torch.arange(n)[None, :] < lens[:, None]).to(dev)
+    elif mask_kind == "gappy":
+        mask = (torch.rand(g, n, generator=gen) < 0.3).to(dev)
+    for p in (512, 20):
+        e = torch.randn(2 * p + 1, d, generator=gen).to(dev)
+        before = kernels.KERNELS["attention_relpos"].launches
+        with torch.no_grad():
+            o = cuda_attention.attention_relpos(q, k, v, e, p, scale=0.25, mask=mask)
+        assert kernels.KERNELS["attention_relpos"].launches == before + 1
+        r = cuda_attention.attention_relpos_plain(q.double(), k.double(), v.double(), e.double(),
+                                                  p, scale=0.25, mask=mask)
+        assert float((o.double() - r).abs().max()) < 5e-5
+
+
+def test_relpos_kernel_resources(dev):
+    """Three blocks an SM at the time attention's 1,024 keys, no spill."""
+    info = cuda_attention.relpos_kernel_info(16, 1024)
+    assert info["blocks_per_sm"] >= 3 and info["local_bytes"] == 0, info
+
+
+def test_cmgan_enhancer_cuda_matches_cpu_and_launches_k1_k2r_k3(dev):
+    """CMGAN at its published widths (the benchmark's seeded weights) on
+    two clips: cuda against cpu within 2e-4 (fp32 through ~60 layers, as the
+    HybridViT's waveforms); a batch launches K1 once, K2r 8 times (two
+    conformers a block, four blocks), K3 once and nothing else."""
+    from portbench.traffic import offline_cmgan
+
+    config = json.loads(open("portbench/configs/cmgan.json").read())
+    port = {"model": config["model"], "audio": config["audio"]}
+    rng = np.random.default_rng(3)
+    wavs = [(0.1 * rng.standard_normal(n)).astype(np.float32) for n in (16000, 23000)]
+    outs = {}
+    cpu_model, _ = offline_cmgan.build_model(config, 5, "cpu")  # one draw for both devices
+    for device in ("cpu", dev):
+        model = copy.deepcopy(cpu_model).to(device)
+        kernels.reset_launch_counts()
+        outs[str(device)] = AudioEnhancer(model, port, device=device, buckets=(256, 512),
+                                          mask_padding=True).enhance_batch(wavs)
+    launched = {n: k.launches for n, k in kernels.KERNELS.items() if k.launches}
+    assert launched == {"stft_mag": 1, "attention_relpos": 8, "istft_polar": 1}
+    for a, b in zip(outs["cuda"], outs["cpu"]):
         assert a.shape == b.shape and float(np.abs(a - b).max()) < 2e-4
