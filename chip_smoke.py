@@ -264,6 +264,14 @@ which raises on failure:
     and its bound; a CMGAN batch of 32 x 4 s clips at the published widths
     (the benchmark's seeded weights) through ``AudioEnhancer``: K1 1, K2r 8,
     K3 1 and K2 0 launches, two clips cuda vs cpu within ``TOL_WAVE``.
+    ``add_layer_norm`` (the conformers' residual add and LayerNorm) against
+    its plain version in fp32 and float64 at 33, 303 and 9,409 rows, delta
+    as rows and channel-first, the epilogue on and off, within
+    ``TOL_ADD_NORM``; its per-call and device time at [32 x 101 x 819, 64]
+    (the attention's and the convolution's boundary) beside ATen's add and
+    ``layer_norm`` and its bytes bound; the CMGAN batch launches it 40
+    times, and its device time there a launch, with the batch's ten
+    largest device functions.
 
 ``python3 chip_smoke.py --cards N`` (a machine with N >= 2 cards) builds the
 kernels and runs phase 11 alone over NCCL, one rank a card: N data ranks,
@@ -292,7 +300,8 @@ phase 16 batch at 400/100/400, ``dccrn_serve_launches`` in one at
 512/100/400, ``geometry_train_launches`` in one phase 16 train step at
 400/100/400, ``geometry_gl_launches`` in phase 16's Griffin-Lim call at
 4096/1024, ``cmgan_serve_launches`` in phase 17's CMGAN batch; K2r's
-times under ``time`` and ``freq``; K1's and K3's times at 400/100 and 320/160 and K3g's at its
+times under ``time`` and ``freq``, ``add_layer_norm``'s under ``rows`` and
+``channels_first``; K1's and K3's times at 400/100 and 320/160 and K3g's at its
 other geometries under ``at_<geometry>``; the optimizer kernels' times and
 errors from phase 7b at the 28M parameter set, the 168M set's under
 ``at_hvit168m``, and ``adam_update``'s host ms a call by set, its checks
@@ -378,8 +387,9 @@ NO_DFT = {"stft_dft": 0, "istft_dft": 0}
 # update (a table of at most 512 tensors); serving launches neither
 OPT_STEP = {"global_sq_norm": 2, "adam_update": 1}
 NO_OPT = {"global_sq_norm": 0, "adam_update": 0}
-# CMGAN's relative-position attention (K2r): the HybridViT's paths launch none
-NO_RELPOS = {"attention_relpos": 0}
+# CMGAN's kernels, K2r and its conformers' add_layer_norm: the HybridViT's
+# paths launch none
+NO_CMGAN = {"attention_relpos": 0, "add_layer_norm": 0}
 # the benchmark's models, at whose parameter sets phase 7b checks and times
 # the optimizer's kernels
 OPT_CONFIGS = ("hvit28m", "hvit168m")
@@ -1170,7 +1180,7 @@ def training(dev: torch.device, smi: str, rng: np.random.Generator, g: torch.Gen
     if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
         raise AssertionError(f"the full-width loss is not finite and falling: {losses}")
     want = {"stft_mag": 2, "attention_fwd": 6, "attention_bwd": 6, "istft_polar": 0, **NO_DFT,
-            **NO_RELPOS, **OPT_STEP}
+            **NO_CMGAN, **OPT_STEP}
     if train_launches != {k: TRAIN_STEPS * c for k, c in want.items()}:
         raise AssertionError(f"train steps' launches {train_launches}, not {want} a step")
     if eval_launches != dict(want, attention_bwd=0, **NO_OPT) or not np.isfinite(val["total"]):
@@ -1978,7 +1988,7 @@ def mesh(dev: torch.device, smi: str, rng: np.random.Generator, enhancer, wavs: 
     print(f"{ranks_b} ranks, full width: losses {[[f'{x:.6f}' for x in t['losses']] for t in train]}; "
           f"launches per rank per step {rank_steps}", flush=True)
     want = {"stft_mag": 2, "attention_fwd": 6, "attention_bwd": 6, "istft_polar": 0, **NO_DFT,
-            **NO_RELPOS, **OPT_STEP}
+            **NO_CMGAN, **OPT_STEP}
     if (any(t["losses"] != train[0]["losses"] for t in train)
             or not np.isfinite(train[0]["losses"]).all()
             or any(t["launches"] != {k: TRAIN_MESH_STEPS * c for k, c in want.items()}
@@ -2045,7 +2055,7 @@ def mesh(dev: torch.device, smi: str, rng: np.random.Generator, enhancer, wavs: 
                     (tp[0]["metrics"], tp[0]["grads"], tp[0]["stats"]), ref, names)
     # the clip's norm under TP is the shards' squares all-reduced, not global_sq_norm
     want_tp = {"stft_mag": 2, "attention_fwd": 12, "attention_bwd": 12, "istft_polar": 0,
-               **NO_DFT, **NO_RELPOS, "global_sq_norm": 0, "adam_update": 1}
+               **NO_DFT, **NO_CMGAN, "global_sq_norm": 0, "adam_update": 1}
     if fwd_err > tol_forward or any(t["heads"] != [SCALED["num_heads"] // 2] for t in tp) or any(
             t["launches"] != want_tp for t in tp):
         raise AssertionError("tensor parallelism: output, heads or launches wrong")
@@ -2097,7 +2107,7 @@ def mesh(dev: torch.device, smi: str, rng: np.random.Generator, enhancer, wavs: 
           f"{cli.returncode}, {cli.stderr.strip().splitlines()[-1:]}", flush=True)
     if (wave_err > TOL_WAVE or len(got) != len(out)
             or serve_launches != {"stft_mag": 1, "attention_fwd": 6, "attention_bwd": 0,
-                                  "istft_polar": 1, **NO_DFT, **NO_RELPOS, **NO_OPT}):
+                                  "istft_polar": 1, **NO_DFT, **NO_CMGAN, **NO_OPT}):
         raise AssertionError("the mesh enhancer differs from one device or skipped a kernel")
     if cli.returncode == 0 or refused not in cli.stderr:
         raise AssertionError(f"enhance --data-parallel {visible + 1} was not refused: {cli.stderr}")
@@ -2551,7 +2561,7 @@ def exported(dev: torch.device, smi: str, enhancer, wavs: list, slice_ms: float,
     phase("export: the serving core and the bf16 entry on cuda, the ops' host cost, the demo")
     t_phase = time.perf_counter()
     serving = {"stft_mag": 1, "attention_fwd": 6, "attention_bwd": 0, "istft_polar": 1,
-               **NO_DFT, **NO_RELPOS, **NO_OPT}
+               **NO_DFT, **NO_CMGAN, **NO_OPT}
     # phase 5's batch as enhance_batch_async pads it: PCM16 [32, 49024] and lengths
     wav_len = enhancer._padded_len(max(len(w) for w in wavs))
     batch = np.zeros((len(wavs), wav_len), np.int16)
@@ -2881,9 +2891,9 @@ def quality_tools(smi: str) -> dict:
 # differences add up to the full prefix by construction); tools.bench's
 # device core on cuda against the same core on the cpu at TOL_WAVE.
 INFER_LAUNCHES = {"stft_mag": 1, "attention_fwd": 6, "attention_bwd": 0, "istft_polar": 1,
-                  **NO_DFT, **NO_RELPOS, **NO_OPT}
+                  **NO_DFT, **NO_CMGAN, **NO_OPT}
 TRAIN_LAUNCHES = {"stft_mag": 2, "attention_fwd": 6, "attention_bwd": 6, "istft_polar": 0,
-                  **NO_DFT, **NO_RELPOS, **OPT_STEP}
+                  **NO_DFT, **NO_CMGAN, **OPT_STEP}
 TOL_FLOP_COUNT = 0.02
 TOL_STAGES_VS_BENCH = 0.25
 BENCH_CPU_ROWS = 4  # rows of the device batch run again on the cpu (rows are independent)
@@ -3439,6 +3449,9 @@ def geometry_times(serve_cfg: dict, smi: str) -> dict:
 
 
 TOL_RELPOS = 5e-5  # K2r vs float64 einsums at logits of O(10) (tests/test_torch_cuda.py)
+# add_layer_norm's output vs its plain version in fp32 and float64: a
+# LayerNorm of 64 values of O(1) summed in another order (tests/test_torch_cuda.py)
+TOL_ADD_NORM = 1e-5
 
 
 def profiled_ms(fn, inputs, times: int = 1) -> float | None:
@@ -3473,7 +3486,8 @@ def cmgan(dev: torch.device, smi: str, rng: np.random.Generator) -> dict:
         cuda_attention as ca, kernels,
     )
 
-    phase("cmgan: K2r against the published einsums and timed; a CMGAN batch on the path")
+    phase("cmgan: K2r against the published einsums and timed, add_layer_norm against ATen and "
+          "timed; a CMGAN batch on the path")
     t_phase = time.perf_counter()
     g = torch.Generator(device=dev).manual_seed(17)
     errs = []
@@ -3535,6 +3549,7 @@ def cmgan(dev: torch.device, smi: str, rng: np.random.Generator) -> dict:
               f"{smi}", flush=True)
         del inputs
         torch.cuda.empty_cache()
+    norm_errs, norm_ms = add_norm_kernel(dev, smi, g)
 
     from portbench.traffic.offline_cmgan import build_model
 
@@ -3551,6 +3566,14 @@ def cmgan(dev: torch.device, smi: str, rng: np.random.Generator) -> dict:
         outs[device.type] = enh.enhance_batch(batch)
         if device.type == "cuda":
             launches = launch_counts()
+            times = device_times(lambda: enh.enhance_batch(batch))
+    norm_ms["rows"]["path_device_ms"] = kernel_ms(times, "add_layer_norm") / 40
+    top = sorted(times.items(), key=lambda kv: -kv[1])[:10]
+    busy = sum(times.values())
+    print(f"CMGAN batch device time (profiler): busy {busy:.2f} ms; add_layer_norm "
+          f"{kernel_ms(times, 'add_layer_norm'):.3f} ms, {norm_ms['rows']['path_device_ms']:.4f} "
+          f"ms a launch; largest: {[(k[:70], round(v, 3), f'{100 * v / busy:.1f}%') for k, v in top]}",
+          flush=True)
     err = max(float(np.abs(a - b).max()) for a, b in zip(outs["cuda"], outs["cpu"]))
     peak = max(float(np.abs(o).max()) for o in outs["cpu"])
     print(f"CMGAN batch of {CMGAN_ROWS} x 4 s at the published widths (the benchmark's weights): "
@@ -3558,9 +3581,89 @@ def cmgan(dev: torch.device, smi: str, rng: np.random.Generator) -> dict:
           f"err {err:.3g} (tolerance {TOL_WAVE}; outputs' peak {peak:.3g}); phase "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
     if {n: c for n, c in launches.items() if c} != {"stft_mag": 1, "attention_relpos": 8,
+                                                    "add_layer_norm": 40,
                                                     "istft_polar": 1} or err > TOL_WAVE:
         raise AssertionError("the CMGAN batch launched other kernels or differs from the cpu")
-    return {"errs": errs, "ms": ms, "launches": launches}
+    return {"errs": errs, "ms": ms, "launches": launches, "norm_errs": norm_errs,
+            "norm_ms": norm_ms}
+
+
+def add_norm_kernel(dev: torch.device, smi: str, g: torch.Generator) -> tuple[list, dict]:
+    """Phase 17, ``add_layer_norm``: against its plain version in fp32 (the
+    stored sum equal, the output within ``TOL_ADD_NORM``) and float64 (the
+    output) at 33, 303 and 9,409 rows at each boundary's arguments; then
+    per-call and device times at [32 x 101 x 819, 64], the attention's
+    boundary (delta as rows) and the convolution's (channel-first), beside
+    ATen's add and ``layer_norm`` on the same tensors (the plain version,
+    two launches) and the bound: x and delta read, the sum and the output
+    written, at 3.35 TB/s. Returns the errors and the times."""
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.ops import (
+        cuda_layer_norm as ln,
+    )
+
+    def draw(groups, n):
+        x, d, r = (torch.randn(groups, n, 64, generator=g, device=dev) for _ in range(3))
+        w = 1 + 0.1 * torch.randn(64, generator=g, device=dev)
+        return x, d, r, w, 0.1 * torch.randn(64, generator=g, device=dev)
+
+    errs = []
+    for groups, n in ((1, 33), (3, 101), (97, 97)):
+        x, d, r, w, b = draw(groups, n)
+        for cf, res, scale in ((False, None, 0.5), (False, None, 1.0), (True, None, 1.0),
+                               (False, r, 0.5)):
+            dd = d.transpose(1, 2).contiguous() if cf else d
+            with torch.no_grad():
+                s, h = ln.add_layer_norm(x, dd, w, b, 1e-5, scale=scale, channels_first=cf,
+                                         residual=res, keep_sum=True)
+            want_s, want_h = ln.add_layer_norm_plain(x, dd, w, b, 1e-5, scale=scale,
+                                                     channels_first=cf, residual=res)
+            _, h64 = ln.add_layer_norm_plain(
+                x.double(), dd.double(), w.double(), b.double(), 1e-5, scale=scale,
+                channels_first=cf, residual=None if res is None else res.double())
+            if not torch.equal(s, want_s):
+                raise AssertionError(f"add_layer_norm's sum differs from the plain version's "
+                                     f"at {groups}x{n}, channels_first={cf}, scale={scale}")
+            errs.append(max(float((h - want_h).abs().max()),
+                            float((h.double() - h64).abs().max())))
+    print(f"add_layer_norm vs its plain version, fp32 and float64: max abs err {max(errs):.3g} "
+          f"(tolerance {TOL_ADD_NORM}); sums equal", flush=True)
+    if max(errs) > TOL_ADD_NORM:
+        raise AssertionError("add_layer_norm differs from its plain version")
+
+    groups, n = CMGAN_ROWS * 101, CMGAN_FRAMES
+    nbytes = 4 * (4.0 * groups * n * 64)  # x, delta in; the sum, the output out
+    b_ms, by = bound(0.0, nbytes, FP32_PEAK)
+    ms = {}
+    for what, cf in (("rows", False), ("channels_first", True)):
+        inputs = []
+        for _ in range(2):
+            x, d, _, w, b = draw(groups, n)
+            inputs.append((x, d.transpose(1, 2).contiguous() if cf else d, w, b))
+            del x, d
+
+        def kern(x, d, w, b, cf=cf):
+            with torch.no_grad():
+                return ln.add_layer_norm(x, d, w, b, 1e-5, channels_first=cf, keep_sum=True)
+
+        def aten(x, d, w, b, cf=cf):
+            s = (d.transpose(1, 2) if cf else d) + x
+            return s, F.layer_norm(s, (64,), w, b, 1e-5)
+
+        k1, a1, a2, k2 = (median_ms(f, inputs) for f in (kern, aten, aten, kern))
+        per, lib = min(k1, k2), min(a1, a2)
+        dev_ms, lib_dev = profiled_ms(kern, inputs), profiled_ms(aten, inputs)
+        timed = dev_ms or per
+        ms[what] = {"ms_per_call": per, "device_ms": dev_ms, "library_ms": lib,
+                    "library_device_ms": lib_dev, "bound_ms": b_ms, "bound_by": by,
+                    "bound_share_device": b_ms / timed}
+        print(f"add_layer_norm at [{groups * n}, 64], delta {what}: per call {per:.4f} ms "
+              f"(device {ms_or_not(dev_ms)}); ATen's add + layer_norm {lib:.4f} ms (device "
+              f"{ms_or_not(lib_dev)}); bound {b_ms:.4f} ms by {by} ({nbytes / 1e9:.3f} GB), "
+              f"{100 * b_ms / timed:.1f}% of it in {'device' if dev_ms else 'per-call'} time; "
+              f"{smi}", flush=True)
+        del inputs
+        torch.cuda.empty_cache()
+    return errs, ms
 
 
 def main() -> int:
@@ -3875,6 +3978,8 @@ def main() -> int:
     cmgan_run = cmgan(dev, smi, rng)
     errs["attention_relpos"] = cmgan_run["errs"]
     ms["attention_relpos"] = cmgan_run["ms"]
+    errs["add_layer_norm"] = cmgan_run["norm_errs"]
+    ms["add_layer_norm"] = cmgan_run["norm_ms"]
     errs.update(opt_run["errs"])
     ms.update(opt_run["ms"])
     errs["attention_bwd"] = train["errs"]

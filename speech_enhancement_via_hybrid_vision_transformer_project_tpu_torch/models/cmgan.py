@@ -21,8 +21,12 @@ time, and the frequency attention and the sub-pixel convolutions act within
 a frame, so a clip's output does not depend on the bucket it is padded to.
 
 The attention is relative-position attention through
-``ops.cuda_attention.attention_relpos`` (kernel K2r on CUDA), forward only:
-the model refuses training mode.
+``ops.cuda_attention.attention_relpos`` (kernel K2r on CUDA), and each of a
+conformer block's sublayer boundaries (the residual add, the half step's
+scale, the next LayerNorm and, at the block's end, TSCB's outer residual)
+one call of ``ops.cuda_layer_norm.add_layer_norm`` (kernel
+``add_layer_norm`` on CUDA; on the CPU the unfused ATen calls), both
+forward only: the model refuses training mode.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.cuda_attention import attention_relpos
+from ..ops.cuda_layer_norm import add_layer_norm
 from ..utils import tracing
 
 
@@ -182,36 +187,46 @@ class ConformerConvModule(nn.Module):
             nn.Dropout(dropout),
         )
 
-    def forward(self, x, valid=None):
-        """``valid [G, 1, N]`` float: the positions kept; the others are
-        zeroed before the depthwise convolution."""
+    def forward(self, h, valid=None):
+        """The module after its LayerNorm (``net[0]``, which the block applies
+        at its sublayer boundary) and before its last transpose (``net[8]``):
+        ``h [G, N, C]``, normalised, to ``[G, C, N]``. ``valid [G, 1, N]``
+        float: the positions kept; the others are zeroed before the
+        depthwise convolution."""
         net = self.net
-        y = net[3](net[2](net[1](net[0](x))))
+        y = net[3](net[2](net[1](h)))
         if valid is not None:
             y = y * valid
-        for layer in net[4:]:
+        for layer in net[4:8]:
             y = layer(y)
-        return y
+        return net[9](y)
 
 
 class PreNorm(nn.Module):
+    """The authors' ``PreNorm``: ``fn`` after ``norm``, which the block
+    applies at its sublayer boundary."""
+
     def __init__(self, dim: int, fn: nn.Module):
         super().__init__()
         self.fn = fn
         self.norm = nn.LayerNorm(dim)
 
-    def forward(self, x, **kwargs):
-        return self.fn(self.norm(x), **kwargs)
-
 
 class Scale(nn.Module):
+    """The authors' ``Scale``: ``fn``'s output times ``scale``, which the
+    block applies at its sublayer boundary."""
+
     def __init__(self, scale: float, fn: nn.Module):
         super().__init__()
         self.fn = fn
         self.scale = scale
 
-    def forward(self, x, **kwargs):
-        return self.fn(x, **kwargs) * self.scale
+
+def _add_norm(x, delta, norm: nn.LayerNorm, **kw):
+    """One sublayer boundary, ``add_layer_norm`` with ``norm``'s parameters;
+    counts ``cmgan.add_norm_calls``."""
+    tracing.count("cmgan.add_norm_calls")
+    return add_layer_norm(x, delta, norm.weight, norm.bias, norm.eps, **kw)
 
 
 class ConformerBlock(nn.Module):
@@ -227,13 +242,19 @@ class ConformerBlock(nn.Module):
         self.ff2 = Scale(0.5, PreNorm(dim, FeedForward(dim, ff_mult, ff_dropout)))
         self.post_norm = nn.LayerNorm(dim)
 
-    def forward(self, x, mask=None, kept_keys=None):
-        x = self.ff1(x) + x
-        x = self.attn(x, mask=mask, kept_keys=kept_keys) + x
+    def forward(self, x, mask=None, kept_keys=None, residual=None):
+        """``post_norm(x3 + ff2(x3) / 2)`` (plus ``residual``, where given)
+        of ``x1 = x + ff1(x) / 2``, ``x2 = x1 + attn(x1)``, ``x3 = x2 +
+        conv(x2)``, each sublayer after its LayerNorm: five boundaries, each
+        one ``add_layer_norm`` call."""
+        ff1, attn, conv, ff2 = self.ff1, self.attn, self.conv, self.ff2
+        _, h = _add_norm(x, None, ff1.fn.norm)
+        x, h = _add_norm(x, ff1.fn.fn(h), attn.norm, scale=ff1.scale, keep_sum=True)
+        x, h = _add_norm(x, attn.fn(h, mask=mask, kept_keys=kept_keys), conv.net[0],
+                         keep_sum=True)
         valid = None if mask is None else mask[:, None, :].to(x.dtype)
-        x = self.conv(x, valid) + x
-        x = self.ff2(x) + x
-        return self.post_norm(x)
+        x, h = _add_norm(x, conv(h, valid), ff2.fn.norm, channels_first=True, keep_sum=True)
+        return _add_norm(x, ff2.fn.fn(h), self.post_norm, scale=ff2.scale, residual=residual)[1]
 
 
 class TSCB(nn.Module):
@@ -258,9 +279,9 @@ class TSCB(nn.Module):
         x_t = x_in.permute(0, 3, 2, 1).contiguous().view(b * f, t, c)
         mask = None if frames is None else frames[:, None, :].expand(b, f, t).reshape(b * f, t)
         kept = None if kept_frames is None else kept_frames * f
-        x_t = self.time_conformer(x_t, mask=mask, kept_keys=kept) + x_t
+        x_t = self.time_conformer(x_t, mask=mask, kept_keys=kept, residual=x_t)
         x_f = x_t.view(b, f, t, c).permute(0, 2, 1, 3).contiguous().view(b * t, f, c)
-        x_f = self.freq_conformer(x_f) + x_f
+        x_f = self.freq_conformer(x_f, residual=x_f)
         return x_f.view(b, t, f, c).permute(0, 3, 1, 2)
 
 

@@ -26,12 +26,14 @@ impl gives the outputs' shapes and dtypes from the arguments alone. The STFT
 kernels share two ops: ``sevit::stft_mag`` launches K1 (``stft_mag``) or K1g
 (``stft_dft``), ``sevit::istft_polar`` K3 (``istft_polar``) or K3g
 (``istft_dft``), as the STFT config decides (``cuda_stft.route``);
-``sevit::attention_relpos_fwd`` launches CMGAN's K2r (``attention_relpos``,
-a kernel that ports no TPU kernel: ``NO_TPU_KERNEL``). A meta tensor
-is refused rather than given shapes as if it had been computed. The ops are
-defined when ``cuda_stft`` and ``cuda_attention`` are imported (``import``
-of the port's ``ops`` package does both); a program that ``torch.export``
-saved needs them defined before it is loaded. The optimizer's kernels
+``sevit::attention_relpos_fwd`` launches CMGAN's K2r (``attention_relpos``)
+and ``sevit::add_layer_norm`` its conformers' residual add and LayerNorm
+(``add_layer_norm``), kernels that port no TPU kernel (``NO_TPU_KERNEL``).
+A meta tensor is refused rather than given shapes as if it had been
+computed. The ops are defined when ``cuda_stft``, ``cuda_attention`` and
+``cuda_layer_norm`` are imported (``import`` of the port's ``ops`` package
+does all three); a program that ``torch.export`` saved needs them defined
+before it is loaded. The optimizer's kernels
 (``global_sq_norm`` and ``adam_update``, one source) update tensor lists in
 place, belong to no exported program, and are called by their wrappers in
 ``cuda_optimizer`` without an op.
@@ -137,6 +139,14 @@ KERNELS = {
             # q, k, v, emb, key_mask, out, groups, heads, n, d, max_pos,
             # scale * log2(e), stream
             (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+        ),
+        # CMGAN's conformer sublayer boundaries: a residual add and a LayerNorm
+        Kernel(
+            "add_layer_norm", "sevit_add_layer_norm", "csrc/add_layer_norm.cu",
+            NO_TPU_KERNEL,
+            # x, delta, residual, gamma, beta, sum, out, groups, n, scale, eps,
+            # channels_first, stream
+            (_P,) * 7 + (_I, _I, _F, _F, _I, _P),
         ),
         # the optimizer's chain: XLA-compiled code in the JAX package, no Pallas
         Kernel(

@@ -45,7 +45,9 @@ The port's spans (children indented under their parent) and counters:
   ``cmgan.tscb`` (id: the block, 1-4) and ``cmgan.decoders``, each the
   host's enqueue of that part. Counters ``cmgan.true_frames`` and
   ``cmgan.padded_frames`` (a batch's valid frames and all of its frames,
-  where the caller gives the valid count from the host).
+  where the caller gives the valid count from the host), and
+  ``cmgan.add_norm_calls`` (the conformers' sublayer boundaries, one
+  ``add_layer_norm`` call each: 5 a conformer block, 40 a forward).
 * ``ops/cuda_attention.py``: counters ``attention.relpos_calls`` (K2r's op
   calls) and ``attention.relpos_pairs`` (the query-key pairs over kept keys
   given to it).

@@ -33,6 +33,7 @@ from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.models i
 )
 from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.ops import (
     cuda_attention,
+    cuda_layer_norm,
     kernels,
 )
 from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.tools import flops
@@ -350,6 +351,183 @@ def test_kernel_record_and_op():
     assert k.source == "csrc/attention_relpos.cu" and k.replaces == kernels.NO_TPU_KERNEL
     assert hasattr(torch.ops.sevit, "attention_relpos_fwd")
     assert cuda_attention.RELPOS_HEAD_DIMS == (16,)
+
+
+# --- the conformer sublayer boundary: add_layer_norm ---------------------------------
+
+
+def _boundary_inputs(g=3, n=37, c=64, seed=4):
+    gen = torch.Generator().manual_seed(seed)
+    x, delta, residual = (torch.randn(g, n, c, generator=gen) for _ in range(3))
+    norm = torch.nn.LayerNorm(c)
+    with torch.no_grad():
+        norm.weight.copy_(1 + 0.1 * torch.randn(c, generator=gen))
+        norm.bias.copy_(0.1 * torch.randn(c, generator=gen))
+    return x, delta, residual, norm
+
+
+@pytest.mark.parametrize("position", ["no_delta", "rows_half", "rows_one", "channels_first",
+                                      "epilogue"])
+def test_add_layer_norm_plain_is_the_unfused_sequence(position):
+    """The op's CPU impl at each of a block's five boundaries equals the
+    ATen calls the block made unfused (``Scale``'s product, the residual
+    add, ``nn.LayerNorm``, TSCB's outer add) bit for bit."""
+    x, delta, residual, norm = _boundary_inputs()
+    kw, want_s = {}, None
+    with torch.no_grad():
+        if position == "no_delta":
+            d = None
+            want_h = norm(x)
+        elif position == "rows_half":
+            d, kw = delta, dict(scale=0.5, keep_sum=True)
+            want_s = delta * 0.5 + x
+        elif position == "rows_one":
+            d, kw = delta, dict(keep_sum=True)
+            want_s = delta + x
+        elif position == "channels_first":
+            d = delta.transpose(1, 2).contiguous()  # [G, C, N], as the 1x1 conv leaves it
+            kw = dict(channels_first=True, keep_sum=True)
+            want_s = d.transpose(1, 2) + x
+        else:
+            d, kw = delta, dict(scale=0.5, residual=residual)
+            want_h = norm(delta * 0.5 + x) + residual
+        if want_s is not None:
+            want_h = norm(want_s)
+        s, h = cuda_layer_norm.add_layer_norm(x, d, norm.weight, norm.bias, norm.eps, **kw)
+    assert torch.equal(h, want_h)
+    if want_s is None:
+        assert s is None
+    else:
+        assert torch.equal(s, want_s) and s.is_contiguous()
+
+
+def _unfused_block(block, x, mask=None):
+    """``ConformerBlock.forward`` as it ran before the fused boundaries: five
+    LayerNorms, four residual adds and two half-step scales, each its own
+    ATen call."""
+    ff1, attn, conv, ff2 = block.ff1, block.attn, block.conv, block.ff2
+    x = ff1.fn.fn(ff1.fn.norm(x)) * ff1.scale + x
+    x = attn.fn(attn.norm(x), mask=mask) + x
+    net = conv.net
+    y = net[3](net[2](net[1](net[0](x))))
+    if mask is not None:
+        y = y * mask[:, None, :].to(x.dtype)
+    for layer in net[4:]:
+        y = layer(y)
+    x = y + x
+    x = ff2.fn.fn(ff2.fn.norm(x)) * ff2.scale + x
+    return block.post_norm(x)
+
+
+def _unfused_tscb(tscb, x_in, frames=None):
+    b, c, t, f = x_in.shape
+    x_t = x_in.permute(0, 3, 2, 1).contiguous().view(b * f, t, c)
+    mask = None if frames is None else frames[:, None, :].expand(b, f, t).reshape(b * f, t)
+    x_t = _unfused_block(tscb.time_conformer, x_t, mask) + x_t
+    x_f = x_t.view(b, f, t, c).permute(0, 2, 1, 3).contiguous().view(b * t, f, c)
+    x_f = _unfused_block(tscb.freq_conformer, x_f) + x_f
+    return x_f.view(b, t, f, c).permute(0, 3, 1, 2)
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["all_frames", "length_mask"])
+def test_block_and_tscb_equal_the_unfused_forward_bit_for_bit(drawn, masked):
+    """One ``ConformerBlock`` and a whole ``TSCB`` at the published widths
+    (the benchmark's weights) on the CPU: the fused boundaries give the
+    unfused forward's output exactly, with and without a length mask."""
+    model, _, _ = drawn
+    gen = torch.Generator().manual_seed(5)
+    x_in = torch.randn(2, 64, 23, 201, generator=gen)
+    frames = torch.arange(23)[None, :] < torch.tensor([[23], [11]]) if masked else None
+    block = model.TSCB_2.time_conformer
+    x_t = x_in.permute(0, 3, 2, 1).contiguous().view(2 * 201, 23, 64)
+    mask = None if frames is None else frames[:, None, :].expand(2, 201, 23).reshape(-1, 23)
+    with torch.no_grad():
+        assert torch.equal(block(x_t, mask=mask), _unfused_block(block, x_t, mask))
+        assert torch.equal(block(x_t, mask=mask, residual=x_t),
+                           _unfused_block(block, x_t, mask) + x_t)
+        got = model.TSCB_3(x_in, frames)
+        want = _unfused_tscb(model.TSCB_3, x_in, frames)
+    assert got.shape == want.shape == x_in.shape and torch.equal(got, want)
+
+
+def test_add_norm_calls_count_five_a_block_and_forty_a_forward(drawn):
+    model, _, _ = drawn
+
+    def calls(fn):
+        before = tracing.counters().get("cmgan.add_norm_calls", 0)
+        with torch.no_grad():
+            fn()
+        return tracing.counters()["cmgan.add_norm_calls"] - before
+
+    x = torch.randn(6, 17, 64)
+    assert calls(lambda: model.TSCB_1.freq_conformer(x)) == 5
+    assert calls(lambda: model(torch.randn(1, 2, 12, 201), torch.tensor([9]), 9)) == 40
+
+
+def test_add_layer_norm_refuses_a_gradient_and_what_it_does_not_take():
+    x, delta, residual, norm = _boundary_inputs()
+    with pytest.raises(RuntimeError, match="forward only"):
+        cuda_layer_norm.add_layer_norm(x, delta, norm.weight, norm.bias, norm.eps)
+    w, b = norm.weight.detach(), norm.bias.detach()
+    with pytest.raises(RuntimeError, match="forward only"):
+        cuda_layer_norm.add_layer_norm(x.requires_grad_(), None, w, b, 1e-5)
+    x = x.detach()
+    with pytest.raises(ValueError, match="delta"):
+        cuda_layer_norm.add_layer_norm(x, delta, w, b, 1e-5, channels_first=True)
+    with pytest.raises(ValueError, match="need a delta"):
+        cuda_layer_norm.add_layer_norm(x, None, w, b, 1e-5, keep_sum=True)
+    with pytest.raises(ValueError, match="residual"):
+        cuda_layer_norm.add_layer_norm(x, delta, w, b, 1e-5, residual=residual[:, :5])
+
+
+def test_add_layer_norm_op_passes_opcheck_on_the_cpu():
+    """Schema, fake impl against the plain outputs (shapes, strides, dtypes),
+    and dispatch, at each boundary's arguments."""
+    from torch.library import opcheck
+
+    x, delta, residual, norm = _boundary_inputs(2, 9)
+    w, b = norm.weight.detach(), norm.bias.detach()
+    cf = delta.transpose(1, 2).contiguous()
+    for args in ((x, None, w, b, 1e-5, 1.0, False, None, False),
+                 (x, delta, w, b, 1e-5, 0.5, False, None, True),
+                 (x, cf, w, b, 1e-5, 1.0, True, None, True),
+                 (x, delta, w, b, 1e-5, 0.5, False, residual, False)):
+        opcheck(cuda_layer_norm.add_layer_norm_op, args)
+
+
+def test_add_layer_norm_kernel_record_and_op():
+    k = kernels.KERNELS["add_layer_norm"]
+    assert k.source == "csrc/add_layer_norm.cu" and k.replaces == kernels.NO_TPU_KERNEL
+    assert k.entry == "sevit_add_layer_norm" and len(k.argtypes) == 13
+    assert hasattr(torch.ops.sevit, "add_layer_norm")
+    assert cuda_layer_norm.CHANNELS == CONFIG["model"]["channels"] == 64
+
+
+# the authors' names of one conformer block's parameters and buffers
+# (their checkpoint's keys under TSCB_i.time_conformer / freq_conformer)
+BLOCK_KEYS = {
+    "ff1.fn.norm.weight", "ff1.fn.norm.bias", "ff1.fn.fn.net.0.weight", "ff1.fn.fn.net.0.bias",
+    "ff1.fn.fn.net.3.weight", "ff1.fn.fn.net.3.bias",
+    "attn.norm.weight", "attn.norm.bias", "attn.fn.to_q.weight", "attn.fn.to_kv.weight",
+    "attn.fn.to_out.weight", "attn.fn.to_out.bias", "attn.fn.rel_pos_emb.weight",
+    "conv.net.0.weight", "conv.net.0.bias", "conv.net.2.weight", "conv.net.2.bias",
+    "conv.net.4.conv.weight", "conv.net.4.conv.bias", "conv.net.5.weight", "conv.net.5.bias",
+    "conv.net.5.running_mean", "conv.net.5.running_var", "conv.net.5.num_batches_tracked",
+    "conv.net.7.weight", "conv.net.7.bias",
+    "ff2.fn.norm.weight", "ff2.fn.norm.bias", "ff2.fn.fn.net.0.weight", "ff2.fn.fn.net.0.bias",
+    "ff2.fn.fn.net.3.weight", "ff2.fn.fn.net.3.bias",
+    "post_norm.weight", "post_norm.bias",
+}
+
+
+def test_state_dict_keys_are_the_authors():
+    model = create_model(PORT_CONFIG)
+    keys = set(model.state_dict())
+    for i in range(1, 5):
+        for which in ("time_conformer", "freq_conformer"):
+            pre = f"TSCB_{i}.{which}."
+            assert {k[len(pre):] for k in keys if k.startswith(pre)} == BLOCK_KEYS
+    assert len(keys) == 359
 
 
 def test_the_window_and_the_traced_slice_run_whole_passes(monkeypatch):

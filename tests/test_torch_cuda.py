@@ -16,7 +16,11 @@ both sides hold rounding residue): fp32 sums of up to 448 products in
 another order, and the weights recomputed from the forward's log-sum-exp
 rather than a two-pass softmax. K2r: 5e-5 at q, k and E of N(0, 1)
 (logits of O(10) through a softmax over up to 1,001 keys, 3xTF32 products in
-another order; an H100 read 1.7e-5 against float64).
+another order; an H100 read 1.7e-5 against float64). ``add_layer_norm``:
+the stored sum equal to the plain version's (the same two roundings), the
+normalised output within 1e-5 of the plain version in fp32 and in float64
+(a LayerNorm of 64 values of O(1) to outputs of O(1)-O(5): the mean and
+variance summed in another order, a few ulp of the output).
 """
 
 import copy
@@ -314,7 +318,7 @@ def test_train_step_cuda_matches_cpu(mode, mask_padding, dev):
             assert {k: r.launches for k, r in kernels.KERNELS.items()} == {
                 "stft_mag": 2, "attention_fwd": 2, "attention_bwd": 2, "istft_polar": 0,
                 "stft_dft": 0, "istft_dft": 0, "global_sq_norm": 1, "adam_update": 0,
-                "attention_relpos": 0}
+                "attention_relpos": 0, "add_layer_norm": 0}
         res[device] = ({k: float(v) for k, v in metrics.items()}, cap.grads,
                        {k: v.cpu() for k, v in model.state_dict().items() if "running" in k})
     (lc, gc, sc), (lp, gp, sp) = res["cuda"], res["cpu"]
@@ -432,7 +436,7 @@ def test_enhancer_cuda_matches_cpu(dev, gen):
     # at 512/128 K1g and K3g launch nothing, and serving runs no optimizer
     assert launched.pop("stft_dft") == launched.pop("istft_dft") == 0
     assert launched.pop("global_sq_norm") == launched.pop("adam_update") == 0
-    assert launched.pop("attention_relpos") == 0  # CMGAN's kernel
+    assert launched.pop("attention_relpos") == launched.pop("add_layer_norm") == 0  # CMGAN's
     assert launched.pop("attention_bwd") == 0 and min(launched.values()) >= 1
     for a, b in zip(out, ref):
         assert a.shape == b.shape
@@ -749,7 +753,7 @@ def test_export_program_on_cuda_holds_the_kernel_ops(io_dtype, dev, tmp_path):
     calls = {name: targets.count(f"sevit.{name}.default") for name in kernels.KERNELS}
     assert calls == {"stft_mag": 1, "attention_fwd": 2, "attention_bwd": 0, "istft_polar": 1,
                      "stft_dft": 0, "istft_dft": 0, "global_sq_norm": 0, "adam_update": 0,
-                     "attention_relpos": 0}
+                     "attention_relpos": 0, "add_layer_norm": 0}
     assert not [t for t in targets if "softmax" in t or "matmul" in t or t.startswith("aten.cos")]
     with torch.inference_mode():
         want = core(x, lengths)
@@ -806,7 +810,7 @@ def test_bench_prints_one_json_line_on_cuda(dev, capsys):
                                          "attention_bwd": 0.0, "istft_polar": 1.0,
                                          "stft_dft": 0.0, "istft_dft": 0.0,
                                          "global_sq_norm": 0.0, "adam_update": 0.0,
-                                         "attention_relpos": 0.0}
+                                         "attention_relpos": 0.0, "add_layer_norm": 0.0}
 
 
 # (n_fft, hop, win, pad_mode): the geometries K1 and K3 do not all take
@@ -930,7 +934,8 @@ def test_cmgan_enhancer_cuda_matches_cpu_and_launches_k1_k2r_k3(dev):
     """CMGAN at its published widths (the benchmark's seeded weights) on
     two clips: cuda against cpu within 2e-4 (fp32 through ~60 layers, as the
     HybridViT's waveforms); a batch launches K1 once, K2r 8 times (two
-    conformers a block, four blocks), K3 once and nothing else."""
+    conformers a block, four blocks), ``add_layer_norm`` 40 times (five
+    boundaries a conformer), K3 once and nothing else."""
     from portbench.traffic import offline_cmgan
 
     config = json.loads(open("portbench/configs/cmgan.json").read())
@@ -945,6 +950,89 @@ def test_cmgan_enhancer_cuda_matches_cpu_and_launches_k1_k2r_k3(dev):
         outs[str(device)] = AudioEnhancer(model, port, device=device, buckets=(256, 512),
                                           mask_padding=True).enhance_batch(wavs)
     launched = {n: k.launches for n, k in kernels.KERNELS.items() if k.launches}
-    assert launched == {"stft_mag": 1, "attention_relpos": 8, "istft_polar": 1}
+    assert launched == {"stft_mag": 1, "attention_relpos": 8, "add_layer_norm": 40,
+                        "istft_polar": 1}
     for a, b in zip(outs["cuda"], outs["cpu"]):
         assert a.shape == b.shape and float(np.abs(a - b).max()) < 2e-4
+
+
+TOL_ADD_NORM = 1e-5
+
+
+def _add_norm_inputs(g, n, gen, dev):
+    x, delta, residual = (torch.randn(g, n, 64, generator=gen).to(dev) for _ in range(3))
+    w = (1 + 0.1 * torch.randn(64, generator=gen)).to(dev)
+    b = (0.1 * torch.randn(64, generator=gen)).to(dev)
+    return x, delta, residual, w, b
+
+
+def _check_add_norm(x, delta, residual, w, b, *, layout, epilogue):
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.ops import (
+        cuda_layer_norm as ln,
+    )
+
+    cf = layout == "channels_first"
+    d = delta.transpose(1, 2).contiguous() if cf else delta
+    r = residual if epilogue else None
+    before = kernels.KERNELS["add_layer_norm"].launches
+    with torch.no_grad():
+        s, h = ln.add_layer_norm(x, d, w, b, 1e-5, scale=0.5, channels_first=cf, residual=r,
+                                 keep_sum=True)
+    torch.cuda.synchronize()
+    assert kernels.KERNELS["add_layer_norm"].launches == before + 1
+    want_s, want_h = ln.add_layer_norm_plain(x, d, w, b, 1e-5, scale=0.5, channels_first=cf,
+                                             residual=r)
+    assert torch.equal(s, want_s)
+    assert float((h - want_h).abs().max()) <= TOL_ADD_NORM
+    del want_s, want_h
+    _, want64 = ln.add_layer_norm_plain(
+        x.double(), d.double(), w.double(), b.double(), 1e-5, scale=0.5, channels_first=cf,
+        residual=None if r is None else r.double())
+    assert float((h.double() - want64).abs().max()) <= TOL_ADD_NORM
+
+
+@pytest.mark.parametrize("g,n", [(1, 1), (2, 1), (1, 3), (1, 33), (3, 101)])
+@pytest.mark.parametrize("layout", ["rows", "channels_first"])
+@pytest.mark.parametrize("epilogue", [False, True], ids=["no_residual", "residual"])
+def test_add_layer_norm_kernel_matches_plain(g, n, layout, epilogue, dev, gen):
+    """The kernel against its plain version at 1, 2, 3, 33 and 303 rows,
+    delta as rows or channel-first (N = 33 and 101: not a multiple of the
+    32-position tile), the epilogue on and off; the no-delta launch too."""
+    x, delta, residual, w, b = _add_norm_inputs(g, n, gen, dev)
+    _check_add_norm(x, delta, residual, w, b, layout=layout, epilogue=epilogue)
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.ops import (
+        cuda_layer_norm as ln,
+    )
+
+    with torch.no_grad():
+        s, h = ln.add_layer_norm(x, None, w, b, 1e-5)
+    assert s is None
+    assert float((h - torch.nn.functional.layer_norm(x, (64,), w, b, 1e-5)).abs().max()) \
+        <= TOL_ADD_NORM
+
+
+@pytest.mark.parametrize("layout", ["rows", "channels_first"])
+def test_add_layer_norm_kernel_at_the_cells_largest_activation(layout, dev):
+    """[32 x 101 x 1638, 64]: the time conformer's rows at the 1638-frame
+    bucket, 339M floats a tensor (offsets past 2^31 bytes), with the
+    epilogue."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    g, n = 32 * 101, 1638
+    x, delta, residual = (torch.randn(g, n, 64, generator=gen, device=dev) for _ in range(3))
+    w = 1 + 0.1 * torch.randn(64, generator=gen, device=dev)
+    b = 0.1 * torch.randn(64, generator=gen, device=dev)
+    _check_add_norm(x, delta, residual, w, b, layout=layout, epilogue=True)
+    del x, delta, residual
+    torch.cuda.empty_cache()
+
+
+def test_add_layer_norm_kernel_refuses_a_gradient(dev, gen):
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.ops import (
+        cuda_layer_norm as ln,
+    )
+
+    x, delta, _, w, b = _add_norm_inputs(2, 5, gen, dev)
+    before = kernels.KERNELS["add_layer_norm"].launches
+    with pytest.raises(RuntimeError, match="forward only"):
+        ln.add_layer_norm(x, delta.requires_grad_(), w, b, 1e-5)
+    assert kernels.KERNELS["add_layer_norm"].launches == before

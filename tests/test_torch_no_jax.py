@@ -97,8 +97,9 @@ def test_wrappers_refuse_other_devices():
 XLA_REPLACED = {"global_sq_norm": "chain_with_clip", "adam_update": "chain_with_clip"}
 
 
-# kernels that port no TPU kernel: CMGAN's K2r (the JAX package has no CMGAN)
-NO_TPU_KERNEL = {"attention_relpos"}
+# kernels that port no TPU kernel: CMGAN's K2r and its conformers' residual
+# add and LayerNorm (the JAX package has no CMGAN)
+NO_TPU_KERNEL = {"attention_relpos", "add_layer_norm"}
 
 
 def test_kernel_registry_names_sources_and_tpu_kernels():
