@@ -8,7 +8,8 @@ CUDA, or K3g) -> output denorm, optionally with PCM16 in and out. The STFT
 geometry is the config's ``audio`` section.
 
 CMGAN's generator (``models.cmgan.TSCNet``) has its own front and back end
-in the same launch (``_cmgan_core``): each row scaled to unit RMS over its
+(``_cmgan_core``; the enhancer binds one core or the other when it is
+built): each row scaled to unit RMS over its
 true length, the STFT (K1), the complex spectrum power-compressed
 (``|X|^0.3`` at the noisy phase) as ``[B, 2, T, F]``, the model with the
 padded frames masked (K2r), the output decompressed (``|Y|^(1/0.3)`` at its
@@ -97,9 +98,10 @@ class PendingBatch:
 
 class EnhancerCore(torch.nn.Module):
     """An enhancer's core as a module: ``forward(noisy, lengths)`` is
-    ``AudioEnhancer._core`` on the enhancer's own model, blend and
-    ``io_dtype`` (``noisy [B, wav_len]``, PCM16 when ``io_dtype='int16'``;
-    ``lengths [B]`` true sample counts). The JAX enhancer exports its
+    ``AudioEnhancer._core`` on the enhancer's own model and blend
+    (``noisy [B, wav_len]``, PCM16 in and out when it is int16, as the
+    enhancer stages it under ``io_dtype='int16'``; ``lengths [B]`` true
+    sample counts). The JAX enhancer exports its
     per-length jitted ``_core``; this is what
     ``utils.checkpoint.export_program`` takes for the same program:
     ``export_program(path, EnhancerCore(enhancer), (noisy, lengths))``."""
@@ -201,13 +203,14 @@ class AudioEnhancer:
             raise ValueError(f"io_dtype must be float32|int16, got {io_dtype}")
         self.io_dtype = io_dtype
         self.mask_padding = bool(mask_padding)
-        self.cmgan = isinstance(model, TSCNet)
-        if self.cmgan:
+        if isinstance(model, TSCNet):
+            self._arch_core = self._cmgan_core
             if blend not in (None, 1.0):
                 raise ValueError(f"blend {blend!r}: CMGAN's enhancer takes no blend (1.0 only)")
             self.blend, self.blend_min, self.blend_pivot_db, self.blend_width_db = (
                 1.0, float(blend_min), float(blend_pivot_db), float(blend_width_db))
             return
+        self._arch_core = self._hvit_core
         meta_blend = self.config.get("inference", {}).get("blend")
         if not isinstance(meta_blend, dict):
             meta_blend = {}
@@ -291,6 +294,24 @@ class AudioEnhancer:
         enhanced_mag = self._apply_blend(enhanced_mag, mag)
         return istft_polar(enhanced_mag.contiguous(), phase, self.stft_cfg, length=wav_len)
 
+    def _hvit_core(self, x: torch.Tensor, lengths: Optional[torch.Tensor],
+                   model: torch.nn.Module, host_lens: Optional[np.ndarray]) -> torch.Tensor:
+        """The HybridViT's front end, model and back end on float ``x [B,
+        wav_len]``: with ``lengths`` each row peak-normalised (and, with
+        ``mask_padding``, its padding patches masked) and the scale undone
+        on the output; ``host_lens`` is unused."""
+        scale = None
+        if lengths is not None:
+            max_val = torch.amax(x.abs(), dim=-1, keepdim=True)
+            scale = torch.where(max_val > 1e-8, max_val, torch.ones_like(max_val))
+            x = (x / scale).contiguous()
+        re, im, mag = stft_mag(x, self.stft_cfg)
+        phase = torch.atan2(im, re)
+        mask = (self._patch_mask(mag.shape, lengths)
+                if lengths is not None and self.mask_padding else None)
+        y = self._denoise(mag, phase, x.shape[-1], mask, model)
+        return y if scale is None else y * scale
+
     def _cmgan_core(self, x: torch.Tensor, lengths: Optional[torch.Tensor],
                     model: torch.nn.Module, host_lens: Optional[np.ndarray]) -> torch.Tensor:
         """CMGAN's front end, model and back end on float ``x [B, wav_len]``:
@@ -320,35 +341,20 @@ class AudioEnhancer:
                         length=x.shape[-1])
         return y / c
 
-    def _core(self, noisy: torch.Tensor, lengths: torch.Tensor,
+    def _core(self, noisy: torch.Tensor, lengths: Optional[torch.Tensor],
               model: torch.nn.Module, host_lens: Optional[np.ndarray] = None) -> torch.Tensor:
         """The enhancement core on one padded batch on ``model``'s device:
-        ``noisy [B, wav_len]`` (int16 PCM when ``io_dtype='int16'``),
-        ``lengths [B]`` true sample counts (``host_lens``: the same on the
-        host, for CMGAN's counters)."""
-        io16 = self.io_dtype == "int16"
+        ``noisy [B, wav_len]``, float or int16 PCM (then PCM16 out too);
+        ``lengths [B]`` true sample counts, or None for the unnormalised
+        path (no normalisation, no mask); ``host_lens`` the same counts on
+        the host, for CMGAN's counters."""
+        io16 = noisy.dtype == torch.int16
         if io16:
             noisy = noisy.to(torch.float32) / 32768.0
-        if self.cmgan:
-            y = self._cmgan_core(noisy, lengths, model, host_lens)
-            if io16:
-                return (torch.clamp(y, -1.0, 1.0) * 32767.0).to(torch.int16)
-            return y
-        max_val = torch.amax(noisy.abs(), dim=-1, keepdim=True)
-        scale = torch.where(max_val > 1e-8, max_val, torch.ones_like(max_val))
-        re, im, mag = stft_mag((noisy / scale).contiguous(), self.stft_cfg)
-        phase = torch.atan2(im, re)
-        mask = self._patch_mask(mag.shape, lengths) if self.mask_padding else None
-        y = self._denoise(mag, phase, noisy.shape[-1], mask, model) * scale
+        y = self._arch_core(noisy, lengths, model, host_lens)
         if io16:
             return (torch.clamp(y, -1.0, 1.0) * 32767.0).to(torch.int16)
         return y
-
-    def _enhance_nonorm(self, batch: torch.Tensor, model: torch.nn.Module) -> torch.Tensor:
-        if self.cmgan:
-            return self._cmgan_core(batch, None, model, None)
-        re, im, mag = stft_mag(batch, self.stft_cfg)
-        return self._denoise(mag, torch.atan2(im, re), batch.shape[-1], None, model)
 
     def _padded_len(self, n_samples: int) -> int:
         frames = frames_needed(max(n_samples, 1), self.stft_cfg.hop_length)
@@ -378,7 +384,7 @@ class AudioEnhancer:
             x = self._to_device(batch, device)
             n = self._to_device(lens, device) if normalize else None
         with tracing.span("enhance.launch"):
-            out = self._core(x, n, model, lens) if normalize else self._enhance_nonorm(x, model)
+            out = self._core(x, n, model, lens)
         if device.type != "cuda":
             return out, None
         with tracing.span("enhance.d2h"):

@@ -13,9 +13,11 @@ Every C entry point takes device pointers and the CUDA stream as
 ``void*``, launches on that stream without synchronizing, and returns
 ``cudaGetLastError()``; ``launch`` raises when that is not 0.
 
-Each kernel has a ``Kernel`` record with a plain launch counter that
-``launch`` increments once per launch, so a run can show that its main path
-went through the kernel.
+Each kernel has a ``Kernel`` record, the one statement of its C entry,
+source and signature, with a plain launch counter that ``launch``
+increments once per launch; ``launched()`` names the kernels that a run
+launched, so a run can show that its main path went through them and
+through no other.
 
 Each kernel of the model's path is also reached through an operator of the
 ``sevit`` namespace of ``torch.library`` (``define_op``), so that
@@ -176,6 +178,22 @@ _lib: dict[str, ctypes.CDLL] | None = None
 def reset_launch_counts() -> None:
     for k in KERNELS.values():
         k.launches = 0
+
+
+def launched() -> dict[str, int]:
+    """``{name: launches}`` of the kernels launched since the counts were
+    last reset, each at least once: a check that compares a path's launches
+    with it names only the kernels that the path runs, and fails as well on
+    one that runs where it should not."""
+    return {name: k.launches for name, k in KERNELS.items() if k.launches}
+
+
+def op_calls(program) -> dict[str, int]:
+    """``{op: calls}`` of the ``sevit`` ops (``torch.ops.sevit.<op>``) in an
+    exported program's graph, each called at least once."""
+    targets = [str(n.target) for n in program.graph.nodes if n.op == "call_function"]
+    return {t.split(".")[1]: targets.count(t) for t in dict.fromkeys(targets)
+            if t.startswith("sevit.")}
 
 
 def uses_kernel(t: torch.Tensor) -> bool:

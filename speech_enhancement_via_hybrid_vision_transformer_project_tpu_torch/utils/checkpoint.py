@@ -464,7 +464,7 @@ def load_program(path: str | Path) -> torch.export.ExportedProgram:
     ``torch.export.load`` after the ``sevit`` ops are defined; the port's
     counterpart of ``jax.export.deserialize``. ``.module()`` runs it on the
     device it was exported on."""
-    from ..ops import cuda_attention, cuda_layer_norm, cuda_stft  # noqa: F401  (the sevit ops)
+    from .. import ops  # noqa: F401  (its import defines the sevit ops)
 
     return torch.export.load(str(path))
 

@@ -7,6 +7,8 @@ process has JAX loaded already for the parity tests.
 """
 
 import ast
+import ctypes
+import re
 from pathlib import Path
 
 import numpy as np
@@ -74,7 +76,7 @@ def test_cpu_tensors_take_the_plain_versions():
     out = AudioEnhancer(model, {"model": {"output_mode": "mask"}}, device="cpu",
                         buckets=(64,)).enhance_batch([np.zeros(5000, np.float32)])
     assert y.shape == (2, 4000) and out[0].shape == (5000,)
-    assert {k.launches for k in kernels.KERNELS.values()} == {0}
+    assert kernels.launched() == {}
     assert kernels._lib is None
 
 
@@ -97,16 +99,11 @@ def test_wrappers_refuse_other_devices():
 XLA_REPLACED = {"global_sq_norm": "chain_with_clip", "adam_update": "chain_with_clip"}
 
 
-# kernels that port no TPU kernel: CMGAN's K2r and its conformers' residual
-# add and LayerNorm (the JAX package has no CMGAN)
-NO_TPU_KERNEL = {"attention_relpos", "add_layer_norm"}
-
-
 def test_kernel_registry_names_sources_and_tpu_kernels():
+    assert kernels.NO_TPU_KERNEL.startswith("none:")
     for k in kernels.KERNELS.values():
         assert (PORT / k.source).exists()
-        if k.name in NO_TPU_KERNEL:
-            assert k.replaces == kernels.NO_TPU_KERNEL and k.replaces.startswith("none:")
+        if k.replaces == kernels.NO_TPU_KERNEL:  # CMGAN's kernels: the JAX package has no CMGAN
             continue
         file, line = k.replaces.rsplit(":", 1)
         src = (ROOT / file).read_text().splitlines()
@@ -115,7 +112,36 @@ def test_kernel_registry_names_sources_and_tpu_kernels():
         else:
             assert src[int(line) - 1].lstrip().startswith("def _"), k.replaces
     assert set(XLA_REPLACED) <= set(kernels.KERNELS)
-    assert NO_TPU_KERNEL <= set(kernels.KERNELS)
+
+
+def _c_argtypes(k: kernels.Kernel) -> tuple:
+    """The ctypes of the parameters of ``k``'s ``extern "C"`` entry in its
+    source: a pointer is ``c_void_p``, ``int`` ``c_int``, ``float``
+    ``c_float``; the CUDA stream, a ``void*``, comes last."""
+    src = (PORT / k.source).read_text()
+    found = re.search(r'extern "C" int ' + re.escape(k.entry) + r"\(([^)]*)\)", src)
+    assert found, f"{k.entry} not in {k.source}"
+    params = [" ".join(p.split()) for p in found.group(1).split(",")]
+    assert params[-1] == "void* stream", params
+    scalars = {"int": ctypes.c_int, "float": ctypes.c_float}
+    return tuple(ctypes.c_void_p if "*" in p else scalars[p.rsplit(" ", 1)[0]] for p in params)
+
+
+@pytest.mark.parametrize("name", list(kernels.KERNELS))
+def test_argtypes_match_the_c_entry(name):
+    """A record's ``argtypes`` and its C entry's parameters, one for one."""
+    k = kernels.KERNELS[name]
+    assert k.argtypes == _c_argtypes(k)
+
+
+def test_launched_leaves_out_kernels_at_zero(monkeypatch):
+    for k in kernels.KERNELS.values():
+        monkeypatch.setattr(k, "launches", 0)
+    monkeypatch.setattr(kernels.KERNELS["stft_mag"], "launches", 2)
+    monkeypatch.setattr(kernels.KERNELS["adam_update"], "launches", 1)
+    assert kernels.launched() == {"stft_mag": 2, "adam_update": 1}
+    kernels.reset_launch_counts()
+    assert kernels.launched() == {}
 
 
 def test_cpu_optimizer_takes_the_loop():
@@ -136,7 +162,7 @@ def test_cpu_optimizer_takes_the_loop():
     after = tracing.counters()
     assert after.get("optimizer.loop_steps", 0) == before.get("optimizer.loop_steps", 0) + 1
     assert after.get("optimizer.fused_steps", 0) == before.get("optimizer.fused_steps", 0)
-    assert {k.launches for k in kernels.KERNELS.values()} == {0}
+    assert kernels.launched() == {}
     assert kernels._lib is None
 
 
