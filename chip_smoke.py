@@ -270,7 +270,18 @@ which raises on failure:
     (the attention's and the convolution's boundary) beside ATen's add and
     ``layer_norm`` and its bytes bound; the CMGAN batch launches it 40
     times, and its device time there a launch, with the batch's ten
-    largest device functions.
+    largest device functions. ``instance_norm`` (the masked InstanceNorm
+    and its PReLU) against its plain version in fp32 and float64 within
+    ``TOL_INSTANCE_NORM`` (ragged and no counts, odd T x F, one channel,
+    channels-last),
+    the same bits on a second call; its per-call and device time at the
+    cell's four shapes, [32, 64, 819, 201], [32, 64, 819, 101] (contiguous
+    and channels-last), [32, 64, 819, 202] and [32, 1, 819, 201] with the
+    batch's ragged counts, beside
+    ATen's unfused chain (its plain version) and its bytes bounds, each
+    output first held against ATen's and the float64 plain version's within
+    ``TOL_INSTANCE_NORM``; the CMGAN batch launches it 16 times, and its
+    device time there a launch.
 
 ``python3 chip_smoke.py --cards N`` (a machine with N >= 2 cards) builds the
 kernels and runs phase 11 alone over NCCL, one rank a card: N data ranks,
@@ -300,8 +311,9 @@ phase 16 batch at 400/100/400, ``dccrn_serve_launches`` in one at
 400/100/400, ``geometry_gl_launches`` in phase 16's Griffin-Lim call at
 4096/1024, ``cmgan_serve_launches`` in phase 17's CMGAN batch; K2r's
 times under ``time`` and ``freq``, ``add_layer_norm``'s under ``rows`` and
-``channels_first``; K1's and K3's times at 400/100 and 320/160 and K3g's at its
-other geometries under ``at_<geometry>``; the optimizer kernels' times and
+``channels_first``, ``instance_norm``'s by shape; K1's and K3's times at
+400/100 and 320/160 and K3g's at its other geometries under
+``at_<geometry>``; the optimizer kernels' times and
 errors from phase 7b at the 28M parameter set, the 168M set's under
 ``at_hvit168m``, and ``adam_update``'s host ms a call by set, its checks
 skipped (``host_ms``) and made (``host_checked_ms``)), and the result JSON.
@@ -3383,6 +3395,10 @@ TOL_RELPOS = 5e-5  # K2r vs float64 einsums at logits of O(10) (tests/test_torch
 # add_layer_norm's output vs its plain version in fp32 and float64: a
 # LayerNorm of 64 values of O(1) summed in another order (tests/test_torch_cuda.py)
 TOL_ADD_NORM = 1e-5
+# instance_norm's output vs its plain version in fp32 and float64: a plane's
+# mean and variance over up to 331k floats summed in another order, outputs
+# of O(1)-O(5) (tests/test_torch_cuda.py)
+TOL_INSTANCE_NORM = 1e-5
 
 
 def profiled_ms(fn, inputs, times: int = 1) -> float | None:
@@ -3407,9 +3423,11 @@ def cmgan(dev: torch.device, smi: str, rng: np.random.Generator) -> dict:
     its yardstick, the plain einsums, on 4 of the 32 clips' rows (their
     logits at 32 would take ~170 GB) times 8. c. A CMGAN batch of 32 x 4 s
     clips through ``AudioEnhancer`` at the published widths: K1 1, K2r
-    8, K3 1, K2 0 launches (the benchmark's seeded weights, float32 I/O); two
-    of its clips cuda against cpu within ``TOL_WAVE``. Returns K2r's errors,
-    times and the batch's launches."""
+    8, ``add_layer_norm`` 40, ``instance_norm`` 16, K3 1, K2 0 launches (the
+    benchmark's seeded weights, float32 I/O); two of its clips cuda against
+    cpu within ``TOL_WAVE``. ``add_norm_kernel`` and ``instance_norm_kernel``
+    check and time those two kernels. Returns the errors, times and the
+    batch's launches."""
     from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.inference import (
         AudioEnhancer,
     )
@@ -3417,8 +3435,8 @@ def cmgan(dev: torch.device, smi: str, rng: np.random.Generator) -> dict:
         cuda_attention as ca, kernels,
     )
 
-    phase("cmgan: K2r against the published einsums and timed, add_layer_norm against ATen and "
-          "timed; a CMGAN batch on the path")
+    phase("cmgan: K2r against the published einsums and timed, add_layer_norm and instance_norm "
+          "against ATen and timed; a CMGAN batch on the path")
     t_phase = time.perf_counter()
     g = torch.Generator(device=dev).manual_seed(17)
     errs = []
@@ -3481,6 +3499,7 @@ def cmgan(dev: torch.device, smi: str, rng: np.random.Generator) -> dict:
         del inputs
         torch.cuda.empty_cache()
     norm_errs, norm_ms = add_norm_kernel(dev, smi, g)
+    in_errs, in_ms = instance_norm_kernel(dev, smi, g, kept)
 
     from portbench.traffic.offline_cmgan import build_model
 
@@ -3499,12 +3518,14 @@ def cmgan(dev: torch.device, smi: str, rng: np.random.Generator) -> dict:
             launches = kernels.launched()
             times = device_times(lambda: enh.enhance_batch(batch))
     norm_ms["rows"]["path_device_ms"] = kernel_ms(times, "add_layer_norm") / 40
+    in_ms["path_device_ms"] = kernel_ms(times, "instance_norm") / 16
     top = sorted(times.items(), key=lambda kv: -kv[1])[:10]
     busy = sum(times.values())
     print(f"CMGAN batch device time (profiler): busy {busy:.2f} ms; add_layer_norm "
           f"{kernel_ms(times, 'add_layer_norm'):.3f} ms, {norm_ms['rows']['path_device_ms']:.4f} "
-          f"ms a launch; largest: {[(k[:70], round(v, 3), f'{100 * v / busy:.1f}%') for k, v in top]}",
-          flush=True)
+          f"ms a launch; instance_norm {kernel_ms(times, 'instance_norm'):.3f} ms, "
+          f"{in_ms['path_device_ms']:.4f} ms a launch; largest: "
+          f"{[(k[:70], round(v, 3), f'{100 * v / busy:.1f}%') for k, v in top]}", flush=True)
     err = max(float(np.abs(a - b).max()) for a, b in zip(outs["cuda"], outs["cpu"]))
     peak = max(float(np.abs(o).max()) for o in outs["cpu"])
     print(f"CMGAN batch of {CMGAN_ROWS} x 4 s at the published widths (the benchmark's weights): "
@@ -3512,10 +3533,10 @@ def cmgan(dev: torch.device, smi: str, rng: np.random.Generator) -> dict:
           f"err {err:.3g} (tolerance {TOL_WAVE}; outputs' peak {peak:.3g}); phase "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
     if launches != {"stft_mag": 1, "attention_relpos": 8, "add_layer_norm": 40,
-                    "istft_polar": 1} or err > TOL_WAVE:
+                    "instance_norm": 16, "istft_polar": 1} or err > TOL_WAVE:
         raise AssertionError("the CMGAN batch launched other kernels or differs from the cpu")
     return {"errs": errs, "ms": ms, "launches": launches, "norm_errs": norm_errs,
-            "norm_ms": norm_ms}
+            "norm_ms": norm_ms, "in_errs": in_errs, "in_ms": in_ms}
 
 
 def add_norm_kernel(dev: torch.device, smi: str, g: torch.Generator) -> tuple[list, dict]:
@@ -3591,6 +3612,110 @@ def add_norm_kernel(dev: torch.device, smi: str, g: torch.Generator) -> tuple[li
               f"{ms_or_not(lib_dev)}); bound {b_ms:.4f} ms by {by} ({nbytes / 1e9:.3f} GB), "
               f"{100 * b_ms / timed:.1f}% of it in {'device' if dev_ms else 'per-call'} time; "
               f"{smi}", flush=True)
+        del inputs
+        torch.cuda.empty_cache()
+    return errs, ms
+
+
+def instance_norm_kernel(dev: torch.device, smi: str, g: torch.Generator,
+                         kept: np.ndarray) -> tuple[list, dict]:
+    """Phase 17, ``instance_norm``: against its plain version in fp32 and
+    float64 (the output within ``TOL_INSTANCE_NORM``) with ragged counts (a
+    full row, a one-frame row) and with none, at odd T x F (planes 4-byte
+    aligned only), one channel (a plane cut into chunks), 202 bins and
+    channels-last, and a second call the same bits; then per-call and device
+    times at the cell's four shapes (101 bins in both layouts: the encoder's
+    contiguous, the decoders' channels-last) with the batch's counts
+    ``kept``, each output first held against ATen's unfused chain (the
+    plain version: the masked sums, the affine step, ``F.prelu``) and the
+    float64 plain version within ``TOL_INSTANCE_NORM``, beside that chain's
+    time and two bytes bounds at 3.35 TB/s: the design's (the valid frames
+    read, then every frame read and written) and the function's (every
+    frame read once and written once). Returns the errors and the times."""
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.ops import (
+        cuda_instance_norm as cin,
+    )
+
+    def draw(b, c, t, f):
+        x = 0.5 + 1.5 * torch.randn(b, c, t, f, generator=g, device=dev)
+        w = 1 + 0.1 * torch.randn(c, generator=g, device=dev)
+        bias = 0.1 * torch.randn(c, generator=g, device=dev)
+        return x, w, bias, 0.25 + 0.1 * torch.randn(c, generator=g, device=dev)
+
+    errs = []
+    for (b, c, t, f), counts, cl in (((3, 64, 17, 201), [17, 1, 9], False),
+                                     ((2, 64, 21, 101), None, False),
+                                     ((4, 1, 819, 201), [819, 1, 400, 700], False),
+                                     ((2, 64, 33, 202), [33, 40], False),
+                                     ((3, 64, 17, 101), [17, 1, 9], True),
+                                     ((2, 64, 819, 101), None, True)):
+        x, w, bias, slope = draw(b, c, t, f)
+        if cl:
+            x = x.contiguous(memory_format=torch.channels_last)
+        n_valid = None if counts is None else torch.tensor(counts, dtype=torch.int32, device=dev)
+        with torch.no_grad():
+            y = cin.instance_norm_prelu(x, n_valid, w, bias, slope, 1e-5)
+            again = cin.instance_norm_prelu(x, n_valid, w, bias, slope, 1e-5)
+        want = cin.instance_norm_prelu_plain(x, n_valid, w, bias, slope, 1e-5)
+        want64 = cin.instance_norm_prelu_plain(x.double(), n_valid, w.double(), bias.double(),
+                                               slope.double(), 1e-5)
+        if not torch.equal(y, again):
+            raise AssertionError(f"instance_norm gave other bits on a second call at {x.shape}")
+        errs.append(max(float((y - want).abs().max()), float((y.double() - want64).abs().max())))
+    print(f"instance_norm vs its plain version, fp32 and float64: max abs err {max(errs):.3g} "
+          f"(tolerance {TOL_INSTANCE_NORM}); a second call the same bits", flush=True)
+    if max(errs) > TOL_INSTANCE_NORM:
+        raise AssertionError("instance_norm differs from its plain version")
+
+    n_valid = torch.from_numpy(kept.astype(np.int32)).to(dev)
+    ms = {}
+    for c, f, cl in ((64, 201, False), (64, 101, False), (64, 101, True), (64, 202, False),
+                     (1, 201, False)):
+        shape = (CMGAN_ROWS, c, CMGAN_FRAMES, f)
+        inputs = []
+        for _ in range(2):
+            x, w, bias, slope = draw(*shape)
+            if cl:
+                x = x.contiguous(memory_format=torch.channels_last)
+            inputs.append((x, w, bias, slope, n_valid))
+            del x
+        nbytes = 4.0 * c * f * (int(kept.sum()) + 2 * CMGAN_ROWS * CMGAN_FRAMES)
+        b_ms, by = bound(0.0, nbytes, FP32_PEAK)
+        two_pass_ms = 4.0 * c * f * 2 * CMGAN_ROWS * CMGAN_FRAMES / HBM_RATE * 1e3
+
+        def kern(x, w, bias, slope, nv):
+            with torch.no_grad():
+                return cin.instance_norm_prelu(x, nv, w, bias, slope, 1e-5)
+
+        def aten(x, w, bias, slope, nv):
+            return cin.instance_norm_prelu_plain(x, nv, w, bias, slope, 1e-5)
+
+        x, w, bias, slope, nv = inputs[0]
+        y = kern(*inputs[0])
+        err = float((y - aten(*inputs[0])).abs().max())
+        want64 = cin.instance_norm_prelu_plain(x.double(), nv, w.double(), bias.double(),
+                                               slope.double(), 1e-5)
+        err = max(err, float((y.double() - want64).abs().max()))
+        del x, y, want64
+        errs.append(err)
+        what = "x".join(map(str, shape)) + ("_channels_last" if cl else "")
+        if err > TOL_INSTANCE_NORM:
+            raise AssertionError(f"instance_norm at [{what}] differs from its plain version by "
+                                 f"{err:.3g}")
+        k1, a1, a2, k2 = (median_ms(fn, inputs) for fn in (kern, aten, aten, kern))
+        per, lib = min(k1, k2), min(a1, a2)
+        dev_ms, lib_dev = profiled_ms(kern, inputs), profiled_ms(aten, inputs)
+        timed = dev_ms or per
+        ms[what] = {"ms_per_call": per, "device_ms": dev_ms, "library_ms": lib,
+                    "library_device_ms": lib_dev, "bound_ms": b_ms, "bound_by": by,
+                    "bound_share_device": b_ms / timed, "two_pass_bound_ms": two_pass_ms,
+                    "two_pass_share_device": two_pass_ms / timed, "max_abs_err": err}
+        print(f"instance_norm at [{what}], ragged counts: max abs err {err:.3g} against ATen's "
+              f"chain and float64; per call {per:.4f} ms (device {ms_or_not(dev_ms)}); ATen's "
+              f"unfused chain {lib:.4f} ms (device {ms_or_not(lib_dev)}); bound {b_ms:.4f} ms by "
+              f"{by} ({nbytes / 1e9:.3f} GB), {100 * b_ms / timed:.1f}% of it in "
+              f"{'device' if dev_ms else 'per-call'} time; the function's two-pass bound "
+              f"{two_pass_ms:.4f} ms, {100 * two_pass_ms / timed:.1f}% of it; {smi}", flush=True)
         del inputs
         torch.cuda.empty_cache()
     return errs, ms
@@ -3907,6 +4032,8 @@ def main() -> int:
     ms["attention_relpos"] = cmgan_run["ms"]
     errs["add_layer_norm"] = cmgan_run["norm_errs"]
     ms["add_layer_norm"] = cmgan_run["norm_ms"]
+    errs["instance_norm"] = cmgan_run["in_errs"]
+    ms["instance_norm"] = cmgan_run["in_ms"]
     errs.update(opt_run["errs"])
     ms.update(opt_run["ms"])
     errs["attention_bwd"] = train["errs"]

@@ -25,8 +25,11 @@ The attention is relative-position attention through
 conformer block's sublayer boundaries (the residual add, the half step's
 scale, the next LayerNorm and, at the block's end, TSCB's outer residual)
 one call of ``ops.cuda_layer_norm.add_layer_norm`` (kernel
-``add_layer_norm`` on CUDA; on the CPU the unfused ATen calls), both
-forward only: the model refuses training mode.
+``add_layer_norm`` on CUDA; on the CPU the unfused ATen calls), and each
+InstanceNorm with the PReLU after it (16 a forward) one call of
+``ops.cuda_instance_norm.instance_norm_prelu`` (kernel ``instance_norm`` on
+CUDA; on the CPU the unfused ATen calls), all forward only: the model
+refuses training mode.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.cuda_attention import attention_relpos
+from ..ops.cuda_instance_norm import instance_norm_prelu
 from ..ops.cuda_layer_norm import add_layer_norm
 from ..utils import tracing
 
@@ -54,18 +58,15 @@ class _ChannelsFirst(nn.Module):
         return x.transpose(1, 2)
 
 
-def instance_norm(x: torch.Tensor, norm: nn.InstanceNorm2d,
-                  valid: Optional[torch.Tensor]) -> torch.Tensor:
-    """``norm`` (affine InstanceNorm2d over ``[B, C, T, F]``) with its mean
-    and biased variance over the valid frames (``valid [B, 1, T, 1]`` float)
-    only; every frame is normalised by them."""
-    if valid is None:
-        return norm(x)
-    count = valid.sum(dim=2, keepdim=True) * x.shape[-1]
-    mean = (x * valid).sum(dim=(2, 3), keepdim=True) / count
-    var = (((x - mean) ** 2) * valid).sum(dim=(2, 3), keepdim=True) / count
-    y = (x - mean) * torch.rsqrt(var + norm.eps)
-    return y * norm.weight[None, :, None, None] + norm.bias[None, :, None, None]
+def norm_prelu(x: torch.Tensor, norm: nn.InstanceNorm2d, prelu: nn.PReLU,
+               n_valid: Optional[torch.Tensor]) -> torch.Tensor:
+    """``prelu(norm(x))`` over ``[B, C, T, F]``, the affine InstanceNorm's
+    mean and biased variance over the valid frames (the first ``n_valid[b]``
+    of each row, int32 ``[B]``; None: all) only, every frame normalised by
+    them: one ``instance_norm_prelu`` call; counts
+    ``cmgan.instance_norm_calls``."""
+    tracing.count("cmgan.instance_norm_calls")
+    return instance_norm_prelu(x, n_valid, norm.weight, norm.bias, prelu.weight, norm.eps)
 
 
 class DilatedDenseNet(nn.Module):
@@ -85,11 +86,11 @@ class DilatedDenseNet(nn.Module):
             setattr(self, f"norm{i + 1}", nn.InstanceNorm2d(in_channels, affine=True))
             setattr(self, f"prelu{i + 1}", nn.PReLU(in_channels))
 
-    def forward(self, x, valid=None):
+    def forward(self, x, n_valid=None):
         skip = x
         for i in range(1, self.depth + 1):
             out = getattr(self, f"conv{i}")(getattr(self, f"pad{i}")(skip))
-            out = getattr(self, f"prelu{i}")(instance_norm(out, getattr(self, f"norm{i}"), valid))
+            out = norm_prelu(out, getattr(self, f"norm{i}"), getattr(self, f"prelu{i}"), n_valid)
             skip = torch.cat([out, skip], dim=1)
         return out
 
@@ -110,13 +111,13 @@ class DenseEncoder(nn.Module):
         )
 
     @staticmethod
-    def _block(seq: nn.Sequential, x, valid):
-        return seq[2](instance_norm(seq[0](x), seq[1], valid))
+    def _block(seq: nn.Sequential, x, n_valid):
+        return norm_prelu(seq[0](x), seq[1], seq[2], n_valid)
 
-    def forward(self, x, valid=None):
-        x = self._block(self.conv_1, x, valid)
-        x = self.dilated_dense(x, valid)
-        return self._block(self.conv_2, x, valid)
+    def forward(self, x, n_valid=None):
+        x = self._block(self.conv_1, x, n_valid)
+        x = self.dilated_dense(x, n_valid)
+        return self._block(self.conv_2, x, n_valid)
 
 
 class FeedForward(nn.Module):
@@ -315,9 +316,9 @@ class MaskDecoder(nn.Module):
         self.final_conv = nn.Conv2d(out_channel, out_channel, (1, 1))
         self.prelu_out = nn.PReLU(num_features, init=-0.25)
 
-    def forward(self, x, valid=None):
-        x = self.sub_pixel(self.dense_block(x, valid))
-        x = self.prelu(instance_norm(self.conv_1(x), self.norm, valid))
+    def forward(self, x, n_valid=None):
+        x = self.sub_pixel(self.dense_block(x, n_valid))
+        x = norm_prelu(self.conv_1(x), self.norm, self.prelu, n_valid)
         x = self.final_conv(x).permute(0, 3, 2, 1).squeeze(-1)
         return self.prelu_out(x).permute(0, 2, 1).unsqueeze(1)
 
@@ -331,9 +332,9 @@ class ComplexDecoder(nn.Module):
         self.norm = nn.InstanceNorm2d(num_channel, affine=True)
         self.conv = nn.Conv2d(num_channel, 2, (1, 2))
 
-    def forward(self, x, valid=None):
-        x = self.sub_pixel(self.dense_block(x, valid))
-        return self.conv(self.prelu(instance_norm(x, self.norm, valid)))
+    def forward(self, x, n_valid=None):
+        x = self.sub_pixel(self.dense_block(x, n_valid))
+        return self.conv(norm_prelu(x, self.norm, self.prelu, n_valid))
 
 
 class TSCNet(nn.Module):
@@ -365,23 +366,23 @@ class TSCNet(nn.Module):
             raise RuntimeError("TSCNet runs for inference only (eval mode): its attention "
                                "kernel K2r has no backward; CMGAN training is a ROADMAP item")
         b, _, t, _ = x.shape
-        frames = valid = None
+        frames = None
         if n_valid is not None:
-            frames = torch.arange(t, device=x.device)[None, :] < n_valid.to(x.device)[:, None]
-            valid = frames[:, None, :, None].to(x.dtype)
+            n_valid = n_valid.to(device=x.device, dtype=torch.int32)
+            frames = torch.arange(t, device=x.device)[None, :] < n_valid[:, None]
         if kept_frames is not None:
             tracing.count("cmgan.true_frames", int(kept_frames))
             tracing.count("cmgan.padded_frames", b * t)
         mag = torch.sqrt(x[:, 0] ** 2 + x[:, 1] ** 2).unsqueeze(1)
         phase = torch.atan2(x[:, 1], x[:, 0]).unsqueeze(1)
         with tracing.span("cmgan.encoder"):
-            out = self.dense_encoder(torch.cat([mag, x], dim=1), valid)
+            out = self.dense_encoder(torch.cat([mag, x], dim=1), n_valid)
         for i in range(1, self.num_tscb + 1):
             with tracing.span("cmgan.tscb", i):
                 out = getattr(self, f"TSCB_{i}")(out, frames, kept_frames)
         with tracing.span("cmgan.decoders"):
-            mask = self.mask_decoder(out, valid)
-            complex_out = self.complex_decoder(out, valid)
+            mask = self.mask_decoder(out, n_valid)
+            complex_out = self.complex_decoder(out, n_valid)
         out_mag = mask * mag
         return (out_mag * torch.cos(phase) + complex_out[:, 0:1],
                 out_mag * torch.sin(phase) + complex_out[:, 1:2])

@@ -28,13 +28,15 @@ impl gives the outputs' shapes and dtypes from the arguments alone. The STFT
 kernels share two ops: ``sevit::stft_mag`` launches K1 (``stft_mag``) or K1g
 (``stft_dft``), ``sevit::istft_polar`` K3 (``istft_polar``) or K3g
 (``istft_dft``), as the STFT config decides (``cuda_stft.route``);
-``sevit::attention_relpos_fwd`` launches CMGAN's K2r (``attention_relpos``)
-and ``sevit::add_layer_norm`` its conformers' residual add and LayerNorm
-(``add_layer_norm``), kernels that port no TPU kernel (``NO_TPU_KERNEL``).
+``sevit::attention_relpos_fwd`` launches CMGAN's K2r (``attention_relpos``),
+``sevit::add_layer_norm`` its conformers' residual add and LayerNorm
+(``add_layer_norm``) and ``sevit::instance_norm_prelu`` its masked
+InstanceNorms with their PReLUs (``instance_norm``, three CUDA kernels a
+launch), kernels that port no TPU kernel (``NO_TPU_KERNEL``).
 A meta tensor is refused rather than given shapes as if it had been
-computed. The ops are defined when ``cuda_stft``, ``cuda_attention`` and
-``cuda_layer_norm`` are imported (``import`` of the port's ``ops`` package
-does all three); a program that ``torch.export`` saved needs them defined
+computed. The ops are defined when ``cuda_stft``, ``cuda_attention``,
+``cuda_layer_norm`` and ``cuda_instance_norm`` are imported (``import`` of
+the port's ``ops`` package does all four); a program that ``torch.export`` saved needs them defined
 before it is loaded. The optimizer's kernels
 (``global_sq_norm`` and ``adam_update``, one source) update tensor lists in
 place, belong to no exported program, and are called by their wrappers in
@@ -149,6 +151,14 @@ KERNELS = {
             # x, delta, residual, gamma, beta, sum, out, groups, n, scale, eps,
             # channels_first, stream
             (_P,) * 7 + (_I, _I, _F, _F, _I, _P),
+        ),
+        # CMGAN's masked InstanceNorms and their PReLUs: three CUDA kernels a call
+        Kernel(
+            "instance_norm", "sevit_instance_norm_prelu", "csrc/instance_norm.cu",
+            NO_TPU_KERNEL,
+            # x, n_valid, weight, bias, slope, scratch, out, batch, channels,
+            # frames, bins, slopes, chunks, channels_last, eps, stream
+            (_P,) * 7 + (_I,) * 7 + (_F, _P),
         ),
         # the optimizer's chain: XLA-compiled code in the JAX package, no Pallas
         Kernel(

@@ -47,7 +47,9 @@ The port's spans (children indented under their parent) and counters:
   ``cmgan.padded_frames`` (a batch's valid frames and all of its frames,
   where the caller gives the valid count from the host), and
   ``cmgan.add_norm_calls`` (the conformers' sublayer boundaries, one
-  ``add_layer_norm`` call each: 5 a conformer block, 40 a forward).
+  ``add_layer_norm`` call each: 5 a conformer block, 40 a forward) and
+  ``cmgan.instance_norm_calls`` (the masked InstanceNorms with their
+  PReLUs, one ``instance_norm_prelu`` call each: 16 a forward).
 * ``ops/cuda_attention.py``: counters ``attention.relpos_calls`` (K2r's op
   calls) and ``attention.relpos_pairs`` (the query-key pairs over kept keys
   given to it).

@@ -21,6 +21,10 @@ the stored sum equal to the plain version's (the same two roundings), the
 normalised output within 1e-5 of the plain version in fp32 and in float64
 (a LayerNorm of 64 values of O(1) to outputs of O(1)-O(5): the mean and
 variance summed in another order, a few ulp of the output).
+``instance_norm``: the output within 1e-5 of the plain version in fp32 and
+in float64 (a plane's mean and variance over up to 331k floats of O(1),
+merged in another order, to outputs of O(1)-O(5)), the same bits on every
+call.
 """
 
 import copy
@@ -920,7 +924,8 @@ def test_cmgan_enhancer_cuda_matches_cpu_and_launches_k1_k2r_k3(dev):
     two clips: cuda against cpu within 2e-4 (fp32 through ~60 layers, as the
     HybridViT's waveforms); a batch launches K1 once, K2r 8 times (two
     conformers a block, four blocks), ``add_layer_norm`` 40 times (five
-    boundaries a conformer), K3 once and nothing else."""
+    boundaries a conformer), ``instance_norm`` 16 times (the masked
+    InstanceNorms with their PReLUs), K3 once and nothing else."""
     from portbench.traffic import offline_cmgan
 
     config = json.loads(open("portbench/configs/cmgan.json").read())
@@ -935,7 +940,7 @@ def test_cmgan_enhancer_cuda_matches_cpu_and_launches_k1_k2r_k3(dev):
         outs[str(device)] = AudioEnhancer(model, port, device=device, buckets=(256, 512),
                                           mask_padding=True).enhance_batch(wavs)
     assert kernels.launched() == {"stft_mag": 1, "attention_relpos": 8, "add_layer_norm": 40,
-                                  "istft_polar": 1}
+                                  "instance_norm": 16, "istft_polar": 1}
     for a, b in zip(outs["cuda"], outs["cpu"]):
         assert a.shape == b.shape and float(np.abs(a - b).max()) < 2e-4
 
@@ -1020,3 +1025,125 @@ def test_add_layer_norm_kernel_refuses_a_gradient(dev, gen):
     with pytest.raises(RuntimeError, match="forward only"):
         ln.add_layer_norm(x, delta.requires_grad_(), w, b, 1e-5)
     assert kernels.KERNELS["add_layer_norm"].launches == before
+
+
+TOL_INSTANCE_NORM = 1e-5
+
+
+def _instance_norm_inputs(shape, gen, dev):
+    """``x`` of mean 0.5 and spread 1.5 (a centring that matters), the
+    affine parameters and slopes about the model's."""
+    b, c = shape[:2]
+    x = (0.5 + 1.5 * torch.randn(shape, generator=gen)).to(dev)
+    w = (1 + 0.1 * torch.randn(c, generator=gen)).to(dev)
+    bias = (0.1 * torch.randn(c, generator=gen)).to(dev)
+    slope = (0.25 + 0.1 * torch.randn(c, generator=gen)).to(dev)
+    return x, w, bias, slope
+
+
+def _check_instance_norm(x, n_valid, w, bias, slope):
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.ops import (
+        cuda_instance_norm as cin,
+    )
+
+    before = kernels.KERNELS["instance_norm"].launches
+    with torch.no_grad():
+        y = cin.instance_norm_prelu(x, n_valid, w, bias, slope, 1e-5)
+        again = cin.instance_norm_prelu(x, n_valid, w, bias, slope, 1e-5)
+    torch.cuda.synchronize()
+    assert kernels.KERNELS["instance_norm"].launches == before + 2
+    assert torch.equal(y, again)  # no atomics in the sums' order
+    assert y.stride() == x.stride()
+    want = cin.instance_norm_prelu_plain(x, n_valid, w, bias, slope, 1e-5)
+    assert float((y - want).abs().max()) <= TOL_INSTANCE_NORM
+    del want
+    want64 = cin.instance_norm_prelu_plain(x.double(), n_valid, w.double(), bias.double(),
+                                           slope.double(), 1e-5)
+    assert float((y.double() - want64).abs().max()) <= TOL_INSTANCE_NORM
+    return y
+
+
+@pytest.mark.parametrize("shape,counts,layout", [
+    ((3, 64, 17, 201), [17, 1, 9], "nchw"),    # odd T x F: planes 4-byte aligned only
+    ((2, 64, 21, 101), None, "nchw"),          # every frame, odd T x F
+    ((2, 64, 33, 202), [33, 40], "nchw"),      # planes 8-byte aligned; a count past T
+    ((4, 1, 819, 201), [819, 1, 400, 700], "nchw"),  # one channel: planes cut into chunks
+    ((1, 3, 1, 3), [1], "nchw"),               # a plane shorter than a float4
+    ((2, 64, 5, 4), [0, 5], "nchw"),           # a row with no valid frame: NaN, as plain
+    ((3, 64, 17, 101), [17, 1, 9], "nhwc"),    # the decoders' DenseNets' layout
+    ((2, 64, 819, 101), None, "nhwc"),         # every frame, rows cut into chunks
+    ((2, 4, 7, 5), [3, 7], "nhwc"),            # the fewest channels it takes
+    ((2, 64, 5, 4), [0, 5], "nhwc"),
+], ids=["ragged_odd", "unmasked", "ragged_202", "one_channel", "tiny", "empty_row",
+        "cl_ragged", "cl_unmasked", "cl_four_channels", "cl_empty_row"])
+def test_instance_norm_kernel_matches_plain(shape, counts, layout, dev, gen):
+    """The kernels against their plain version in fp32 and in float64, a
+    second call the same bits, the output in x's layout."""
+    x, w, bias, slope = _instance_norm_inputs(shape, gen, dev)
+    if layout == "nhwc":
+        x = x.contiguous(memory_format=torch.channels_last)
+        assert not x.is_contiguous()
+    n_valid = None if counts is None else torch.tensor(counts, dtype=torch.int32, device=dev)
+    if counts is not None and 0 in counts:
+        from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.ops import (
+            cuda_instance_norm as cin,
+        )
+
+        with torch.no_grad():
+            y = cin.instance_norm_prelu(x, n_valid, w, bias, slope, 1e-5)
+        want = cin.instance_norm_prelu_plain(x, n_valid, w, bias, slope, 1e-5)
+        assert torch.isnan(y[0]).all() and torch.isnan(want[0]).all()
+        assert float((y[1] - want[1]).abs().max()) <= TOL_INSTANCE_NORM
+        return
+    _check_instance_norm(x, n_valid, w, bias, slope)
+
+
+def test_instance_norm_kernel_with_one_slope_and_padded_frames(dev, gen):
+    """One slope for every channel; padded frames normalised by the valid
+    frames' statistics, which differ from the whole plane's (the padding
+    holds other values)."""
+    x, w, bias, _ = _instance_norm_inputs((2, 64, 40, 201), gen, dev)
+    x[:, :, 25:] = 4.0 + x[:, :, 25:]
+    slope = torch.tensor([0.2], device=dev)
+    n_valid = torch.tensor([25, 40], dtype=torch.int32, device=dev)
+    y = _check_instance_norm(x, n_valid, w, bias, slope)
+
+    def by_stats_of(frames):
+        ref = x[0, :, :frames].double()
+        mean = ref.mean(dim=(1, 2))[:, None, None]
+        var = ref.var(dim=(1, 2), unbiased=False)[:, None, None]
+        h = (x[0].double() - mean) / torch.sqrt(var + 1e-5) * w.double()[:, None, None] \
+            + bias.double()[:, None, None]
+        return torch.where(h > 0, h, 0.2 * h)[:, 25:]
+
+    padded = y[0, :, 25:].double()
+    assert float((padded - by_stats_of(25)).abs().max()) <= TOL_INSTANCE_NORM
+    assert float((padded - by_stats_of(40)).abs().max()) > 0.5
+
+
+def test_instance_norm_kernel_at_the_cells_largest_activation(dev):
+    """[32, 64, 1638, 202]: the complex decoder's norm at the 1638-frame
+    bucket, 2.7 GB a tensor (offsets past 2^31 bytes), ragged counts."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    shape = (32, 64, 1638, 202)
+    x = 0.5 + 1.5 * torch.randn(shape, generator=gen, device=dev)
+    w = 1 + 0.1 * torch.randn(64, generator=gen, device=dev)
+    bias = 0.1 * torch.randn(64, generator=gen, device=dev)
+    slope = 0.25 + 0.1 * torch.randn(64, generator=gen, device=dev)
+    n_valid = torch.randint(1000, 1639, (32,), generator=gen, device=dev, dtype=torch.int32)
+    _check_instance_norm(x, n_valid, w, bias, slope)
+    del x
+    torch.cuda.empty_cache()
+
+
+def test_instance_norm_kernel_refuses_a_gradient(dev, gen):
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.ops import (
+        cuda_instance_norm as cin,
+    )
+
+    x, w, bias, slope = _instance_norm_inputs((2, 64, 5, 7), gen, dev)
+    before = kernels.KERNELS["instance_norm"].launches
+    with pytest.raises(RuntimeError, match="forward only"):
+        cin.instance_norm_prelu(x, None, w.requires_grad_(), bias, slope, 1e-5)
+    assert kernels.KERNELS["instance_norm"].launches == before
+
