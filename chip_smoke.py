@@ -282,6 +282,15 @@ which raises on failure:
     output first held against ATen's and the float64 plain version's within
     ``TOL_INSTANCE_NORM``; the CMGAN batch launches it 16 times, and its
     device time there a launch.
+18. SEMamba (``semamba``): the selective scan (``selective_scan``) against
+    its plain version in float64 at small shapes and in fp32 at the cell's
+    (time [3,200, 819, 256] both ways under a batch's lengths, frequency
+    [26,208, 100, 256] over its valid frames), within ``TOL_SCAN`` of the
+    output's largest; its per-call and device time there beside the plain
+    version's and its bound; a SEMamba batch of 32 x 4 s clips at the
+    published widths through ``AudioEnhancer``: K1 1, ``instance_norm`` 16,
+    ``selective_scan`` 16, K3 1 launches, two clips cuda vs cpu within
+    ``TOL_WAVE``, its ten largest device functions.
 
 ``python3 chip_smoke.py --cards N`` (a machine with N >= 2 cards) builds the
 kernels and runs phase 11 alone over NCCL, one rank a card: N data ranks,
@@ -309,7 +318,8 @@ a step of phase 15e's ``bench_train``, ``geometry_serve_launches`` in one
 phase 16 batch at 400/100/400, ``dccrn_serve_launches`` in one at
 512/100/400, ``geometry_train_launches`` in one phase 16 train step at
 400/100/400, ``geometry_gl_launches`` in phase 16's Griffin-Lim call at
-4096/1024, ``cmgan_serve_launches`` in phase 17's CMGAN batch; K2r's
+4096/1024, ``cmgan_serve_launches`` in phase 17's CMGAN batch,
+``semamba_serve_launches`` in phase 18's SEMamba batch; K2r's
 times under ``time`` and ``freq``, ``add_layer_norm``'s under ``rows`` and
 ``channels_first``, ``instance_norm``'s by shape; K1's and K3's times at
 400/100 and 320/160 and K3g's at its other geometries under
@@ -3721,6 +3731,156 @@ def instance_norm_kernel(dev: torch.device, smi: str, g: torch.Generator,
     return errs, ms
 
 
+SEM_ROWS, SEM_FRAMES, SEM_BINS = 32, 819, 100  # a SEMamba batch in the 819-frame bucket
+# the selective scan against its plain version (fp32 or float64), relative to
+# the output's largest magnitude: fp32 through up to 819 steps of a recurrence
+# whose slowest decays keep ~1,000 steps, exp2f against exp and the sums in
+# another order
+TOL_SCAN = 1e-4
+
+
+def scan_inputs(g: torch.Generator, seqs: int, steps: int, dev, d: int = 256, n: int = 16):
+    """The scan's arguments as SEMamba hands them over (z, B and C strided
+    views of the in_proj and x_proj rows) at Mamba's published A_log, D and
+    Delta bias."""
+    u = torch.randn(seqs, steps, d, generator=g, device=dev)
+    delta = 0.5 * torch.randn(seqs, steps, d, generator=g, device=dev)
+    xz = torch.randn(seqs, steps, 2 * d, generator=g, device=dev)
+    x_dbl = torch.randn(seqs, steps, 4 + 2 * n, generator=g, device=dev)
+    a_log = torch.log(torch.arange(1, n + 1, device=dev, dtype=torch.float32)).repeat(d, 1)
+    dt = torch.exp(torch.rand(d, generator=g, device=dev) * np.log(100.0) + np.log(1e-3))
+    bias = dt + torch.log(-torch.expm1(-dt))
+    return (u, delta, xz[..., d:], x_dbl[..., 4:4 + n], x_dbl[..., 4 + n:], a_log,
+            torch.ones(d, device=dev), bias)
+
+
+def semamba(dev: torch.device, smi: str, rng: np.random.Generator) -> dict:
+    """Phase 18: SEMamba's selective scan (``selective_scan``). a. Against
+    its plain version in float64 at small shapes (32, 64 and 256 channels;
+    every step, ragged and empty rows; both directions; B and C as views and
+    as rows a float4 does not align), within ``TOL_SCAN``. b. At the cell's two
+    shapes, a 32-clip batch in the 819-frame bucket: the time scans [3,200,
+    819, 256] under the batch's lengths, forward and backward, and the
+    frequency scans [26,208, 100, 256] over its valid frames: against the
+    plain version in fp32, per call and device time, the plain version's
+    (one call), and the bound (``portbench/semamba_work.py``'s: the SFU's
+    exponentials as 16 fp32 operations each, or u, delta, z, B, C read and
+    y written once, over the valid steps). c. A SEMamba batch of 32 x 4 s
+    clips at the published widths (the benchmark's seeded weights) through
+    ``AudioEnhancer``: K1 1, ``instance_norm`` 16, ``selective_scan`` 16 and
+    K3 1 launches; two of its clips cuda against cpu within ``TOL_WAVE``;
+    its ten largest device functions. Returns the errors, times and the
+    batch's launches."""
+    from portbench import semamba_work
+    from portbench.traffic import offline_semamba
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.inference import (
+        AudioEnhancer,
+    )
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.ops import (
+        cuda_scan as cs, kernels,
+    )
+
+    phase("semamba: the selective scan against its plain version and timed; a SEMamba batch "
+          "on the path")
+    t_phase = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(18)
+    errs = []
+    for d, steps, nv in ((32, 37, None), (64, 70, [70, 1, 0, 33]),
+                         (256, 200, [200, 150, 1, 0, 77])):
+        args = scan_inputs(g, 4 if nv is None else len(nv), steps, dev, d)
+        n_valid = None if nv is None else torch.tensor(nv, dtype=torch.int32, device=dev)
+        for reverse in (False, True):
+            for packed in (False, True):
+                a = list(args)
+                if packed:  # B and C rows of 33 floats: the wrapper packs them
+                    bc = torch.cat([a[3], a[4], a[4][..., :1]], dim=-1)
+                    a[3], a[4] = bc[..., :16], bc[..., 16:32]
+                with torch.no_grad():
+                    y = cs.selective_scan(*a, n_valid=n_valid, reverse=reverse)
+                want = cs.selective_scan_plain(*(t.double() for t in a), n_valid, reverse)
+                errs.append(float((y.double() - want).abs().max() / want.abs().max()))
+    print(f"selective_scan vs its plain version in float64, 32/64/256 channels, both "
+          f"directions, ragged and empty rows: max error {max(errs):.3g} of the output's largest "
+          f"(tolerance {TOL_SCAN})", flush=True)
+    if max(errs) > TOL_SCAN:
+        raise AssertionError("selective_scan differs from its plain version")
+
+    lens = np.sort(rng.integers(int(0.78 * (SEM_FRAMES - 1) * 100), (SEM_FRAMES - 1) * 100,
+                                SEM_ROWS))
+    kept = torch.from_numpy((1 + lens // 100).astype(np.int32)).to(dev)
+    frames = torch.arange(SEM_FRAMES, device=dev)[None, :] < kept[:, None]
+    config = json.loads((ROOT / "portbench" / "configs" / "semamba.json").read_text())
+    work = semamba_work.scan_work(config, SEM_ROWS, (SEM_FRAMES - 1) * 100, lens.tolist())[0]
+    ms, big_errs = {}, []
+    for what, seqs, steps, n_valid, reverse in (
+            ("time", SEM_ROWS * SEM_BINS, SEM_FRAMES, kept.repeat_interleave(SEM_BINS), False),
+            ("time_reverse", SEM_ROWS * SEM_BINS, SEM_FRAMES, kept.repeat_interleave(SEM_BINS),
+             True),
+            ("freq", SEM_ROWS * SEM_FRAMES, SEM_BINS,
+             (frames.to(torch.int32) * SEM_BINS).view(-1), False)):
+        inputs = [scan_inputs(g, seqs, steps, dev) for _ in range(2)]
+
+        def call(*a, n_valid=n_valid, reverse=reverse):
+            with torch.no_grad():
+                return cs.selective_scan(*a, n_valid=n_valid, reverse=reverse)
+
+        def plain(*a, n_valid=n_valid, reverse=reverse):
+            return cs.selective_scan_plain(*a, n_valid, reverse)
+
+        want = plain(*inputs[0])
+        err = float((call(*inputs[0]) - want).abs().max() / want.abs().max())
+        big_errs.append(err)
+        del want
+        per, dev_ms = median_ms(call, inputs), profiled_ms(call, inputs)
+        p_ms = median_ms(plain, inputs[:1], reps=1)
+        b_ms, by = bound(work[0], work[1], FP32_PEAK)
+        timed = dev_ms or per
+        ms[what] = {"ms_per_call": per, "device_ms": dev_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                    "bound_by": "exponentials" if by == "operations" else by,
+                    "bound_share_device": b_ms / timed, "max_rel_err_fp32": err}
+        print(f"selective_scan {what} [{seqs}, {steps}, 256], {int(n_valid.sum())} valid steps: "
+              f"per call {per:.4f} ms (device {ms_or_not(dev_ms)}); plain {p_ms:.1f} ms; bound "
+              f"{b_ms:.4f} ms by {ms[what]['bound_by']}, {100 * b_ms / timed:.1f}% of it in "
+              f"{'device' if dev_ms else 'per-call'} time; vs plain fp32 {err:.3g}; {smi}",
+              flush=True)
+        del inputs
+        torch.cuda.empty_cache()
+    if max(big_errs) > TOL_SCAN:
+        raise AssertionError("selective_scan differs from its plain version at the cell's shapes")
+
+    port = {"model": config["model"], "audio": config["audio"]}
+    wavs = [speechlike(int(4.0 * SR), rng) for _ in range(SEM_ROWS)]
+    cpu_model, _ = offline_semamba.build_model(config, 5, "cpu")  # the benchmark's weights
+    outs = {}
+    for device in (dev, torch.device("cpu")):
+        model = copy.deepcopy(cpu_model)
+        enh = AudioEnhancer(model, port, device=device, mask_padding=True)
+        kernels.reset_launch_counts()
+        batch = wavs if device.type == "cuda" else wavs[:2]
+        outs[device.type] = enh.enhance_batch(batch)
+        if device.type == "cuda":
+            launches = kernels.launched()
+            times = device_times(lambda: enh.enhance_batch(batch))
+            batch_ms = median_ms(lambda: enh.enhance_batch(batch), [()], reps=3)
+    scan_dev = kernel_ms(times, "selective_scan")
+    top = sorted(times.items(), key=lambda kv: -kv[1])[:10]
+    busy = sum(times.values())
+    print(f"SEMamba batch of {SEM_ROWS} x 4 s: wall {batch_ms:.1f} ms, device busy {busy:.2f} "
+          f"ms; selective_scan {scan_dev:.3f} ms ({100 * scan_dev / busy:.1f}%), "
+          f"{scan_dev / 16:.4f} ms a launch; largest: "
+          f"{[(k[:70], round(v, 3), f'{100 * v / busy:.1f}%') for k, v in top]}", flush=True)
+    err = max(float(np.abs(a - b).max()) for a, b in zip(outs["cuda"], outs["cpu"]))
+    peak = max(float(np.abs(o).max()) for o in outs["cpu"])
+    print(f"SEMamba batch at the published widths: launches {launches}; two clips cuda vs cpu "
+          f"max abs err {err:.3g} (tolerance {TOL_WAVE}; outputs' peak {peak:.3g}); phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    if launches != {"stft_mag": 1, "instance_norm": 16, "selective_scan": 16,
+                    "istft_polar": 1} or err > TOL_WAVE:
+        raise AssertionError("the SEMamba batch launched other kernels or differs from the cpu")
+    ms["path_device_ms"] = scan_dev / 16
+    return {"errs": errs + big_errs, "ms": ms, "launches": launches}
+
+
 def main() -> int:
     import argparse
 
@@ -4034,6 +4194,9 @@ def main() -> int:
     ms["add_layer_norm"] = cmgan_run["norm_ms"]
     errs["instance_norm"] = cmgan_run["in_errs"]
     ms["instance_norm"] = cmgan_run["in_ms"]
+    semamba_run = semamba(dev, smi, rng)
+    errs["selective_scan"] = semamba_run["errs"]
+    ms["selective_scan"] = semamba_run["ms"]
     errs.update(opt_run["errs"])
     ms.update(opt_run["ms"])
     errs["attention_bwd"] = train["errs"]
@@ -4068,7 +4231,8 @@ def main() -> int:
              "dccrn_serve_launches": geometry_run["dccrn"],
              "geometry_train_launches": geometry_run["train"],
              "geometry_gl_launches": geometry_run["gl"],
-             "cmgan_serve_launches": cmgan_run["launches"]}
+             "cmgan_serve_launches": cmgan_run["launches"],
+             "semamba_serve_launches": semamba_run["launches"]}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": str(Path(
             "speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch") / k.source),

@@ -14,6 +14,11 @@ true length, the STFT (K1), the complex spectrum power-compressed
 (``|X|^0.3`` at the noisy phase) as ``[B, 2, T, F]``, the model with the
 padded frames masked (K2r), the output decompressed (``|Y|^(1/0.3)`` at its
 own phase), the iSTFT (K3), the scale undone. It takes no blend.
+SEMamba's generator (``models.semamba.SEMamba``) has MP-SENet's front and
+back end (``_semamba_core``): the same RMS scale and STFT, the model's input
+``(sqrt(re^2 + im^2 + 1e-9)^0.3, atan2(im + 1e-10, re + 1e-5))`` (0.3 the
+model's ``compress_factor``), its output magnitude decompressed and put at
+its output phase by the iSTFT (K3), the scale undone; no blend either.
 
 Waveforms are padded to length buckets; clips longer than the largest bucket
 go through chunked overlap-add streaming.
@@ -53,6 +58,7 @@ from ..models import create_model
 from ..models.cmgan import TSCNet
 from ..models.components import patch_validity_mask
 from ..models.fold import fold_batchnorm
+from ..models.semamba import SEMamba
 from ..ops.cuda_stft import istft_polar, stft_mag
 from ..ops.stft import STFTConfig
 from ..utils import tracing
@@ -134,9 +140,9 @@ class AudioEnhancer:
     ``mesh``: one replica of the model on each of ``mesh.replicas`` (the
     module docstring); ``device`` is then the replicas' device type.
 
-    A CMGAN ``TSCNet`` runs CMGAN's front and back end (the module
-    docstring); ``mask_padding`` masks its padded frames, and a ``blend``
-    other than 1.0 is refused.
+    A CMGAN ``TSCNet`` or a ``SEMamba`` runs its own front and back end (the
+    module docstring); ``mask_padding`` masks its padded frames, and a
+    ``blend`` other than 1.0 is refused.
 
     ``dft_precision`` (``"highest"``, ``"high"`` or ``"default"``) is the JAX
     enhancer's precision of its reconstruction matmul: ``high`` and
@@ -203,10 +209,12 @@ class AudioEnhancer:
             raise ValueError(f"io_dtype must be float32|int16, got {io_dtype}")
         self.io_dtype = io_dtype
         self.mask_padding = bool(mask_padding)
-        if isinstance(model, TSCNet):
-            self._arch_core = self._cmgan_core
+        arch_core = {TSCNet: self._cmgan_core, SEMamba: self._semamba_core}.get(type(model))
+        if arch_core is not None:
+            self._arch_core = arch_core
             if blend not in (None, 1.0):
-                raise ValueError(f"blend {blend!r}: CMGAN's enhancer takes no blend (1.0 only)")
+                raise ValueError(f"blend {blend!r}: {type(model).__name__}'s enhancer takes no "
+                                 "blend (1.0 only)")
             self.blend, self.blend_min, self.blend_pivot_db, self.blend_width_db = (
                 1.0, float(blend_min), float(blend_pivot_db), float(blend_width_db))
             return
@@ -312,6 +320,27 @@ class AudioEnhancer:
         y = self._denoise(mag, phase, x.shape[-1], mask, model)
         return y if scale is None else y * scale
 
+    @staticmethod
+    def _rms_scale(x: torch.Tensor, lengths: Optional[torch.Tensor]) -> torch.Tensor:
+        """Each row's factor to unit RMS over its true length (1 for a
+        silent row, or where ``lengths`` is None), ``[B, 1]``."""
+        if lengths is None:
+            return torch.ones_like(x[:, :1])
+        energy = torch.sum(x * x, dim=-1, keepdim=True)
+        return torch.where(energy > 0, torch.sqrt(lengths[:, None].to(x.dtype) / energy),
+                           torch.ones_like(energy))
+
+    def _frames(self, lengths: Optional[torch.Tensor], host_lens: Optional[np.ndarray]):
+        """``(n_valid, kept)``: with ``lengths`` and ``mask_padding``, each
+        row's valid frames ``1 + length // hop`` on the device and, where
+        ``host_lens`` (the same lengths on the host) is given, their sum for
+        the model's counters; else None."""
+        if lengths is None or not self.mask_padding:
+            return None, None
+        hop = self.stft_cfg.hop_length
+        kept = None if host_lens is None else int((1 + host_lens.astype(np.int64) // hop).sum())
+        return 1 + lengths.to(torch.int64) // hop, kept
+
     def _cmgan_core(self, x: torch.Tensor, lengths: Optional[torch.Tensor],
                     model: torch.nn.Module, host_lens: Optional[np.ndarray]) -> torch.Tensor:
         """CMGAN's front end, model and back end on float ``x [B, wav_len]``:
@@ -319,26 +348,41 @@ class AudioEnhancer:
         (a silent row by 1) and, with ``mask_padding``, frames from
         ``1 + length // hop`` on masked; ``host_lens`` (the same lengths on
         the host) feeds the model's counters."""
-        if lengths is None:
-            c = torch.ones_like(x[:, :1])
-        else:
-            energy = torch.sum(x * x, dim=-1, keepdim=True)
-            c = torch.where(energy > 0, torch.sqrt(lengths[:, None].to(x.dtype) / energy),
-                            torch.ones_like(energy))
+        c = self._rms_scale(x, lengths)
         re, im, mag = stft_mag((x * c).contiguous(), self.stft_cfg)
         phase = torch.atan2(im, re)
         mag = mag ** 0.3
         spec = torch.stack([mag * torch.cos(phase), mag * torch.sin(phase)], dim=1)
-        n_valid = kept = None
-        if lengths is not None and self.mask_padding:
-            n_valid = 1 + lengths.to(torch.int64) // self.stft_cfg.hop_length
-            if host_lens is not None:
-                kept = int((1 + host_lens.astype(np.int64) // self.stft_cfg.hop_length).sum())
-        y_re, y_im = model(spec.transpose(2, 3), n_valid, kept)
+        y_re, y_im = model(spec.transpose(2, 3), *self._frames(lengths, host_lens))
         y_re, y_im = y_re[:, 0].transpose(1, 2), y_im[:, 0].transpose(1, 2)
         y_mag = torch.sqrt(y_re * y_re + y_im * y_im) ** (1.0 / 0.3)
         y = istft_polar(y_mag.contiguous(), torch.atan2(y_im, y_re).contiguous(), self.stft_cfg,
                         length=x.shape[-1])
+        return y / c
+
+    def _semamba_core(self, x: torch.Tensor, lengths: Optional[torch.Tensor],
+                      model: torch.nn.Module, host_lens: Optional[np.ndarray]) -> torch.Tensor:
+        """SEMamba's front end (MP-SENet's ``mag_pha_stft`` on the recipe's
+        centred, reflect-padded STFT), model and back end on float ``x [B,
+        wav_len]``, scaled and masked as CMGAN's core scales and masks."""
+        c = self._rms_scale(x, lengths)
+        re, im, _ = stft_mag((x * c).contiguous(), self.stft_cfg)
+        # imaginary parts that are 0 in exact arithmetic: bin 0 and n_fft / 2
+        # of every frame, and every bin of the first frame (reflect padding
+        # makes it even about its centre, and the Hann window keeps it so).
+        # The FFT leaves rounding there, whose sign would put the phase input
+        # at +pi or -pi where re < 0, so they are set to their exact 0
+        im[:, 0] = 0.0
+        if self.stft_cfg.n_fft % 2 == 0:
+            im[:, -1] = 0.0
+        im[:, :, 0] = 0.0
+        mag = torch.sqrt(re * re + im * im + 1e-9) ** model.compress_factor
+        pha = torch.atan2(im + 1e-10, re + 1e-5)
+        y_mag, y_pha = model(torch.stack([mag, pha], dim=1).transpose(2, 3),
+                             *self._frames(lengths, host_lens))
+        y_mag = y_mag[:, 0].transpose(1, 2) ** (1.0 / model.compress_factor)
+        y = istft_polar(y_mag.contiguous(), y_pha[:, 0].transpose(1, 2).contiguous(),
+                        self.stft_cfg, length=x.shape[-1])
         return y / c
 
     def _core(self, noisy: torch.Tensor, lengths: Optional[torch.Tensor],
@@ -347,7 +391,7 @@ class AudioEnhancer:
         ``noisy [B, wav_len]``, float or int16 PCM (then PCM16 out too);
         ``lengths [B]`` true sample counts, or None for the unnormalised
         path (no normalisation, no mask); ``host_lens`` the same counts on
-        the host, for CMGAN's counters."""
+        the host, for CMGAN's and SEMamba's counters."""
         io16 = noisy.dtype == torch.int16
         if io16:
             noisy = noisy.to(torch.float32) / 32768.0

@@ -1,8 +1,9 @@
 """HybridViT in PyTorch (NCHW inside, the JAX package's [B, F, T, C] at the
 public forward), with the JAX package's ``models`` names. ``sdpa_reference``
 is the plain attention that kernel K2 is held against. CMGAN's generator
-(``cmgan.TSCNet``) is the port's second architecture; ``create_model``
-builds either from a config's ``model.architecture``."""
+(``cmgan.TSCNet``) and SEMamba's (``semamba.SEMamba``) are the port's other
+architectures; ``create_model`` builds any of them from a config's
+``model.architecture``."""
 
 from typing import Dict, Optional
 
@@ -26,8 +27,11 @@ from .components import (  # noqa: F401
 from .cmgan import TSCNet, create_cmgan  # noqa: F401
 from .fold import fold_batchnorm  # noqa: F401
 from .hybrid_vit import HybridViT, count_parameters, create_hybrid_vit, init_weights  # noqa: F401
+from .semamba import SEMamba, create_semamba  # noqa: F401
 
-ARCHITECTURES = ("hybrid_vit", "cmgan")
+ARCHITECTURES = ("hybrid_vit", "cmgan", "semamba")
+# the builders of the architectures that take no keyword overrides
+_BUILDERS = {"cmgan": create_cmgan, "semamba": create_semamba}
 
 
 def architecture(config: Optional[Dict]) -> str:
@@ -41,12 +45,13 @@ def architecture(config: Optional[Dict]) -> str:
 
 def create_model(config: Optional[Dict] = None, **overrides):
     """The model of the merged config, in eval mode: ``create_hybrid_vit``
-    (``overrides`` are its keyword overrides) or ``create_cmgan``, by
-    ``model.architecture``."""
-    if architecture(config) == "cmgan":
+    (``overrides`` are its keyword overrides), ``create_cmgan`` or
+    ``create_semamba``, by ``model.architecture``."""
+    arch = architecture(config)
+    if arch in _BUILDERS:
         if overrides:
-            raise ValueError(f"create_model: cmgan takes no overrides, got {sorted(overrides)}")
-        return create_cmgan(config)
+            raise ValueError(f"create_model: {arch} takes no overrides, got {sorted(overrides)}")
+        return _BUILDERS[arch](config)
     return create_hybrid_vit(config, **overrides)
 
 
@@ -56,6 +61,8 @@ __all__ = [
     "create_model",
     "TSCNet",
     "create_cmgan",
+    "SEMamba",
+    "create_semamba",
     "HybridViT",
     "create_hybrid_vit",
     "init_weights",

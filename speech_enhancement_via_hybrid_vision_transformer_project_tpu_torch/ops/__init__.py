@@ -22,5 +22,5 @@ from .stft import (  # noqa: F401
 from .resize import resize_bilinear, resize_nearest, upsample_nearest  # noqa: F401
 from .windows import get_window, hann  # noqa: F401
 from . import (  # noqa: F401
-    audio, cuda_attention, cuda_instance_norm, cuda_layer_norm, cuda_stft, kernels,
+    audio, cuda_attention, cuda_instance_norm, cuda_layer_norm, cuda_scan, cuda_stft, kernels,
 )

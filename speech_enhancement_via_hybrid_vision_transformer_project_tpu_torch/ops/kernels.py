@@ -32,11 +32,12 @@ kernels share two ops: ``sevit::stft_mag`` launches K1 (``stft_mag``) or K1g
 ``sevit::add_layer_norm`` its conformers' residual add and LayerNorm
 (``add_layer_norm``) and ``sevit::instance_norm_prelu`` its masked
 InstanceNorms with their PReLUs (``instance_norm``, three CUDA kernels a
-launch), kernels that port no TPU kernel (``NO_TPU_KERNEL``).
+launch), and ``sevit::selective_scan`` SEMamba's selective scans
+(``selective_scan``), kernels that port no TPU kernel (``NO_TPU_KERNEL``).
 A meta tensor is refused rather than given shapes as if it had been
 computed. The ops are defined when ``cuda_stft``, ``cuda_attention``,
-``cuda_layer_norm`` and ``cuda_instance_norm`` are imported (``import`` of
-the port's ``ops`` package does all four); a program that ``torch.export`` saved needs them defined
+``cuda_layer_norm``, ``cuda_instance_norm`` and ``cuda_scan`` are imported
+(``import`` of the port's ``ops`` package does all five); a program that ``torch.export`` saved needs them defined
 before it is loaded. The optimizer's kernels
 (``global_sq_norm`` and ``adam_update``, one source) update tensor lists in
 place, belong to no exported program, and are called by their wrappers in
@@ -68,7 +69,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 # ``replaces`` of a kernel that ports no TPU kernel
-NO_TPU_KERNEL = "none: no TPU kernel (the JAX package has no CMGAN)"
+NO_TPU_KERNEL = "none: no TPU kernel (the JAX package has no such model)"
 
 
 @dataclass
@@ -159,6 +160,14 @@ KERNELS = {
             # x, n_valid, weight, bias, slope, scratch, out, batch, channels,
             # frames, bins, slopes, chunks, channels_last, eps, stream
             (_P,) * 7 + (_I,) * 7 + (_F, _P),
+        ),
+        # SEMamba's selective scans: the JAX package runs no SEMamba
+        Kernel(
+            "selective_scan", "sevit_selective_scan", "csrc/selective_scan.cu",
+            NO_TPU_KERNEL,
+            # u, delta, z, B, C, A_log, D, delta_bias, n_valid, y, seqs, steps,
+            # channels, states, z_stride, bc_stride, reverse, stream
+            (_P,) * 10 + (_I,) * 7 + (_P,),
         ),
         # the optimizer's chain: XLA-compiled code in the JAX package, no Pallas
         Kernel(

@@ -28,7 +28,9 @@ an op it has no formula for, so this module registers one for each
 ``sevit::attention_bwd`` twice that (dP, dV, dQ, dK; the recomputed scores
 are not counted, as the 3x-forward convention does not count them), and
 ``sevit::attention_relpos_fwd`` (K2r) 6·B·H·N·N·Dh, every key (the counter
-sees no mask). ``cmgan_forward_flops`` is CMGAN's generator's count. The
+sees no mask), and ``sevit::selective_scan`` its multiply-adds over every step
+(``scan_flops``; the counter sees no lengths). ``cmgan_forward_flops`` and
+``semamba_forward_flops`` are CMGAN's and SEMamba's generators' counts. The
 port computes its bilinear resizes with ``F.interpolate``, which the counter
 counts as 0: PyTorch's count lies below the analytic one by the resize terms
 (0.9% of the forward at 28M with the ``resize`` head, 3.1% with
@@ -242,10 +244,11 @@ def bilinear_flops(spec: ModelSpec, batch: int, f_bins: int = 257, frames: int =
                                           f_bins, frames, spec.head_channels)
 
 
-def _cmgan_dense(t: int, f: int, c: int) -> float:
-    """A DilatedDenseNet of depth 4 at ``t`` frames and ``f`` bins: conv i
-    takes ``c * (i + 1)`` channels to ``c`` with a (2, 3) kernel."""
-    return sum(2.0 * t * f * c * (i + 1) * c * 6 for i in range(4))
+def _dense_net(t: int, f: int, c: int, taps: int) -> float:
+    """A dense block of depth 4 at ``t`` frames and ``f`` bins: conv i takes
+    ``c * (i + 1)`` channels to ``c`` with a kernel of ``taps`` taps (CMGAN's
+    (2, 3), SEMamba's (3, 3))."""
+    return sum(2.0 * t * f * c * (i + 1) * c * taps for i in range(4))
 
 
 def cmgan_forward_flops(batch: int, frames: int, f_bins: int = 201,
@@ -265,14 +268,53 @@ def cmgan_forward_flops(batch: int, frames: int, f_bins: int = 201,
     token = (2 * (2.0 * c * ff_mult * c * 2) + 2.0 * c * 4 * c
              + 2.0 * c * 2 * inner + 2.0 * inner * conv_kernel + 2.0 * inner * c)
     out = {
-        "encoder": batch * (2.0 * t * f_bins * 3 * c + _cmgan_dense(t, f_bins, c)
+        "encoder": batch * (2.0 * t * f_bins * 3 * c + _dense_net(t, f_bins, c, 6)
                             + 2.0 * t * f2 * c * c * 3),
         "conformers": batch * 2 * num_tscb * token * t * f2,
         "attention_time": num_tscb * sum(6.0 * f2 * heads * t * k * d for k in kept),
         "attention_freq": num_tscb * 6.0 * batch * t * heads * f2 * f2 * d,
-        "decoders": batch * (2 * (_cmgan_dense(t, f2, c) + 2.0 * t * f2 * c * 2 * c * 3)
+        "decoders": batch * (2 * (_dense_net(t, f2, c, 6) + 2.0 * t * f2 * c * 2 * c * 3)
                              + 2.0 * t * f_bins * c * 2 + 2.0 * t * f_bins
                              + 2.0 * t * f_bins * c * 2 * 2),
+    }
+    out["total"] = float(sum(out.values()))
+    return out
+
+
+def scan_flops(steps: int, d_inner: int, d_state: int) -> float:
+    """The selective scan's multiply-adds over ``steps`` (sequence, step)
+    pairs: per channel and state delta * A, the decay times the state plus
+    delta u B, and C h summed; per channel delta u, D u added and the gate
+    (the exponentials not counted)."""
+    return float(steps) * d_inner * (6.0 * d_state + 4.0)
+
+
+def semamba_forward_flops(batch: int, frames: int, f_bins: int = 201,
+                          valid: Optional[Sequence[int]] = None, *, channels: int = 64,
+                          num_tfmamba: int = 4, d_state: int = 16, d_conv: int = 4,
+                          expand: int = 4) -> Dict[str, float]:
+    """Forward FLOPs of ``SEMamba`` on ``[batch, 2, frames, f_bins]``, by
+    part (the same convention; norms, activations and exponentials not
+    counted): the dense encoder at ``f_bins``, per TFMamba block and
+    direction (time and frequency, forward and backward) each token's
+    in_proj, depthwise conv, x_proj, dt_proj and out_proj over every frame,
+    the scans over each row's ``valid`` frames (all when None), the 1x1
+    ``tlinear`` and ``flinear``, and the two decoders.
+    ``portbench/semamba_work.py`` keeps a frozen copy."""
+    c, t, f2 = channels, frames, (f_bins - 3) // 2 + 1
+    inner, rank = c * expand, -(-c // 16)
+    kept = batch * t if valid is None else sum(min(int(v), t) for v in valid)
+    token = (2.0 * c * 2 * inner + 2.0 * inner * d_conv + 2.0 * inner * (rank + 2 * d_state)
+             + 2.0 * rank * inner + 2.0 * inner * c)
+    out = {
+        "encoder": batch * (2.0 * t * f_bins * 2 * c + _dense_net(t, f_bins, c, 9)
+                            + 2.0 * t * f2 * c * c * 3),
+        "mamba": num_tfmamba * 4 * batch * t * f2 * token,
+        "scans": num_tfmamba * 4 * scan_flops(kept * f2, inner, d_state),
+        "linear": num_tfmamba * 2 * batch * t * f2 * 2.0 * 2 * c * c,
+        "decoders": batch * (2 * (_dense_net(t, f2, c, 9) + 2.0 * t * f2 * c * c * 3)
+                             + 2.0 * t * f_bins * c + 2.0 * t * f_bins
+                             + 2 * 2.0 * t * f_bins * c),
     }
     out["total"] = float(sum(out.values()))
     return out
@@ -437,9 +479,16 @@ def _attention_relpos_flop(q_shape, k_shape, *args, out_shape=None, **kwargs) ->
     return 3 * _attention_flop(q_shape, k_shape) // 2  # QK^T, the relative term and AV
 
 
+@_formula(torch.ops.sevit.selective_scan)
+def _selective_scan_flop(u_shape, delta_shape, z_shape, b_shape, *args, out_shape=None,
+                         **kwargs) -> int:
+    g, length, d = u_shape
+    return int(scan_flops(g * length, d, b_shape[-1]))
+
+
 SEVIT_OPS = (torch.ops.sevit.stft_mag, torch.ops.sevit.attention_fwd,
              torch.ops.sevit.attention_bwd, torch.ops.sevit.istft_polar,
-             torch.ops.sevit.attention_relpos_fwd)
+             torch.ops.sevit.attention_relpos_fwd, torch.ops.sevit.selective_scan)
 
 
 def torch_program_flops(fn, *args, **kwargs) -> float:

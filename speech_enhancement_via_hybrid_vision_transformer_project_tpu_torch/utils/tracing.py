@@ -50,6 +50,14 @@ The port's spans (children indented under their parent) and counters:
   ``add_layer_norm`` call each: 5 a conformer block, 40 a forward) and
   ``cmgan.instance_norm_calls`` (the masked InstanceNorms with their
   PReLUs, one ``instance_norm_prelu`` call each: 16 a forward).
+* ``models/semamba.py``, inside ``enhance.launch``: ``semamba.encoder``,
+  ``semamba.tfmamba`` (id: the block, 1-4) and ``semamba.decoders``, each the
+  host's enqueue of that part. Counters ``semamba.true_frames`` and
+  ``semamba.padded_frames`` (as CMGAN's), ``semamba.scan_calls`` (the
+  selective scans, one ``selective_scan`` call each: 16 a forward),
+  ``semamba.scan_tokens`` (the steps those calls run, summed over their
+  sequences, where the host knows the valid frames) and
+  ``semamba.instance_norm_calls`` (16 a forward).
 * ``ops/cuda_attention.py``: counters ``attention.relpos_calls`` (K2r's op
   calls) and ``attention.relpos_pairs`` (the query-key pairs over kept keys
   given to it).

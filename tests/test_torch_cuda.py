@@ -1,5 +1,5 @@
-"""CUDA kernels K1-K3, K2's backward and CMGAN's K2r against their plain
-PyTorch versions, on the card.
+"""CUDA kernels K1-K3, K2's backward, CMGAN's K2r and SEMamba's selective
+scan against their plain PyTorch versions, on the card.
 
 Marked ``cuda``: each test skips where there is no CUDA device. The card's
 machine has no JAX, so run this file without the suite's conftest:
@@ -24,7 +24,9 @@ variance summed in another order, a few ulp of the output).
 ``instance_norm``: the output within 1e-5 of the plain version in fp32 and
 in float64 (a plane's mean and variance over up to 331k floats of O(1),
 merged in another order, to outputs of O(1)-O(5)), the same bits on every
-call.
+call. ``selective_scan``: within 1e-4 of the output's largest magnitude of
+the plain version in float64 or fp32 (fp32 through up to 819 steps of a
+recurrence whose slowest decays keep ~1,000 steps, exp2f against exp).
 """
 
 import copy
@@ -1147,3 +1149,133 @@ def test_instance_norm_kernel_refuses_a_gradient(dev, gen):
         cin.instance_norm_prelu(x, None, w.requires_grad_(), bias, slope, 1e-5)
     assert kernels.KERNELS["instance_norm"].launches == before
 
+
+
+# --- SEMamba's selective scan ---------------------------------------------------
+
+# the kernel against its plain version, relative to the output's largest
+# magnitude: fp32 through up to 819 steps of a recurrence whose slowest decays
+# keep ~1,000 steps, exp2f against exp and the sums in another order
+TOL_SCAN = 1e-4
+
+
+def _scan_args(gen, seqs, steps, dev, d=256, n=16):
+    """The scan's arguments as SEMamba hands them over (z, B and C strided
+    views of the in_proj and x_proj rows) at Mamba's published A_log, D and
+    Delta bias."""
+    u = torch.randn(seqs, steps, d, generator=gen, device=dev)
+    delta = 0.5 * torch.randn(seqs, steps, d, generator=gen, device=dev)
+    xz = torch.randn(seqs, steps, 2 * d, generator=gen, device=dev)
+    x_dbl = torch.randn(seqs, steps, 4 + 2 * n, generator=gen, device=dev)
+    a_log = torch.log(torch.arange(1, n + 1, device=dev, dtype=torch.float32)).repeat(d, 1)
+    dt = torch.exp(torch.rand(d, generator=gen, device=dev) * np.log(100.0) + np.log(1e-3))
+    bias = dt + torch.log(-torch.expm1(-dt))
+    return (u, delta, xz[..., d:], x_dbl[..., 4:4 + n], x_dbl[..., 4 + n:], a_log,
+            torch.ones(d, device=dev), bias)
+
+
+def _check_scan(args, n_valid, reverse, double=True):
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.ops import (
+        cuda_scan,
+    )
+
+    before = kernels.KERNELS["selective_scan"].launches
+    with torch.no_grad():
+        y = cuda_scan.selective_scan(*args, n_valid=n_valid, reverse=reverse)
+    torch.cuda.synchronize()
+    assert kernels.KERNELS["selective_scan"].launches == before + 1
+    want = cuda_scan.selective_scan_plain(*(t.double() if double else t for t in args),
+                                          n_valid, reverse)
+    assert float((y.double() - want).abs().max()) <= TOL_SCAN * float(want.abs().max())
+    if n_valid is not None:  # the padded steps' outputs are 0
+        steps = torch.arange(y.shape[1], device=y.device)[None, :]
+        assert not bool(y[steps >= n_valid[:, None].long()].any())
+    return y
+
+
+@pytest.mark.parametrize("d", [32, 64, 256, 40])
+@pytest.mark.parametrize("reverse", [False, True], ids=["forward", "reverse"])
+@pytest.mark.parametrize("lengths", ["all", "ragged"])
+def test_selective_scan_kernel_matches_plain(d, reverse, lengths, dev):
+    """The kernel against its plain version in float64, channels of one
+    block, two, and not a multiple of 32, every step and ragged lengths (a
+    sequence of none, of one step, one past the end)."""
+    gen = torch.Generator(device=dev).manual_seed(d)
+    args = _scan_args(gen, 5, 70, dev, d)
+    n_valid = None if lengths == "all" else torch.tensor([70, 33, 1, 0, 99], dtype=torch.int32,
+                                                         device=dev)
+    _check_scan(args, n_valid, reverse)
+
+
+def test_selective_scan_kernel_packs_unaligned_b_and_c(dev):
+    """B and C in rows of 2N + 1 floats (not float4-aligned): the wrapper
+    packs them, and the output is the same as from aligned rows."""
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.ops import (
+        cuda_scan,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    args = list(_scan_args(gen, 3, 50, dev))
+    bc = torch.cat([args[3], args[4], args[4][..., :1]], dim=-1)
+    odd = args[:3] + [bc[..., :16], bc[..., 16:32]] + args[5:]
+    with torch.no_grad():
+        a = cuda_scan.selective_scan(*args, reverse=True)
+        b = cuda_scan.selective_scan(*odd, reverse=True)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("axis", ["time", "time_reverse", "freq"])
+def test_selective_scan_kernel_at_the_cells_shapes(axis, dev):
+    """A 32-clip batch in the 819-frame bucket: the time scans [3,200, 819,
+    256] under the batch's lengths (both directions) and the frequency scans
+    [26,208, 100, 256] over its valid frames, against the plain version in
+    fp32."""
+    gen = torch.Generator(device=dev).manual_seed(12)
+    kept = torch.randint(640, 820, (32,), generator=gen, device=dev, dtype=torch.int32)
+    if axis == "freq":
+        frames = torch.arange(819, device=dev)[None, :] < kept[:, None]
+        args, n_valid = _scan_args(gen, 32 * 819, 100, dev), (frames.int() * 100).view(-1)
+    else:
+        args, n_valid = _scan_args(gen, 32 * 100, 819, dev), kept.repeat_interleave(100)
+    _check_scan(args, n_valid, axis == "time_reverse", double=False)
+    del args
+    torch.cuda.empty_cache()
+
+
+def test_semamba_enhancer_cuda_matches_cpu_and_launches_k1_scan_k3(dev):
+    """SEMamba at its published widths (the benchmark's seeded weights) on
+    two clips: cuda against cpu within 2e-4 (fp32 through ~50 layers, as
+    CMGAN's waveforms); a batch launches K1 once, ``instance_norm`` 16 times,
+    ``selective_scan`` 16 times (4 blocks x time and frequency x both
+    directions), K3 once and nothing else."""
+    from portbench.traffic import offline_semamba
+
+    config = json.loads(open("portbench/configs/semamba.json").read())
+    port = {"model": config["model"], "audio": config["audio"]}
+    rng = np.random.default_rng(3)
+    wavs = [(0.1 * rng.standard_normal(n)).astype(np.float32) for n in (16000, 23000)]
+    outs = {}
+    cpu_model, _ = offline_semamba.build_model(config, 5, "cpu")  # one draw for both devices
+    for device in ("cpu", dev):
+        model = copy.deepcopy(cpu_model).to(device)
+        kernels.reset_launch_counts()
+        outs[str(device)] = AudioEnhancer(model, port, device=device, buckets=(256, 512),
+                                          mask_padding=True).enhance_batch(wavs)
+    assert kernels.launched() == {"stft_mag": 1, "instance_norm": 16, "selective_scan": 16,
+                                  "istft_polar": 1}
+    for a, b in zip(outs["cuda"], outs["cpu"]):
+        assert a.shape == b.shape and float(np.abs(a - b).max()) < 2e-4
+
+
+def test_selective_scan_opcheck_on_cuda(dev):
+    from torch.library import opcheck
+
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.ops import (
+        cuda_scan,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    args = _scan_args(gen, 3, 9, dev, 64, 16)
+    n_valid = torch.tensor([9, 4, 0], dtype=torch.int32, device=dev)
+    for nv, reverse in ((None, False), (n_valid, True)):
+        opcheck(cuda_scan.selective_scan_op, (*args, nv, reverse))

@@ -103,7 +103,7 @@ def test_kernel_registry_names_sources_and_tpu_kernels():
     assert kernels.NO_TPU_KERNEL.startswith("none:")
     for k in kernels.KERNELS.values():
         assert (PORT / k.source).exists()
-        if k.replaces == kernels.NO_TPU_KERNEL:  # CMGAN's kernels: the JAX package has no CMGAN
+        if k.replaces == kernels.NO_TPU_KERNEL:  # CMGAN's and SEMamba's kernels
             continue
         file, line = k.replaces.rsplit(":", 1)
         src = (ROOT / file).read_text().splitlines()
