@@ -287,9 +287,13 @@ which raises on failure:
     (time [3,200, 819, 256] both ways under a batch's lengths, frequency
     [26,208, 100, 256] over its valid frames), within ``TOL_SCAN`` of the
     output's largest; its per-call and device time there beside the plain
-    version's and its bound; a SEMamba batch of 32 x 4 s clips at the
-    published widths through ``AudioEnhancer``: K1 1, ``instance_norm`` 16,
-    ``selective_scan`` 16, K3 1 launches, two clips cuda vs cpu within
+    version's and its bound; the depthwise conv with its SiLU
+    (``conv1d_silu``) against its plain version in float64 within
+    ``TOL_CONV``, and its per-call and device time at the cell's two shapes,
+    both directions, beside ATen's chain (its plain version) and its bytes
+    bound; a SEMamba batch of 32 x 4 s clips at the published widths through
+    ``AudioEnhancer``: K1 1, ``instance_norm`` 16, ``selective_scan`` 16,
+    ``conv1d_silu`` 16, K3 1 launches, two clips cuda vs cpu within
     ``TOL_WAVE``, its ten largest device functions.
 
 ``python3 chip_smoke.py --cards N`` (a machine with N >= 2 cards) builds the
@@ -3754,6 +3758,88 @@ def scan_inputs(g: torch.Generator, seqs: int, steps: int, dev, d: int = 256, n:
             torch.ones(d, device=dev), bias)
 
 
+# the depthwise conv with its SiLU against its plain version in float64,
+# relative to the output's largest magnitude: four fp32 products summed into
+# the bias and a SiLU
+TOL_CONV = 1e-6
+
+
+def conv_kernel(dev: torch.device, smi: str, g: torch.Generator) -> tuple[list, dict]:
+    """Phase 18, ``conv1d_silu``: against its plain version in float64
+    within ``TOL_CONV`` at small shapes (x a view of the in_proj rows or
+    contiguous, 256 channels in float4 lanes or 40 a float each, fewer steps
+    than taps, both directions), then at the cell's two shapes, the time
+    mixers [3,200, 819, 256] and the frequency mixers [26,208, 100, 256], x a
+    view of rows of 512 floats, both directions: the error against float64,
+    per-call and device time, ATen's chain (the plain version: the padded
+    transposed copy, the depthwise conv, the transpose back and the SiLU)
+    and the bytes bound, x read once and u written once at 3.35 TB/s.
+    Returns the errors and the times."""
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.ops import (
+        cuda_scan as cs,
+    )
+
+    def draw(seqs, steps, d=256, strided=True):
+        xz = torch.randn(seqs, steps, 2 * d, generator=g, device=dev)
+        x = xz[..., :d] if strided else xz[..., :d].contiguous()
+        w = 0.28 * torch.randn(d, 1, 4, generator=g, device=dev)
+        return x, w, 0.28 * torch.randn(d, generator=g, device=dev)
+
+    def err64(x, w, b, reverse):
+        with torch.no_grad():
+            u = cs.conv1d_silu(x, w, b, reverse)
+        want = cs.conv1d_silu_plain(x.double(), w.double(), b.double(), reverse)
+        return float((u.double() - want).abs().max() / want.abs().max())
+
+    errs = [err64(*draw(seqs, steps, d, strided), reverse)
+            for seqs, steps, d, strided in ((5, 70, 256, True), (5, 70, 256, False),
+                                            (3, 67, 40, True), (4, 3, 256, True),
+                                            (4, 1, 40, False))
+            for reverse in (False, True)]
+    print(f"conv1d_silu vs its plain version in float64, 256 and 40 channels, x strided and "
+          f"contiguous, 1-70 steps, both directions: max error {max(errs):.3g} of the "
+          f"output's largest (tolerance {TOL_CONV})", flush=True)
+    if max(errs) > TOL_CONV:
+        raise AssertionError("conv1d_silu differs from its plain version")
+
+    ms = {}
+    for what, seqs, steps in (("time", SEM_ROWS * SEM_BINS, SEM_FRAMES),
+                              ("freq", SEM_ROWS * SEM_FRAMES, SEM_BINS)):
+        for reverse in (False, True):
+            inputs = [draw(seqs, steps) for _ in range(2)]
+
+            def kern(x, w, b, reverse=reverse):
+                with torch.no_grad():
+                    return cs.conv1d_silu(x, w, b, reverse)
+
+            def aten(x, w, b, reverse=reverse):
+                return cs.conv1d_silu_plain(x, w, b, reverse)
+
+            err = err64(*inputs[0], reverse)
+            errs.append(err)
+            k1, a1, a2, k2 = (median_ms(f, inputs) for f in (kern, aten, aten, kern))
+            per, lib = min(k1, k2), min(a1, a2)
+            dev_ms, lib_dev = profiled_ms(kern, inputs), profiled_ms(aten, inputs)
+            nbytes = 4.0 * 256 * 2 * seqs * steps
+            b_ms, by = bound(0.0, nbytes, FP32_PEAK)
+            timed = dev_ms or per
+            key = what + ("_reverse" if reverse else "")
+            ms[key] = {"ms_per_call": per, "device_ms": dev_ms, "library_ms": lib,
+                       "library_device_ms": lib_dev, "bound_ms": b_ms, "bound_by": by,
+                       "bound_share_device": b_ms / timed, "max_rel_err": err}
+            print(f"conv1d_silu {key} [{seqs}, {steps}, 256], x strided 512: per call {per:.4f} "
+                  f"ms (device {ms_or_not(dev_ms)}); ATen's pad + conv + transpose + SiLU "
+                  f"{lib:.4f} ms (device {ms_or_not(lib_dev)}); bound {b_ms:.4f} ms by {by} "
+                  f"({nbytes / 1e9:.3f} GB), {100 * b_ms / timed:.1f}% of it in "
+                  f"{'device' if dev_ms else 'per-call'} time; vs float64 {err:.3g}; {smi}",
+                  flush=True)
+            del inputs
+            torch.cuda.empty_cache()
+    if max(errs) > TOL_CONV:
+        raise AssertionError("conv1d_silu differs from its plain version at the cell's shapes")
+    return errs, ms
+
+
 def semamba(dev: torch.device, smi: str, rng: np.random.Generator) -> dict:
     """Phase 18: SEMamba's selective scan (``selective_scan``). a. Against
     its plain version in float64 at small shapes (32, 64 and 256 channels;
@@ -3765,12 +3851,13 @@ def semamba(dev: torch.device, smi: str, rng: np.random.Generator) -> dict:
     plain version in fp32, per call and device time, the plain version's
     (one call), and the bound (``portbench/semamba_work.py``'s: the SFU's
     exponentials as 16 fp32 operations each, or u, delta, z, B, C read and
-    y written once, over the valid steps). c. A SEMamba batch of 32 x 4 s
-    clips at the published widths (the benchmark's seeded weights) through
-    ``AudioEnhancer``: K1 1, ``instance_norm`` 16, ``selective_scan`` 16 and
-    K3 1 launches; two of its clips cuda against cpu within ``TOL_WAVE``;
-    its ten largest device functions. Returns the errors, times and the
-    batch's launches."""
+    y written once, over the valid steps); ``conv_kernel`` checks and times
+    ``conv1d_silu``. c. A SEMamba batch of 32 x 4 s clips at the published
+    widths (the benchmark's seeded weights) through ``AudioEnhancer``: K1 1,
+    ``instance_norm`` 16, ``selective_scan`` 16, ``conv1d_silu`` 16 and K3 1
+    launches; two of its clips cuda against cpu within ``TOL_WAVE``; its ten
+    largest device functions. Returns the errors, times and the batch's
+    launches."""
     from portbench import semamba_work
     from portbench.traffic import offline_semamba
     from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.inference import (
@@ -3847,6 +3934,7 @@ def semamba(dev: torch.device, smi: str, rng: np.random.Generator) -> dict:
         torch.cuda.empty_cache()
     if max(big_errs) > TOL_SCAN:
         raise AssertionError("selective_scan differs from its plain version at the cell's shapes")
+    conv_errs, conv_ms = conv_kernel(dev, smi, g)
 
     port = {"model": config["model"], "audio": config["audio"]}
     wavs = [speechlike(int(4.0 * SR), rng) for _ in range(SEM_ROWS)]
@@ -3863,11 +3951,13 @@ def semamba(dev: torch.device, smi: str, rng: np.random.Generator) -> dict:
             times = device_times(lambda: enh.enhance_batch(batch))
             batch_ms = median_ms(lambda: enh.enhance_batch(batch), [()], reps=3)
     scan_dev = kernel_ms(times, "selective_scan")
+    conv_dev = kernel_ms(times, "conv1d_silu")
     top = sorted(times.items(), key=lambda kv: -kv[1])[:10]
     busy = sum(times.values())
     print(f"SEMamba batch of {SEM_ROWS} x 4 s: wall {batch_ms:.1f} ms, device busy {busy:.2f} "
           f"ms; selective_scan {scan_dev:.3f} ms ({100 * scan_dev / busy:.1f}%), "
-          f"{scan_dev / 16:.4f} ms a launch; largest: "
+          f"{scan_dev / 16:.4f} ms a launch; conv1d_silu {conv_dev:.3f} ms "
+          f"({100 * conv_dev / busy:.1f}%), {conv_dev / 16:.4f} ms a launch; largest: "
           f"{[(k[:70], round(v, 3), f'{100 * v / busy:.1f}%') for k, v in top]}", flush=True)
     err = max(float(np.abs(a - b).max()) for a, b in zip(outs["cuda"], outs["cpu"]))
     peak = max(float(np.abs(o).max()) for o in outs["cpu"])
@@ -3875,10 +3965,12 @@ def semamba(dev: torch.device, smi: str, rng: np.random.Generator) -> dict:
           f"max abs err {err:.3g} (tolerance {TOL_WAVE}; outputs' peak {peak:.3g}); phase "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
     if launches != {"stft_mag": 1, "instance_norm": 16, "selective_scan": 16,
-                    "istft_polar": 1} or err > TOL_WAVE:
+                    "conv1d_silu": 16, "istft_polar": 1} or err > TOL_WAVE:
         raise AssertionError("the SEMamba batch launched other kernels or differs from the cpu")
     ms["path_device_ms"] = scan_dev / 16
-    return {"errs": errs + big_errs, "ms": ms, "launches": launches}
+    conv_ms["path_device_ms"] = conv_dev / 16
+    return {"errs": errs + big_errs, "ms": ms, "conv_errs": conv_errs, "conv_ms": conv_ms,
+            "launches": launches}
 
 
 def main() -> int:
@@ -4197,6 +4289,8 @@ def main() -> int:
     semamba_run = semamba(dev, smi, rng)
     errs["selective_scan"] = semamba_run["errs"]
     ms["selective_scan"] = semamba_run["ms"]
+    errs["conv1d_silu"] = semamba_run["conv_errs"]
+    ms["conv1d_silu"] = semamba_run["conv_ms"]
     errs.update(opt_run["errs"])
     ms.update(opt_run["ms"])
     errs["attention_bwd"] = train["errs"]

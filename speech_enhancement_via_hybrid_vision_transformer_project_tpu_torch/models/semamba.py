@@ -41,9 +41,12 @@ does not depend on the bucket it is padded to.
 
 The InstanceNorms with the PReLU after them (16 a forward) are one call of
 ``ops.cuda_instance_norm.instance_norm_prelu`` each (kernel
-``instance_norm`` on CUDA) and the scans (16 a forward) one call of
-``selective_scan`` each (kernel ``selective_scan``; on the CPU their plain
-versions), both forward only: the model refuses training mode.
+``instance_norm`` on CUDA), the Mamba layers' depthwise convs with their
+SiLUs (16 a forward) one call of ``conv1d_silu`` each (kernel
+``conv1d_silu``, reading x in place in the in_proj output) and the scans (16
+a forward) one call of ``selective_scan`` each (kernel ``selective_scan``;
+on the CPU their plain versions), all forward only: the model refuses
+training mode.
 """
 
 from __future__ import annotations
@@ -56,7 +59,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.cuda_instance_norm import instance_norm_prelu
-from ..ops.cuda_scan import selective_scan
+from ..ops.cuda_scan import conv1d_silu, selective_scan
 from ..utils import tracing
 
 
@@ -173,11 +176,8 @@ class Mamba(nn.Module):
         the scan and the conv run from each sequence's end."""
         xz = F.linear(h, self.in_proj.weight)
         x, z = xz.split(self.d_inner, dim=-1)
-        w = self.conv1d.weight
-        k = w.shape[-1]
-        x = F.pad(x.transpose(1, 2), (0, k - 1) if reverse else (k - 1, 0))
-        u = F.conv1d(x, w.flip(-1) if reverse else w, self.conv1d.bias, groups=self.d_inner)
-        u = F.silu(u.transpose(1, 2).contiguous(), inplace=True)
+        tracing.count("semamba.conv_calls")
+        u = conv1d_silu(x, self.conv1d.weight, self.conv1d.bias, reverse)
         x_dbl = F.linear(u, self.x_proj.weight)
         dt, b, c = x_dbl.split([self.dt_rank, self.d_state, self.d_state], dim=-1)
         delta = F.linear(dt, self.dt_proj.weight)  # its bias is added in the scan

@@ -1,7 +1,17 @@
-"""Mamba-1's selective scan over length-masked sequences, in either
-direction: the 16 scans a forward of SEMamba's TFMamba blocks, CUDA kernel
-``selective_scan`` (``csrc/selective_scan.cu``), beside its plain PyTorch
-version.
+"""Mamba-1's sequence mixing in either direction: the 16 Mamba layers a
+forward of SEMamba's TFMamba blocks, each a depthwise conv with its SiLU
+(CUDA kernel ``conv1d_silu``, ``csrc/conv1d_silu.cu``) and a selective scan
+over length-masked sequences (CUDA kernel ``selective_scan``,
+``csrc/selective_scan.cu``), each beside its plain PyTorch version.
+
+``conv1d_silu`` computes ``u = silu(conv1d(x) + bias)``, depthwise, over
+``x [G, L, D]``: the causal conv (padded ``k - 1`` steps on the left, as
+mamba_ssm's), or with ``reverse`` the mirrored one (padded on the right,
+the kernel flipped: the causal conv of the flipped sequence, flipped back).
+Every step is computed. ``x`` may be a strided view of larger rows (the
+in_proj output's first half), with unit stride along its last axis; the
+kernel reads it in place and writes ``u`` contiguous, through the op
+``torch.ops.sevit.conv1d_silu``.
 
 ``selective_scan`` computes, for each sequence ``g``, channel ``d`` and
 state ``n``, from a zero state,
@@ -31,7 +41,17 @@ import torch.nn.functional as F
 
 from . import kernels
 
-STATES = (16,)  # the d_state values the kernel is built for: the published one
+STATES = (16,)  # the d_state values the scan kernel is built for: the published one
+WIDTHS = (4,)  # the conv widths the conv kernel is built for: the published d_conv
+
+
+def conv1d_silu_plain(x, weight, bias, reverse: bool = False):
+    """Plain version: ATen's padded transposed copy, depthwise conv,
+    transpose back and SiLU."""
+    k = weight.shape[-1]
+    xp = F.pad(x.transpose(1, 2), (0, k - 1) if reverse else (k - 1, 0))
+    u = F.conv1d(xp, weight.flip(-1) if reverse else weight, bias, groups=weight.shape[0])
+    return F.silu(u.transpose(1, 2).contiguous(), inplace=True)
 
 
 def selective_scan_plain(u, delta, z, B, C, A_log, D, delta_bias, n_valid=None,
@@ -78,16 +98,20 @@ def _check(u, delta, z, B, C, A_log, D, delta_bias, n_valid):
         raise ValueError("selective_scan: inputs on different devices")
 
 
-def _rows(name: str, t: torch.Tensor) -> int:
+def _rows(op: str, name: str, t: torch.Tensor) -> int:
     """The token stride of a ``[G, L, K]`` view whose tokens lie at one
     stride and whose sequences follow each other (``stride(0) = L *
-    stride(1)``), each token's K floats contiguous."""
+    stride(1)``), each token's K floats contiguous. The stride of an axis
+    of size 1 is never stepped, so it may be anything (``.contiguous()``
+    keeps it)."""
     if t.dtype != torch.float32:
-        raise TypeError(f"selective_scan {name}: expected float32, got {t.dtype}")
-    if t.stride(2) != 1 or t.stride(0) != t.shape[1] * t.stride(1):
-        raise ValueError(f"selective_scan kernel: {name} must be rows of tokens, got strides "
+        raise TypeError(f"{op} {name}: expected float32, got {t.dtype}")
+    g, length, k = t.shape
+    token = t.stride(1) if length > 1 else t.stride(0) if g > 1 else k
+    if (k > 1 and t.stride(2) != 1) or (g > 1 and t.stride(0) != length * token):
+        raise ValueError(f"{op} kernel: {name} must be rows of tokens, got strides "
                          f"{t.stride()}")
-    return t.stride(1)
+    return token
 
 
 def _kernel(u, delta, z, B, C, A_log, D, delta_bias, n_valid, reverse):
@@ -102,9 +126,9 @@ def _kernel(u, delta, z, B, C, A_log, D, delta_bias, n_valid, reverse):
     for name, t in (("A_log", A_log), ("D", D), ("delta_bias", delta_bias)):
         # a parameter's requires_grad: the wrapper refuses a gradient
         kernels.check_input(f"selective_scan {name}", t, t.dim(), differentiable=True)
-    z_stride = _rows("z", z)
-    bc_stride = _rows("B", B)
-    if _rows("C", C) != bc_stride or bc_stride % 4 or any(
+    z_stride = _rows("selective_scan", "z", z)
+    bc_stride = _rows("selective_scan", "B", B)
+    if _rows("selective_scan", "C", C) != bc_stride or bc_stride % 4 or any(
             t.data_ptr() % 16 for t in (B, C)):
         # the kernel reads B and C as float4 rows at one stride
         bc = torch.cat([B, C], dim=-1)
@@ -153,3 +177,59 @@ def selective_scan(u: torch.Tensor, delta: torch.Tensor, z: torch.Tensor, B: tor
         raise RuntimeError("selective_scan: forward only (the kernel has no backward); run "
                            "under torch.no_grad() or torch.inference_mode()")
     return selective_scan_op(u, delta, z, B, C, A_log, D, delta_bias, n_valid, bool(reverse))
+
+
+def _check_conv(x, weight, bias):
+    if x.dim() != 3:
+        raise ValueError(f"conv1d_silu: x must be [G, L, D], got {tuple(x.shape)}")
+    d = x.shape[-1]
+    if weight.dim() != 3 or tuple(weight.shape[:2]) != (d, 1) or tuple(bias.shape) != (d,):
+        raise ValueError(f"conv1d_silu: weight must be [{d}, 1, k] and bias [{d}], got "
+                         f"{tuple(weight.shape)} and {tuple(bias.shape)}")
+    if weight.device != x.device or bias.device != x.device:
+        raise ValueError("conv1d_silu: inputs on different devices")
+
+
+def _conv_kernel(x, weight, bias, reverse):
+    """Launch the kernel (the op's CUDA impl): x read in place."""
+    _check_conv(x, weight, bias)
+    g, length, d = x.shape
+    width = weight.shape[-1]
+    if width not in WIDTHS:
+        raise ValueError(f"conv1d_silu kernel: width {width} not in {WIDTHS}")
+    x_stride = _rows("conv1d_silu", "x", x)
+    for name, t in (("weight", weight), ("bias", bias)):
+        # a parameter's requires_grad: the wrapper refuses a gradient
+        kernels.check_input(f"conv1d_silu {name}", t, t.dim(), differentiable=True)
+    u = torch.empty(g, length, d, device=x.device, dtype=x.dtype)
+    if u.numel():
+        with torch.cuda.device(x.device):
+            kernels.launch("conv1d_silu", x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+                           u.data_ptr(), g, length, d, width, x_stride, int(reverse))
+    return u
+
+
+def _conv_plain_op(x, weight, bias, reverse):
+    _check_conv(x, weight, bias)
+    return conv1d_silu_plain(x, weight, bias, reverse)
+
+
+def _conv_fake(x, weight, bias, reverse):
+    return x.new_empty(x.shape)
+
+
+conv1d_silu_op = kernels.define_op(
+    "conv1d_silu", "(Tensor x, Tensor weight, Tensor bias, bool reverse) -> Tensor",
+    cpu=_conv_plain_op, cuda=_conv_kernel, fake=_conv_fake)
+
+
+def conv1d_silu(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                reverse: bool = False) -> torch.Tensor:
+    """``u [G, L, D]`` contiguous, ``silu`` of the depthwise conv of ``x [G,
+    L, D]`` with ``weight [D, 1, k]`` and ``bias [D]``: causal, or with
+    ``reverse`` mirrored (the module docstring). Forward only: refuses a
+    gradient."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, weight, bias)):
+        raise RuntimeError("conv1d_silu: forward only (the kernel has no backward); run "
+                           "under torch.no_grad() or torch.inference_mode()")
+    return conv1d_silu_op(x, weight, bias, bool(reverse))

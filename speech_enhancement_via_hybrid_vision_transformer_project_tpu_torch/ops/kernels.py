@@ -32,8 +32,10 @@ kernels share two ops: ``sevit::stft_mag`` launches K1 (``stft_mag``) or K1g
 ``sevit::add_layer_norm`` its conformers' residual add and LayerNorm
 (``add_layer_norm``) and ``sevit::instance_norm_prelu`` its masked
 InstanceNorms with their PReLUs (``instance_norm``, three CUDA kernels a
-launch), and ``sevit::selective_scan`` SEMamba's selective scans
-(``selective_scan``), kernels that port no TPU kernel (``NO_TPU_KERNEL``).
+launch), ``sevit::selective_scan`` SEMamba's selective scans
+(``selective_scan``) and ``sevit::conv1d_silu`` its depthwise convs with
+their SiLUs (``conv1d_silu``), kernels that port no TPU kernel
+(``NO_TPU_KERNEL``).
 A meta tensor is refused rather than given shapes as if it had been
 computed. The ops are defined when ``cuda_stft``, ``cuda_attention``,
 ``cuda_layer_norm``, ``cuda_instance_norm`` and ``cuda_scan`` are imported
@@ -168,6 +170,14 @@ KERNELS = {
             # u, delta, z, B, C, A_log, D, delta_bias, n_valid, y, seqs, steps,
             # channels, states, z_stride, bc_stride, reverse, stream
             (_P,) * 10 + (_I,) * 7 + (_P,),
+        ),
+        # SEMamba's depthwise convs with their SiLUs, either direction
+        Kernel(
+            "conv1d_silu", "sevit_conv1d_silu", "csrc/conv1d_silu.cu",
+            NO_TPU_KERNEL,
+            # x, weight, bias, u, seqs, steps, channels, width, x_stride,
+            # reverse, stream
+            (_P,) * 4 + (_I,) * 6 + (_P,),
         ),
         # the optimizer's chain: XLA-compiled code in the JAX package, no Pallas
         Kernel(

@@ -28,9 +28,11 @@ an op it has no formula for, so this module registers one for each
 ``sevit::attention_bwd`` twice that (dP, dV, dQ, dK; the recomputed scores
 are not counted, as the 3x-forward convention does not count them), and
 ``sevit::attention_relpos_fwd`` (K2r) 6·B·H·N·N·Dh, every key (the counter
-sees no mask), and ``sevit::selective_scan`` its multiply-adds over every step
-(``scan_flops``; the counter sees no lengths). ``cmgan_forward_flops`` and
-``semamba_forward_flops`` are CMGAN's and SEMamba's generators' counts. The
+sees no mask), ``sevit::selective_scan`` its multiply-adds over every step
+(``scan_flops``; the counter sees no lengths), and ``sevit::conv1d_silu`` its
+depthwise conv, 2·k a (step, channel), as PyTorch counts ``F.conv1d``.
+``cmgan_forward_flops`` and ``semamba_forward_flops`` are CMGAN's and
+SEMamba's generators' counts. The
 port computes its bilinear resizes with ``F.interpolate``, which the counter
 counts as 0: PyTorch's count lies below the analytic one by the resize terms
 (0.9% of the forward at 28M with the ``resize`` head, 3.1% with
@@ -486,9 +488,16 @@ def _selective_scan_flop(u_shape, delta_shape, z_shape, b_shape, *args, out_shap
     return int(scan_flops(g * length, d, b_shape[-1]))
 
 
+@_formula(torch.ops.sevit.conv1d_silu)
+def _conv1d_silu_flop(x_shape, weight_shape, *args, out_shape=None, **kwargs) -> int:
+    g, length, d = x_shape
+    return 2 * g * length * d * weight_shape[-1]
+
+
 SEVIT_OPS = (torch.ops.sevit.stft_mag, torch.ops.sevit.attention_fwd,
              torch.ops.sevit.attention_bwd, torch.ops.sevit.istft_polar,
-             torch.ops.sevit.attention_relpos_fwd, torch.ops.sevit.selective_scan)
+             torch.ops.sevit.attention_relpos_fwd, torch.ops.sevit.selective_scan,
+             torch.ops.sevit.conv1d_silu)
 
 
 def torch_program_flops(fn, *args, **kwargs) -> float:

@@ -1,5 +1,5 @@
 """CUDA kernels K1-K3, K2's backward, CMGAN's K2r and SEMamba's selective
-scan against their plain PyTorch versions, on the card.
+scan and depthwise conv against their plain PyTorch versions, on the card.
 
 Marked ``cuda``: each test skips where there is no CUDA device. The card's
 machine has no JAX, so run this file without the suite's conftest:
@@ -27,6 +27,8 @@ merged in another order, to outputs of O(1)-O(5)), the same bits on every
 call. ``selective_scan``: within 1e-4 of the output's largest magnitude of
 the plain version in float64 or fp32 (fp32 through up to 819 steps of a
 recurrence whose slowest decays keep ~1,000 steps, exp2f against exp).
+``conv1d_silu``: within 1e-6 of the output's largest magnitude of the plain
+version in float64 (four fp32 products summed into the bias and a SiLU).
 """
 
 import copy
@@ -1246,8 +1248,8 @@ def test_semamba_enhancer_cuda_matches_cpu_and_launches_k1_scan_k3(dev):
     """SEMamba at its published widths (the benchmark's seeded weights) on
     two clips: cuda against cpu within 2e-4 (fp32 through ~50 layers, as
     CMGAN's waveforms); a batch launches K1 once, ``instance_norm`` 16 times,
-    ``selective_scan`` 16 times (4 blocks x time and frequency x both
-    directions), K3 once and nothing else."""
+    ``selective_scan`` and ``conv1d_silu`` 16 times each (4 blocks x time and
+    frequency x both directions), K3 once and nothing else."""
     from portbench.traffic import offline_semamba
 
     config = json.loads(open("portbench/configs/semamba.json").read())
@@ -1262,7 +1264,7 @@ def test_semamba_enhancer_cuda_matches_cpu_and_launches_k1_scan_k3(dev):
         outs[str(device)] = AudioEnhancer(model, port, device=device, buckets=(256, 512),
                                           mask_padding=True).enhance_batch(wavs)
     assert kernels.launched() == {"stft_mag": 1, "instance_norm": 16, "selective_scan": 16,
-                                  "istft_polar": 1}
+                                  "conv1d_silu": 16, "istft_polar": 1}
     for a, b in zip(outs["cuda"], outs["cpu"]):
         assert a.shape == b.shape and float(np.abs(a - b).max()) < 2e-4
 
@@ -1279,3 +1281,101 @@ def test_selective_scan_opcheck_on_cuda(dev):
     n_valid = torch.tensor([9, 4, 0], dtype=torch.int32, device=dev)
     for nv, reverse in ((None, False), (n_valid, True)):
         opcheck(cuda_scan.selective_scan_op, (*args, nv, reverse))
+
+
+# --- SEMamba's depthwise conv and its SiLU -------------------------------------------
+
+# the kernel against its plain version in float64, relative to the output's
+# largest magnitude: four fp32 products summed into the bias and a SiLU
+TOL_CONV = 1e-6
+
+
+def _conv_args(gen, seqs, steps, dev, d=256, strided=True):
+    """x as SEMamba hands it over (the first half of the in_proj rows, a
+    token every 2d floats) or contiguous, the conv's weight and bias at the
+    benchmark's scale."""
+    xz = torch.randn(seqs, steps, 2 * d, generator=gen, device=dev)
+    x = xz[..., :d] if strided else xz[..., :d].contiguous()
+    w = 0.28 * torch.randn(d, 1, 4, generator=gen, device=dev)
+    return x, w, 0.28 * torch.randn(d, generator=gen, device=dev)
+
+
+def _check_conv(x, w, bias, reverse):
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.ops import (
+        cuda_scan,
+    )
+
+    before = kernels.KERNELS["conv1d_silu"].launches
+    with torch.no_grad():
+        u = cuda_scan.conv1d_silu(x, w, bias, reverse)
+    torch.cuda.synchronize()
+    assert kernels.KERNELS["conv1d_silu"].launches == before + 1
+    assert u.shape == x.shape and u.is_contiguous()
+    want = cuda_scan.conv1d_silu_plain(x.double(), w.double(), bias.double(), reverse)
+    assert float((u.double() - want).abs().max()) <= TOL_CONV * float(want.abs().max())
+    return u
+
+
+@pytest.mark.parametrize("shape", ["small", "d40", "contiguous", "masked", "time", "freq"])
+@pytest.mark.parametrize("reverse", [False, True], ids=["forward", "reverse"])
+def test_conv1d_silu_kernel_matches_plain(shape, reverse, dev):
+    """The kernel against its plain version in float64, both directions:
+    x a view of the in_proj rows (float4 lanes), 40 channels (a float each),
+    x contiguous, a masked batch (each row's padded tokens zero, as the model
+    hands them over: the mirrored conv sees zeros past a row's end), and the
+    cell's two shapes cut small: time [200, 819, 256] (13 runs of 63
+    tokens), frequency [2048, 100, 256] (2 runs of 50)."""
+    gen = torch.Generator(device=dev).manual_seed(21)
+    seqs, steps, d, strided = {"small": (5, 70, 256, True), "d40": (3, 67, 40, True),
+                               "contiguous": (5, 70, 256, False),
+                               "masked": (6, 130, 256, True), "time": (200, 819, 256, True),
+                               "freq": (2048, 100, 256, True)}[shape]
+    x, w, bias = _conv_args(gen, seqs, steps, dev, d, strided)
+    if shape == "masked":
+        n_valid = torch.tensor([130, 129, 64, 3, 1, 0], device=dev)
+        pad = torch.arange(steps, device=dev)[None, :] >= n_valid[:, None]
+        x.masked_fill_(pad[..., None], 0.0)
+    u = _check_conv(x, w, bias, reverse)
+    if shape == "masked":  # a row's valid outputs are those of the row alone
+        for r, n in enumerate(n_valid.tolist()[:-1]):  # the last row has no valid token
+            alone = _check_conv(x[r:r + 1, :n].contiguous(), w, bias, reverse)
+            assert torch.equal(u[r:r + 1, :n], alone)
+
+
+def test_conv1d_silu_kernel_reads_x_in_place(dev, monkeypatch):
+    """x as the first half of the in_proj rows: the kernel gets its data
+    pointer and a token stride of 2 * d_inner (no copy), and gives the same
+    bits as from a contiguous copy."""
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.ops import (
+        cuda_scan,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(22)
+    x, w, bias = _conv_args(gen, 4, 50, dev)
+    calls = []
+    real = kernels.launch
+
+    def spy(name, *args):
+        calls.append((name, args))
+        real(name, *args)
+
+    monkeypatch.setattr(kernels, "launch", spy)
+    with torch.no_grad():
+        strided = cuda_scan.conv1d_silu(x, w, bias, True)
+        copied = cuda_scan.conv1d_silu(x.contiguous(), w, bias, True)
+    assert [c[0] for c in calls] == ["conv1d_silu", "conv1d_silu"]
+    assert calls[0][1][0] == x.data_ptr() and calls[0][1][8] == 512
+    assert calls[1][1][8] == 256
+    assert torch.equal(strided, copied)
+
+
+def test_conv1d_silu_opcheck_on_cuda(dev):
+    from torch.library import opcheck
+
+    from speech_enhancement_via_hybrid_vision_transformer_project_tpu_torch.ops import (
+        cuda_scan,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+    for strided, reverse in ((True, False), (False, True)):
+        opcheck(cuda_scan.conv1d_silu_op, _conv_args(gen, 3, 9, dev, 64, strided) + (reverse,))

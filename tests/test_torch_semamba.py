@@ -1,6 +1,7 @@
 """SEMamba's generator on the port: ``models/semamba.py`` against the plain
 reference ``portbench/reference/semamba.py``, the selective scan's plain
-version against a float64 loop, padding invariance, the enhancer's SEMamba
+version against a float64 loop, the depthwise conv with its SiLU against a
+float64 sum of shifted inputs, padding invariance, the enhancer's SEMamba
 path, the factory and the CLIs, the FLOP count and the benchmark's drive."""
 
 import json
@@ -259,6 +260,119 @@ def test_kernel_record_and_op():
     assert CONFIG["model"]["d_state"] in cuda_scan.STATES
 
 
+# --- the depthwise conv and its SiLU ------------------------------------------------
+
+
+def _causal_conv_silu64(x, w, bias):
+    """The causal depthwise conv and its SiLU in float64, as a sum of the
+    input shifted by 3, 2, 1 and 0 steps (zeros before the first)."""
+    x, w, bias = x.double(), w.double(), bias.double()
+    g, length, d = x.shape
+    k = w.shape[-1]
+    xp = torch.cat([x.new_zeros(g, k - 1, d), x], dim=1)
+    acc = bias.expand(g, length, d)
+    for j in range(k):
+        acc = acc + w[:, 0, j] * xp[:, j:j + length]
+    return F.silu(acc)
+
+
+def _conv_inputs(g=4, length=23, d=16, seed=5, strided=True):
+    """x as the model hands it over (the first half of the in_proj rows) or
+    contiguous, a conv weight [d, 1, 4] and bias at mamba_ssm's scale."""
+    gen = torch.Generator().manual_seed(seed)
+    xz = 2.0 * torch.randn(g, length, 2 * d, generator=gen)
+    x = xz[..., :d] if strided else xz[..., :d].contiguous()
+    w = 0.5 * torch.randn(d, 1, 4, generator=gen)
+    return x, w, 0.3 * torch.randn(d, generator=gen)
+
+
+@pytest.mark.parametrize("length", [1, 3, 100])
+@pytest.mark.parametrize("strided", [True, False], ids=["xz_half", "contiguous"])
+@pytest.mark.parametrize("reverse", [False, True], ids=["forward", "reverse"])
+def test_conv_silu_plain_matches_float64(reverse, strided, length):
+    """The op's CPU impl against the conv in float64: causal, or mirrored as
+    the causal conv of the flipped sequence, flipped back; fewer steps than
+    taps (1, 3) and many. Tolerance 1e-6 of the largest output: four fp32
+    products summed into the bias and a SiLU (observed 1.8e-7)."""
+    x, w, bias = _conv_inputs(length=length, strided=strided)
+    assert x.is_contiguous() != strided
+    with torch.no_grad():
+        got = cuda_scan.conv1d_silu(x, w, bias, reverse)
+    want = (_causal_conv_silu64(x.flip(1), w, bias).flip(1) if reverse
+            else _causal_conv_silu64(x, w, bias))
+    assert got.shape == x.shape and got.is_contiguous() and got.dtype == torch.float32
+    assert float((got.double() - want).abs().max()) <= 1e-6 * float(want.abs().max())
+
+
+def test_conv_op_passes_opcheck_on_the_cpu():
+    """Schema, fake impl against the plain outputs, and dispatch, x strided
+    and contiguous, both directions."""
+    from torch.library import opcheck
+
+    for strided, reverse in ((True, False), (False, True), (True, True)):
+        x, w, bias = _conv_inputs(g=3, length=9, d=8, strided=strided)
+        opcheck(cuda_scan.conv1d_silu_op, (x, w, bias, reverse))
+
+
+def test_conv_kernel_reads_x_in_place(monkeypatch):
+    """The op's CUDA impl, its launch stubbed: x handed over where it lies in
+    the in_proj rows (its data pointer, a token every 2 * d_inner floats),
+    u allocated contiguous, the direction and the width passed."""
+    import contextlib
+
+    calls = []
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(kernels, "launch", lambda name, *a: calls.append((name, a)))
+    x, w, bias = _conv_inputs(g=3, length=9, d=8)
+    u = cuda_scan._conv_kernel(x, w, bias, True)
+    ((name, args),) = calls
+    assert name == "conv1d_silu"
+    assert args[:4] == (x.data_ptr(), w.data_ptr(), bias.data_ptr(), u.data_ptr())
+    assert args[4:] == (3, 9, 8, 4, 16, 1)
+    assert u.shape == x.shape and u.is_contiguous()
+
+
+def test_conv_refuses_a_gradient_and_what_it_does_not_take(monkeypatch):
+    x, w, bias = _conv_inputs(g=2, length=5, d=8)
+    with pytest.raises(RuntimeError, match="forward only"):
+        cuda_scan.conv1d_silu(x, w.clone().requires_grad_(), bias)
+    with pytest.raises(ValueError, match="weight must be"):
+        cuda_scan.conv1d_silu(x, w[:4], bias)
+    monkeypatch.setattr(kernels, "launch", lambda *a: pytest.fail("launched"))
+    with pytest.raises(ValueError, match="width 3"):
+        cuda_scan._conv_kernel(x, w[..., :3], bias, False)
+    with pytest.raises(ValueError, match="rows of tokens"):
+        cuda_scan._conv_kernel(x.transpose(0, 1), w, bias, False)
+
+
+def test_conv_kernel_takes_any_stride_of_a_size_one_axis(monkeypatch):
+    """Views of the in_proj rows with one sequence or one step (a size-1
+    axis's stride, never stepped, is the rows' and may stay so through
+    ``.contiguous()``): the kernel reads them in place, a sequence of one
+    step at the sequences' stride."""
+    import contextlib
+
+    calls = []
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(kernels, "launch", lambda name, *a: calls.append(a))
+    x, w, bias = _conv_inputs(g=3, length=9, d=8)
+    for cut, token in ((x[1:2, 4:5], 8), (x[:, 4:5], 144), (x[1:2], 16)):
+        cuda_scan._conv_kernel(cut, w, bias, False)
+        assert calls[-1][0] == cut.data_ptr() and calls[-1][4:7] == cut.shape
+        assert calls[-1][8] == token
+
+
+def test_conv_kernel_record_and_op():
+    k = kernels.KERNELS["conv1d_silu"]
+    assert k.source == "csrc/conv1d_silu.cu" and k.replaces == kernels.NO_TPU_KERNEL
+    assert k.entry == "sevit_conv1d_silu" and len(k.argtypes) == 11
+    assert hasattr(torch.ops.sevit, "conv1d_silu")
+    assert CONFIG["model"]["d_conv"] in cuda_scan.WIDTHS
+    # the benchmark finds the scan's kernels by the registry name: this one
+    # must not pass for one of them
+    assert not k.name.startswith("selective_scan")
+
+
 # --- the enhancer ---------------------------------------------------------------------
 
 
@@ -308,6 +422,7 @@ def test_enhancer_matches_the_reference_pipeline(small):
     valid = int((1 + lens // 100).sum())
     assert delta("semamba.true_frames") == valid and delta("semamba.padded_frames") == 3 * frames
     assert delta("semamba.scan_calls") == 8 and delta("semamba.instance_norm_calls") == 16
+    assert delta("semamba.conv_calls") == 8
     assert delta("semamba.scan_tokens") == 8 * valid * 100
 
 
@@ -342,18 +457,21 @@ def test_spans_and_counters_name_the_encoder_blocks_and_decoders(small):
     tracing.enable()
     try:
         with torch.no_grad():
+            convs = tracing.counters().get("semamba.conv_calls", 0)
             calls = _counter("semamba.scan_calls",
                              lambda: model(torch.randn(1, 2, 12, 201), torch.tensor([9]), 9))
+            convs = tracing.counters().get("semamba.conv_calls", 0) - convs
     finally:
         tracing.disable()
     spans = tracing.spans()
     assert [s.id for s in spans if s.name == "semamba.tfmamba"] == [1, 2]
     assert {"semamba.encoder", "semamba.decoders"} <= {s.name for s in spans}
-    assert calls == 8  # 4 a block: time and frequency, both directions
+    assert calls == convs == 8  # 4 a block: time and frequency, both directions
     with torch.no_grad():
         norms = _counter("semamba.instance_norm_calls",
                          lambda: model(torch.randn(1, 2, 12, 201)))
-    assert norms == 16
+        convs = _counter("semamba.conv_calls", lambda: model(torch.randn(1, 2, 12, 201)))
+    assert norms == 16 and convs == 8
 
 
 # --- the factory and the CLIs -------------------------------------------------------
